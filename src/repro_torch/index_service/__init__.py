@@ -6,6 +6,9 @@ Public API:
   Consistency:   IndexSnapshot, VersionManager, build_snapshot
   Front end:     IndexService, ServiceConfig — batched mixed
                  get/range/insert/delete/contains ops
+  Scans:         ScanPage / PinnedView / scan_pages / repack_pages —
+                 paged (keys, vals, live_mask) streams in base+delta
+                 merge order over a view pinned at iterator creation
 """
 
 from repro_torch.index_service.compact import (
@@ -22,7 +25,18 @@ from repro_torch.index_service.delta import (
     live_mask,
     member,
 )
-from repro_torch.index_service.plane import DevicePlane
+from repro_torch.index_service.plane import (
+    DevicePlane,
+    scan_plane_key,
+    scan_plane_key_eq,
+)
+from repro_torch.index_service.scan import (
+    PinnedView,
+    ScanPage,
+    pin_view,
+    repack_pages,
+    scan_pages,
+)
 from repro_torch.index_service.service import IndexService, ServiceConfig
 from repro_torch.index_service.snapshot import (
     MERGED_STRATEGIES,
@@ -36,7 +50,9 @@ __all__ = [
     "CompactionStall", "CompactionStats", "Compactor", "merge_delta",
     "DeltaBuffer", "collapse_levels", "combine_for_device", "count_less",
     "live_mask", "member",
-    "IndexService", "ServiceConfig", "DevicePlane",
+    "IndexService", "ServiceConfig",
+    "DevicePlane", "scan_plane_key", "scan_plane_key_eq",
+    "PinnedView", "ScanPage", "pin_view", "repack_pages", "scan_pages",
     "IndexSnapshot", "MERGED_STRATEGIES", "REFERENCE_STRATEGY",
     "VersionManager", "build_snapshot",
 ]

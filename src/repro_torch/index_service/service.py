@@ -18,7 +18,10 @@ Request routing (paper section in parentheses):
     the rest goes through the same exact rank path;
   * ``insert`` / ``delete``     — staged into the active delta (§3.3's
     open problem, LSM-style); compaction merges them into the next
-    snapshot version.
+    snapshot version;
+  * ``scan`` / ``scan_batch``   — merged range scans: exact float64
+    pages from a pinned view on the host, or every page of a range in
+    one launch of the fused scan kernel.
 
 Every public op records count/latency; ``stats_summary()`` reports
 ns/op, hit rates and compaction telemetry.
@@ -51,7 +54,13 @@ from repro_torch.index_service.delta import (
     live_mask,
     member,
 )
-from repro_torch.index_service.plane import DevicePlane
+from repro_torch.index_service.plane import DevicePlane, scan_plane_key
+from repro_torch.index_service.scan import (
+    PinnedView,
+    pin_view,
+    scan_page_bound,
+    scan_pages,
+)
 from repro_torch.index_service.snapshot import (
     VersionManager,
     build_snapshot,
@@ -104,7 +113,8 @@ def _default_rmi(n: int) -> RMIConfig:
 # a counter group in ``stats`` and an ``op.<name>.latency_s`` histogram
 # in the service registry.
 INSTRUMENTED_OPS: Tuple[str, ...] = (
-    "get", "contains", "range", "insert", "delete", "lookup_batch",
+    "get", "contains", "range", "insert", "delete", "scan",
+    "lookup_batch", "scan_batch",
 )
 
 _STATS_KEYS: Tuple[str, ...] = (
@@ -113,7 +123,9 @@ _STATS_KEYS: Tuple[str, ...] = (
     "range", "range_s",
     "insert", "insert_s", "insert_applied",
     "delete", "delete_s", "delete_applied",
+    "scan", "scan_s", "scan_pages", "scan_rows",
     "lookup_batch", "lookup_batch_s",
+    "scan_batch", "scan_batch_s",
     "compactions", "compact_s", "compact_stalls",
     "write_stalls", "write_stall_s",
     "leaves_refit", "cold_builds",
@@ -178,7 +190,8 @@ class IndexService:
         self.metrics = metrics if metrics is not None else MetricsRegistry(
             "index_service"
         )
-        # the device-resident delta slab lives behind this boundary; orchestration only captures state and
+        # every device-resident mirror (lookup slab + scan plane) lives
+        # behind this boundary; orchestration only captures state and
         # signals invalidation (see plane.DevicePlane)
         self._plane = DevicePlane(self.metrics)
         # legacy dict surface, now a live view over registry counters
@@ -187,6 +200,9 @@ class IndexService:
             op: self.metrics.histogram(f"op.{op}.latency_s")
             for op in INSTRUMENTED_OPS
         }
+        self._op_hist["scan_page"] = self.metrics.histogram(
+            "op.scan_page.latency_s"
+        )
         self._op_hist["compact"] = self.metrics.histogram(
             "op.compact.latency_s"
         )
@@ -350,6 +366,112 @@ class IndexService:
         self.stats["range_s"] += dt
         self._observe_op("range", dt)
         return int(ranks[0]), int(ranks[1])
+
+    # ---- scans -----------------------------------------------------------
+    def _pin(self) -> PinnedView:
+        """One immutable capture of the merged read state for an open
+        scan: snapshot + delta stack collapsed under the lock, valid
+        (and consistent) no matter what churn follows."""
+        with self._lock:
+            return pin_view(self._mgr.current(), self._frozen, self._active)
+
+    def scan(self, lo: float, hi: float, page_size: int = 256):
+        """Stream the live rows with keys in [lo, hi) as fixed-size
+        `ScanPage`s — `(keys, vals, live_mask)` in global base+delta
+        merge order, tombstones elided, staged inserts woven in with
+        their values, exact in float64.
+
+        The view pins at call time: writes, compactions, and snapshot
+        swaps between pages never tear an open iterator (it keeps
+        answering for the key set as of the call).  Empty or inverted
+        ranges yield no pages."""
+        t0 = time.perf_counter()
+        with obs_trace.span("service.scan", cat="service"):
+            view = self._pin()
+        setup = time.perf_counter() - t0
+        self.stats["scan"] += 1
+        self.stats["scan_s"] += setup
+        self._observe_op("scan", setup)
+
+        def pages():
+            # time the generator STEP: t1 is taken before next() so page
+            # production lands in scan_s and the per-page histogram
+            it = scan_pages(view, lo, hi, page_size)
+            while True:
+                t1 = time.perf_counter()
+                with obs_trace.span("service.scan_page", cat="service"):
+                    page = next(it, None)
+                if page is None:
+                    return
+                dt = time.perf_counter() - t1
+                self.stats["scan_pages"] += 1
+                self.stats["scan_rows"] += page.count
+                self.stats["scan_s"] += dt
+                self._observe_op("scan_page", dt)
+                yield page
+
+        return pages()
+
+    def _scan_plane_cached(self):
+        """The device-resident scan plane for the current (snapshot,
+        delta) version: staged-insert arrays plus the prefix-sum page
+        index (`scan.device_scan_slab`), packed and uploaded once per
+        version and reused by every `scan_batch` until the next write
+        or compaction — keyed on (snapshot identity, delta identity +
+        mutation version)."""
+        with self._lock:
+            snap, frozen, active = (
+                self._mgr.current(), self._frozen, self._active
+            )
+            key = scan_plane_key(snap, frozen, active)
+            hit = self._plane.cached_scan_slab(key)
+            if hit is not None:
+                return snap, hit[0], hit[1]
+            view = pin_view(snap, frozen, active)
+        # the O(n) index build + upload run OUTSIDE the lock (the
+        # pinned view is immutable), so writers and compaction commits
+        # don't stall behind it
+        slab, ins_n = self._plane.build_scan_slab(
+            key, view, snap.keys.norm, snap.keys.normalize, snap.device
+        )
+        return snap, slab, ins_n
+
+    def scan_batch(self, lo: float, hi: float, page_size: int = 256):
+        """Device fast path for scans: ONE dispatch — endpoint ranking,
+        page starts, and every page gather fused into one launch of the
+        scan kernel (`snapshot.scan_range_fn`; its plain twin under the
+        non-kernel strategies).  The merged ranks ``(r0, r1)`` of
+        [lo, hi) never touch the host; the only host work is a cache
+        hit on the scan plane and a conservative page-count bound for
+        the output shape.
+
+        Returns ``(keys (G, page_size) f32, vals i32, live_mask bool)``
+        tensors on the service's device, in the snapshot's *normalized
+        float32 frame* with int32 values; pages past the range come back
+        fully masked.  Exact whenever float32 normalization is injective
+        over the base+delta keys (the range endpoints included), the
+        same caveat as `lookup_batch`; `scan` is the exact float64
+        surface."""
+        t0 = time.perf_counter()
+        with obs_trace.span("service.scan_batch", cat="service"):
+            snap, (ins, ivals, ins_rank, lp), ins_n = self._scan_plane_cached()
+            lo_hi = snap.keys.normalize(np.array([lo, hi], np.float64))
+            # output-shape bound (host metadata sizing the output, not a
+            # rank fed to the device), taken in the float32 frame the
+            # device ranks in: the reference's float64 window plus one
+            # page is too small where a float32 duplicate run widens the
+            # range, and the output would drop rows (ROADMAP queue C)
+            pages = scan_page_bound(
+                [snap.keys.norm], ins_n, *lo_hi, page_size
+            )
+            fn = snap.scan_range_fn(self.config.strategy, page_size, pages)
+            bounds = torch.as_tensor(lo_hi, device=snap.device)
+            out = fn(bounds, ins, ivals, ins_rank, lp)
+        dt = time.perf_counter() - t0
+        self.stats["scan_batch"] += 1
+        self.stats["scan_batch_s"] += dt
+        self._observe_op("scan_batch", dt)
+        return out
 
     def _rank_exact(self, q: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
         snap, frozen, active, dk, dp = self._capture()
@@ -772,9 +894,16 @@ class IndexService:
                              if s["contains"] else 0.0),
             },
             "range": per_op("range"),
+            "scan": {
+                "count": int(s["scan"]),
+                "pages": int(s["scan_pages"]),
+                "rows": int(s["scan_rows"]),
+                "total_s": round(s["scan_s"], 4),
+            },
             "insert": {**per_op("insert"), "applied": int(s["insert_applied"])},
             "delete": {**per_op("delete"), "applied": int(s["delete_applied"])},
             "lookup_batch": per_op("lookup_batch"),
+            "scan_batch": per_op("scan_batch"),
             "compactions": {
                 "count": int(s["compactions"]),
                 "total_s": round(s["compact_s"], 4),

@@ -124,6 +124,24 @@ class IndexSnapshot:
             )
         return cached
 
+    def _device_base(self) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(normalized float32 keys, int32 payload) on this snapshot's
+        device for the scan closures.  The keys are `_device_tree`'s
+        tensor, not a second upload; the payload is clipped to int32 and
+        uploaded once (zeros on the device when the snapshot has
+        none)."""
+        cached = self._compiled.get("devbase")
+        if cached is None:
+            base_norm = self._device_tree()[1]
+            if self.vals is not None:
+                bvals = torch.as_tensor(np.clip(
+                    self.vals, np.iinfo(np.int32).min, np.iinfo(np.int32).max
+                ).astype(np.int32), device=self.device)
+            else:
+                bvals = torch.zeros(self.n, dtype=torch.int32, device=self.device)
+            cached = self._compiled["devbase"] = (base_norm, bvals)
+        return cached
+
     def _kernel_args(self):
         tree, base_norm = self._device_tree()
         return (tree["s0"], tree["leaf_w"], tree["leaf_b"], tree["err_lo"],
@@ -182,6 +200,70 @@ class IndexSnapshot:
                     return _inner(q, dkeys, dprefix)
 
             self._compiled[strategy] = fn
+        return fn
+
+    def scan_page_fn(
+        self, strategy: str = "binary", page_size: int = 256
+    ) -> Callable:
+        """fn (starts, ins_keys, ins_vals, del_pos, end_rank) ->
+        (keys (G, page_size) f32, vals i32, live_mask bool) — one page
+        of merged rows per start rank, gathered straight out of
+        base+delta merge order without materializing the merge.
+
+        The kernel strategies (``cuda``/``cuda_fused``) run
+        `rmi_scan_page_cuda`; every other strategy runs its plain twin
+        (`ref.rmi_scan_page_reference`).  Delta inputs come from
+        `scan.device_scan_plan`.  Same float32/int32 exactness caveat as
+        ``lookup_batch`` — the host `IndexService.scan` path is the
+        exact float64 surface."""
+        validate_strategy(strategy)
+        use_kernel = strategy in KERNEL_STRATEGIES
+        key = f"scan:{'kernel' if use_kernel else 'plain'}:{page_size}"
+        fn = self._compiled.get(key)
+        if fn is None:
+            base_norm, bvals = self._device_base()
+
+            def fn(starts, ins_keys, ins_vals, del_pos, end_rank):
+                return kernels_ops.rmi_scan_page_op(
+                    starts, base_norm, bvals, ins_keys, ins_vals,
+                    del_pos, end_rank,
+                    page_size=page_size, use_kernel=use_kernel,
+                    strategy=strategy,
+                )
+
+            self._compiled[key] = fn
+        return fn
+
+    def scan_range_fn(
+        self, strategy: str = "binary", page_size: int = 256,
+        max_pages: int = 1,
+    ) -> Callable:
+        """fn (bounds, ins_keys, ins_vals, ins_rank, live_prefix)
+        -> (keys (max_pages, page_size) f32, vals i32, live_mask bool)
+        — the FUSED scan read path: the merged ranks of ``bounds =
+        [lo, hi)``, every page start, and every row gather happen in
+        one dispatch (`kernels.ops.rmi_scan_range_op`: one launch of
+        `rmi_scan_range_cuda` under the kernel strategies, its plain
+        twin otherwise).  Nothing ranks on the host; ``max_pages`` is
+        only the output-shape bound (pages past the range come back
+        masked).  Delta inputs come from `scan.device_scan_slab`,
+        cached by the service per (snapshot, delta version)."""
+        validate_strategy(strategy)
+        use_kernel = strategy in KERNEL_STRATEGIES
+        key = f"scanr:{'kernel' if use_kernel else 'plain'}:{page_size}:{max_pages}"
+        fn = self._compiled.get(key)
+        if fn is None:
+            base_norm, bvals = self._device_base()
+
+            def fn(bounds, ins_keys, ins_vals, ins_rank, live_prefix):
+                return kernels_ops.rmi_scan_range_op(
+                    bounds, base_norm, bvals, live_prefix, ins_keys,
+                    ins_vals, ins_rank,
+                    page_size=page_size, max_pages=max_pages,
+                    use_kernel=use_kernel, strategy=strategy,
+                )
+
+            self._compiled[key] = fn
         return fn
 
     def base_lookup_fn(self, strategy: str = "binary") -> Callable:

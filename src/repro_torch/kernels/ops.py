@@ -21,6 +21,7 @@ from repro_torch.kernels.rmi_lookup import (
     rmi_merged_lookup_cuda,
     stage0_flat,
 )
+from repro_torch.kernels.rmi_scan import rmi_scan_page_cuda, rmi_scan_range_cuda
 from repro_torch.obs import metrics as obs_metrics
 from repro_torch.obs import trace as obs_trace
 
@@ -201,3 +202,58 @@ def rmi_merged_lookup_op(index, sorted_keys_norm, q_norm: torch.Tensor,
     with dispatch_span("rmi_merged_lookup", kernel=_on_card(q_norm),
                        strategy=strategy or "cuda_fused", sig=sig):
         return rmi_merged_lookup_cuda(*args, **kw)
+
+
+def rmi_scan_page_op(
+    starts, base_keys, base_vals, ins_keys, ins_vals, del_pos, end_rank,
+    *, page_size=256, use_kernel=True, strategy=None,
+):
+    """Rank-addressed merged scan gather -> (keys, vals, live_mask).
+
+    Page g holds the merged rows at ranks ``starts[g] + [0, page_size)``
+    of (base minus dead positions) ∪ (effective staged inserts) —
+    tombstones elided, insert values woven in — without materializing
+    the merge: `rmi_scan_page_cuda` on the card, its plain version on
+    the CPU or with ``use_kernel=False``.  Keys are in the snapshot's
+    normalized float32 frame and values int32; ``live_mask`` is True
+    for ranks in [0, end_rank).  ``base_keys``/``base_vals`` are tensors;
+    the other inputs may be arrays and move to their device."""
+    dev = base_keys.device
+    args = (
+        torch.as_tensor(starts, dtype=torch.int32, device=dev),
+        base_keys, base_vals,
+        torch.as_tensor(ins_keys, dtype=torch.float32, device=dev),
+        torch.as_tensor(ins_vals, dtype=torch.int32, device=dev),
+        torch.as_tensor(del_pos, dtype=torch.int32, device=dev),
+        torch.as_tensor(end_rank, dtype=torch.int32, device=dev).reshape(1),
+    )
+    sig = (_shape(args[0]), _shape(base_keys), _shape(args[3]), page_size)
+    impl = rmi_scan_page_cuda if use_kernel else ref.rmi_scan_page_reference
+    with dispatch_span("rmi_scan_page", kernel=use_kernel and _on_card(base_keys),
+                       strategy=strategy, sig=sig + (use_kernel,)):
+        keys, vals, live = impl(*args, page_size=page_size)
+        return keys, vals, live.bool()
+
+
+def rmi_scan_range_op(
+    bounds, base_keys, base_vals, live_prefix, ins_keys, ins_vals,
+    ins_rank, *, page_size=256, max_pages=1, use_kernel=True, strategy=None,
+):
+    """Fused endpoint ranking + paged merged-scan gather: ONE dispatch
+    computes the merged ranks of ``bounds = [lo, hi)`` and every page of
+    rows in between -> (keys, vals, live_mask), each (max_pages,
+    page_size).  Ranks, page starts and rows all resolve on the device
+    through the prefix-sum page index (``live_prefix``, ``ins_rank``,
+    from `index_service.scan.device_scan_slab`); ``max_pages`` is a
+    conservative shape bound and pages past the range come back
+    masked.  `rmi_scan_range_cuda` on the card, its plain version on the
+    CPU or with ``use_kernel=False``."""
+    dev = base_keys.device
+    args = (torch.as_tensor(bounds, dtype=torch.float32, device=dev),
+            base_keys, base_vals, live_prefix, ins_keys, ins_vals, ins_rank)
+    sig = (_shape(base_keys), _shape(ins_keys), page_size, max_pages)
+    impl = rmi_scan_range_cuda if use_kernel else ref.rmi_scan_range_reference
+    with dispatch_span("rmi_scan_range", kernel=use_kernel and _on_card(base_keys),
+                       strategy=strategy, sig=sig + (use_kernel,)):
+        keys, vals, live = impl(*args, page_size=page_size, max_pages=max_pages)
+        return keys, vals, live.bool()

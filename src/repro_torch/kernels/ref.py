@@ -83,3 +83,168 @@ def rmi_merged_lookup_reference(
     d = delta_keys.shape[0]
     dlb = search_lib.lower_bound_full(delta_keys, q)
     return base, base + delta_prefix[torch.clamp(dlb, max=d)]
+
+
+# ---------------------------------------------------------------------------
+# merged range scans (`csrc/rmi_scan.cu`)
+# ---------------------------------------------------------------------------
+# Integer searches, compares and gathers only: the kernels equal these
+# bit for bit on every lane, masked lanes included.  int32 sums wrap as
+# they do in the reference.
+
+_INF = float("inf")
+
+
+def array_lower_bound(arr: torch.Tensor, q: torch.Tensor, size: int,
+                      steps: int) -> torch.Tensor:
+    """Branchless lower bound of each q in arr[0:size], ``steps`` fixed
+    trips (the reference's `_array_lower_bound`).  Converged lanes are
+    pinned with ``lo < hi``: scan queries may equal or pass every stored
+    element (+inf sentinels, positions past the pad), and extra trips
+    must not walk ``lo`` off the end."""
+    lo = torch.zeros(q.shape, dtype=torch.int32, device=q.device)
+    hi = torch.full_like(lo, size)
+    for _ in range(steps):
+        mid = (lo + hi) >> 1
+        v = arr[torch.clamp(mid, 0, size - 1)]
+        r = (v < q) & (lo < hi)
+        lo = torch.where(r, mid + 1, lo)
+        hi = torch.where(r, hi, mid)
+    return lo
+
+
+def merged_rank_from_prefix(q, base_keys, live_prefix, ins_keys, *,
+                            steps: int, isteps: int) -> torch.Tensor:
+    """``live_prefix[lower_bound(base, q)] + lower_bound(ins, q)``: the
+    merged lower-bound rank of each q (the reference's
+    `_merged_rank_from_prefix`)."""
+    bl = array_lower_bound(base_keys, q, base_keys.shape[0], steps)
+    ins = array_lower_bound(ins_keys, q, ins_keys.shape[0], isteps)
+    return live_prefix[bl] + ins
+
+
+def _emit(t_valid, p, j, base_keys, base_vals, ins_keys, ins_vals):
+    """min(base row p, insert row j) with its source's value; base wins
+    a tie.  Lanes with ``t_valid`` False come back (+inf, 0, 0)."""
+    n, ni = base_keys.shape[0], ins_keys.shape[0]
+    inf = torch.tensor(_INF, dtype=torch.float32, device=p.device)
+    a_key = torch.where((p < 0) | (p >= n), inf,
+                        base_keys[torch.clamp(p, 0, n - 1)])
+    a_val = base_vals[torch.clamp(p, 0, n - 1)]
+    c_key = torch.where(j >= ni, inf, ins_keys[torch.clamp(j, 0, ni - 1)])
+    c_val = ins_vals[torch.clamp(j, 0, ni - 1)]
+    from_ins = c_key < a_key
+    key = torch.where(t_valid, torch.where(from_ins, c_key, a_key), inf)
+    val = torch.where(t_valid, torch.where(from_ins, c_val, a_val),
+                      torch.zeros_like(a_val))
+    return key, val, t_valid.to(torch.int32)
+
+
+def scan_rows_from_index(t, valid, base_keys, base_vals, live_prefix,
+                         ins_keys, ins_vals, ins_rank, *, psteps: int,
+                         msteps: int):
+    """One merged row per target rank through the prefix-sum page index
+    (the reference's `_scan_rows_from_index`): ``j = lower_bound(ins_rank,
+    t)`` staged inserts precede rank t, and the (t-j)-th live base row
+    is ``lower_bound(live_prefix, t - j + 1) - 1``."""
+    n, ni = base_keys.shape[0], ins_keys.shape[0]
+    j = array_lower_bound(ins_rank, t, ni, msteps)
+    p = array_lower_bound(live_prefix, t - j + 1, n + 1, psteps) - 1
+    return _emit(valid, p, j, base_keys, base_vals, ins_keys, ins_vals)
+
+
+def scan_page_body(t, base_keys, base_vals, ins_keys, ins_vals, del_pos,
+                   end_rank, *, steps: int, isteps: int, dsteps: int):
+    """One merged row per target rank by nested searches (the
+    reference's `_scan_page_body`): the partition finds how many staged
+    inserts precede rank t (``isteps`` trips, each a base lower bound and
+    a ``del_pos`` lower bound), the select finds the (t-j)-th live base
+    position (``steps`` trips, each a ``del_pos`` lower bound)."""
+    n, ni, nd = base_keys.shape[0], ins_keys.shape[0], del_pos.shape[0]
+    inf = torch.tensor(_INF, dtype=torch.float32, device=t.device)
+    lo = torch.zeros(t.shape, dtype=torch.int32, device=t.device)
+    hi = torch.full_like(lo, ni)
+    for _ in range(isteps):
+        mid = (lo + hi) >> 1
+        ck = torch.where(mid >= ni, inf, ins_keys[torch.clamp(mid, 0, ni - 1)])
+        bl = array_lower_bound(base_keys, ck, n, steps)
+        dl = array_lower_bound(del_pos, bl, nd, dsteps)
+        pred = mid + (bl - dl) >= t
+        adv = ~pred & (lo < hi)
+        lo = torch.where(adv, mid + 1, lo)
+        hi = torch.where(pred, mid, hi)
+    j = lo
+    i = t - j
+    lo = torch.zeros_like(j)
+    hi = torch.full_like(j, n)
+    for _ in range(steps):
+        mid = (lo + hi) >> 1
+        dl = array_lower_bound(del_pos, mid + 1, nd, dsteps)
+        pred = (mid + 1 - dl) >= (i + 1)
+        adv = ~pred & (lo < hi)
+        lo = torch.where(adv, mid + 1, lo)
+        hi = torch.where(pred, mid, hi)
+    valid = (t >= 0) & (t < end_rank)
+    return _emit(valid, lo, j, base_keys, base_vals, ins_keys, ins_vals)
+
+
+def trip_counts(*sizes: int):
+    """The fixed trip count of a full lower bound over each array size,
+    as the reference derives the scan kernels' ``steps`` (N), ``isteps``
+    (inserts), ``psteps`` (N+1), ``msteps`` (``ins_rank``) and
+    ``dsteps`` (``del_pos``)."""
+    return [search_lib._steps_for_window(s) for s in sizes]
+
+
+def rmi_scan_range_reference(
+    bounds: torch.Tensor,          # (2,) f32 normalized [lo, hi)
+    base_keys: torch.Tensor,       # (N,) sorted normalized f32
+    base_vals: torch.Tensor,       # (N,) int32
+    live_prefix: torch.Tensor,     # (N+1,) int32 prefix-sum page index
+    ins_keys: torch.Tensor,        # (D,) +inf-padded eff. insert keys
+    ins_vals: torch.Tensor,        # (D,) int32
+    ins_rank: torch.Tensor,        # (D,) int32 merged rank per insert
+    *,
+    page_size: int,
+    max_pages: int,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain twin of `rmi_scan_range_cuda`: the merged ranks ``(r0, r1)``
+    of [lo, hi) and every row at ranks ``r0 + [0, max_pages*page_size)``
+    -> ``(keys f32, vals i32, live i32)``, each (max_pages, page_size);
+    lanes at or past ``max(r1, r0)`` are masked."""
+    n = base_keys.shape[0]
+    steps, isteps, psteps, msteps = trip_counts(
+        n, ins_keys.shape[0], n + 1, ins_rank.shape[0])
+    r = merged_rank_from_prefix(bounds, base_keys, live_prefix, ins_keys,
+                                steps=steps, isteps=isteps)
+    r0 = r[0]
+    r1 = torch.maximum(r[1], r0)
+    t = r0 + torch.arange(max_pages * page_size, dtype=torch.int32,
+                          device=bounds.device).reshape(max_pages, page_size)
+    return scan_rows_from_index(
+        t, t < r1, base_keys, base_vals, live_prefix, ins_keys, ins_vals,
+        ins_rank, psteps=psteps, msteps=msteps)
+
+
+def rmi_scan_page_reference(
+    starts: torch.Tensor,          # (G,) int32 page start ranks
+    base_keys: torch.Tensor,       # (N,) sorted normalized f32
+    base_vals: torch.Tensor,       # (N,) int32
+    ins_keys: torch.Tensor,        # (Di,) +inf-padded eff. insert keys
+    ins_vals: torch.Tensor,        # (Di,) int32
+    del_pos: torch.Tensor,         # (Dd,) n-padded dead base positions
+    end_rank: torch.Tensor,        # (1,) int32
+    *,
+    page_size: int,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain twin of `rmi_scan_page_cuda`: page g holds the merged rows
+    at ranks ``starts[g] + [0, page_size)`` -> ``(keys f32, vals i32,
+    live i32)``, each (G, page_size); ranks outside [0, end_rank) are
+    masked."""
+    steps, isteps, dsteps = trip_counts(
+        base_keys.shape[0], ins_keys.shape[0], del_pos.shape[0])
+    t = starts[:, None] + torch.arange(page_size, dtype=torch.int32,
+                                       device=starts.device)[None, :]
+    return scan_page_body(t, base_keys, base_vals, ins_keys, ins_vals,
+                          del_pos, end_rank[0], steps=steps, isteps=isteps,
+                          dsteps=dsteps)

@@ -21,7 +21,7 @@ from repro_torch.index_service import (  # noqa: E402
     ServiceConfig,
     build_snapshot,
 )
-from repro_torch.kernels import rmi_lookup  # noqa: E402
+from repro_torch.kernels import nvcc, rmi_lookup, rmi_scan  # noqa: E402
 
 SRC = pathlib.Path(__file__).resolve().parents[1] / "src"
 
@@ -35,7 +35,7 @@ for name in names:
 bad = sorted(k for k in sys.modules
              if k == "jax" or k.startswith("jax.") or k == "repro"
              or k.startswith("repro."))
-print(len(names), bad)
+print(len(names), bad, *names)
 """
 
 
@@ -45,9 +45,12 @@ def test_port_imports_no_jax_and_no_reference():
     out = subprocess.run(
         [sys.executable, "-c", _PROBE], capture_output=True, text=True,
         env=env, check=True, timeout=120,
-    ).stdout.split(maxsplit=1)
+    ).stdout.split()
     assert int(out[0]) >= 20, "walked too few modules"
-    assert out[1].strip() == "[]"
+    assert out[1] == "[]"
+    for name in ("repro_torch.index_service.scan", "repro_torch.kernels.rmi_scan",
+                 "repro_torch.kernels.nvcc"):
+        assert name in out[2:], name
 
 
 def _keys(n=300):
@@ -86,19 +89,31 @@ def test_cpu_tensors_take_the_plain_version_without_building():
     """A wrapper given CPU tensors runs its plain version: no build, no
     launch counted."""
     rmi_lookup.reset_launch_counts()
+    rmi_scan.reset_launch_counts()
     svc = IndexService(_keys(), ServiceConfig(strategy="cuda_fused"), device="cpu")
     svc.lookup_batch(_keys()[:50])
+    svc.scan_batch(100.0, 9e5, 16)
+    snap = svc._mgr.current()
+    snap.scan_page_fn("cuda_fused", 16)(
+        np.arange(3, dtype=np.int32), np.full(64, np.inf, np.float32),
+        np.zeros(64, np.int32), np.full(64, snap.n, np.int32), snap.n)
     assert rmi_lookup.LAUNCHES == {"rmi_lookup_cuda": 0, "rmi_merged_lookup_cuda": 0}
-    assert rmi_lookup._LIB is None
+    assert rmi_scan.LAUNCHES == {"rmi_scan_range_cuda": 0, "rmi_scan_page_cuda": 0}
+    assert nvcc._LIBS == {}
 
 
 def test_kernel_build_targets_hopper_with_separate_roundings():
-    flags = " ".join(rmi_lookup.NVCC_FLAGS)
+    flags = " ".join(nvcc.NVCC_FLAGS)
     assert "arch=compute_90a,code=sm_90a" in flags and "-fmad=false" in flags
-    assert rmi_lookup.library_path().parent == rmi_lookup.build_dir()
+    assert rmi_lookup.library_path().parent == nvcc.build_dir()
     src = rmi_lookup.SOURCE.read_text()
     assert "template <bool WITH_DELTA>" in src
     assert "rmi_merged_lookup_pallas" in src and "rmi_lookup_pallas" in src
+    scan_src = rmi_scan.SOURCE.read_text()
+    assert "rmi_scan_range_pallas" in scan_src and "rmi_scan_page_pallas" in scan_src
+    # each library is named by its own source
+    assert rmi_lookup.library_path() != nvcc.library_path(rmi_scan.SOURCE)
+    assert nvcc.library_path(rmi_scan.SOURCE).name.startswith("rmi_scan-")
 
 
 def test_launch_rejects_what_the_kernel_does_not_take():
