@@ -19,22 +19,32 @@ is non-zero:
                scans at n = 50k (float32 ties between staged inserts and
                base keys, NaN / inverted / out-of-span bounds, negative
                and wrapping page starts, unpadded power-of-two deltas);
+               the sharded lookup and scan at S in {1, 3, 4} unequal
+               shards (empty, staged and unpadded deltas, stride-0 rows,
+               page sizes 256 / 160 / 1);
   3. main path — `IndexService(strategy="cuda_fused")` over
                gen_maps(n) with a zero payload: every stored key at its
                float32 lower bound, then 300k inserts (values 1..300k) +
                300k deletes checked through get / lookup_batch /
-               range_lookup / contains against NumPy oracles, ~30 range
-               scans through scan_batch / scan_page_fn / scan, a warm
-               compaction (flush) and the same checks again.  Each path
-               (lookups, scans) runs with the launch counts zeroed just
-               before and read just after; the dispatch ledger of the
-               whole run;
+               range_lookup / contains against NumPy oracles, the
+               snapshot's `sharded_fused` strategy against `cuda_fused`,
+               ~30 range scans through scan_batch / scan_page_fn / scan,
+               a warm compaction (flush) and the same checks again.  Then,
+               with that service released, `ShardedIndexService(
+               num_shards=4, strategy="sharded_fused")` over the same
+               keys: the same writes routed across the shards, every read
+               and scan check staged and after a flush, one dispatch per
+               warm read; and a 2M-key sharded service through a
+               rebalance to three shards.  Each path runs with the launch
+               counts zeroed just before and read just after;
   4. times   — kernel, plain version and torch.searchsorted (the
                paper's binary-search yardstick, timed only) with CUDA
                events, the bound from bytes over 3.35 TB/s, lookup_batch
                queries/s end to end; both scan kernels and their plain
                versions at 1<<20 and 1<<22 rows, scan_batch rows/s and
-               the host build of the scan slab (`scan.pack_slab`).
+               the host build of the scan slab (`scan.pack_slab`); the
+               sharded lookup at S = 4 x 1<<20 queries and the sharded
+               scan at 1<<20 and 1<<22 rows, on the staged sharded index.
 
 The last line is ``{"ok": true, "device": {...}}``.  Without a card the
 script exits non-zero before printing any result.
@@ -43,6 +53,7 @@ script exits non-zero before printing any result.
 from __future__ import annotations
 
 import argparse
+import gc
 import json
 import pathlib
 import subprocess
@@ -227,9 +238,19 @@ class Oracle:
                 - np.searchsorted(normalize(self.dels), qn))
 
 
-def check_reads(svc, oracle, rng, tag, n_get, n_batch):
-    """get / lookup_batch / range_lookup / contains against the oracle."""
-    snap = svc._mgr.current()
+def check_reads(svc, oracle, rng, tag, n_get, n_batch, f32_ranks=None, stored=None):
+    """get / lookup_batch / range_lookup / contains against the oracle,
+    each warm read one dispatch.  lookup_batch is checked on keys stored
+    in the base (``stored``, default the oracle's base: the window
+    contract's domain); ``f32_ranks(q)`` gives its float32 merged ranks
+    (default: the single service's snapshot frame)."""
+    from repro_torch.kernels import ops
+    if f32_ranks is None:
+        snap = svc._mgr.current()
+
+        def f32_ranks(qb):
+            return oracle.rank_f32(snap.keys.norm, snap.keys.normalize,
+                                   snap.keys.normalize(qb))
     base = oracle.base
     live_pick = np.concatenate([rng.choice(base, n_get // 4), oracle.ins[
         rng.integers(0, max(1, oracle.ins.size), n_get // 4)] if oracle.ins.size
@@ -247,10 +268,18 @@ def check_reads(svc, oracle, rng, tag, n_get, n_batch):
         want = tuple(int(x) for x in oracle.rank(np.array([lo, hi])))
         check(svc.range_lookup(lo, hi) == want, f"{tag}: range_lookup")
     # lookup_batch over stored base keys (the window contract's domain)
-    qb = rng.choice(base, n_batch)
+    qb = rng.choice(base if stored is None else stored, n_batch)
     got = svc.lookup_batch(qb).cpu().numpy()
-    want = oracle.rank_f32(snap.keys.norm, snap.keys.normalize, snap.keys.normalize(qb))
-    check(bool((got == want).all()), f"{tag}: lookup_batch f32 merged ranks")
+    check(bool((got == f32_ranks(qb)).all()), f"{tag}: lookup_batch f32 merged ranks")
+    # warm reads: one dispatch each (unmentioned keys, so contains
+    # reaches the device)
+    qa = absent[:1000]
+    for name, call in (("get", lambda: svc.get(qa)), ("contains", lambda: svc.contains(qa)),
+                       ("range_lookup", lambda: svc.range_lookup(qa[0], qa[1])),
+                       ("lookup_batch", lambda: svc.lookup_batch(qa))):
+        with ops.count_dispatches() as nd:
+            call()
+            check(nd() == 1, f"{tag}: warm {name} is one dispatch, not {nd()}")
     return {"get": n_get, "contains": n_get, "range_lookup": 100, "lookup_batch": n_batch}
 
 
@@ -576,86 +605,619 @@ def bound_bytes(batch, steps, dsteps, d, merged, s0_bytes):
     return total
 
 
-def main(argv=None) -> int:
-    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--n", type=int, default=PAPER_N, help="main-path key count")
-    ap.add_argument("--seed", type=int, default=0)
-    args = ap.parse_args(argv)
+def sharded_bound_bytes(batch, shards, steps, dsteps, d, s0_bytes):
+    """Least bytes the sharded lookup must move.  Each query's bounded
+    search reaches device memory only on the row of the shard that owns
+    it, where it costs what `bound_bytes` charges a query.  On each of
+    the other S - 1 rows it clamps to that shard's first or last leaf
+    and position, lines that all such lanes share, so there it costs
+    only its key read and its two outputs.  The stacked delta (``d``
+    entries in all) is read at most once."""
+    return (bound_bytes(batch, steps, dsteps, d, True, s0_bytes)
+            + (shards - 1) * batch * 12)
 
+
+def lookup_mismatch(got, want):
+    """0 when both (base, merged) pairs are bit-identical, else the
+    largest |difference|."""
+    return max(int((g.long() - w.long()).abs().max()) if g.numel() else 0
+               for g, w in zip(got, want))
+
+
+def host_profile(fn, reps, top=12):
+    """cProfile of ``reps`` calls of ``fn``: total seconds and each of
+    the ``top`` functions' share of it, by own time and by cumulative
+    time."""
+    import cProfile
+    import pstats
+    prof = cProfile.Profile()
+    prof.enable()
+    for _ in range(reps):
+        fn()
+    prof.disable()
+    stats = pstats.Stats(prof).stats
+    total = sum(tt for _, _, tt, _, _ in stats.values())
+
+    def name(f):
+        return f"{pathlib.Path(f[0]).name}:{f[1]}({f[2]})"
+
+    def ranked(i):
+        rows = sorted(stats.items(), key=lambda kv: -kv[1][i])[:top]
+        return [{"fn": name(f), "share": v[i] / total} for f, v in rows]
+
+    return {"total_s": total, "reps": reps, "by_own": ranked(2), "by_cumulative": ranked(3)}
+
+
+# ---------------------------------------------------------------------------
+# the sharded kernels against their plain versions (phase 2)
+# ---------------------------------------------------------------------------
+
+SHARD_SIZES = {1: (50_000,), 3: (9_000, 26_000, 15_000), 4: (9_000, 21_000, 14_000, 6_000)}
+SHARD_LEAF_DIV = (48, 64, 30, 100)
+
+
+def _stacked_delta_rows(rows):
+    """Per-shard (dk, dp) pairs stacked as the sharded service stacks
+    them: keys +inf-padded to the widest row, prefixes repeating their
+    last value."""
+    d = max(dk.size for dk, _ in rows)
+    dks = np.full((len(rows), d), np.inf, np.float32)
+    dps = np.zeros((len(rows), d + 1), np.int32)
+    for s, (dk, dp) in enumerate(rows):
+        dks[s, : dk.size] = dk
+        dps[s, : dp.size] = dp
+        dps[s, dp.size:] = dp[-1]
+    return dks, dps
+
+
+def compare_sharded_lookup_kernel(rng, device, record):
+    """`rmi_sharded_merged_lookup_cuda` against its plain version on the
+    card, bit for bit: S in {1, 3, 4} shards of unequal sizes and leaf
+    counts (Maps keys and a duplicate-heavy key set), an empty, a staged
+    and an unpadded power-of-two delta, stored / absent / duplicate-run
+    queries and queries above and below every key, batches of 777 and
+    1<<20, and query and delta rows broadcast with stride 0."""
     import torch
-    if not torch.cuda.is_available():
-        print("chip_smoke: CUDA is not available", file=sys.stderr)
-        return 2
     from repro_torch.core import RMIConfig, build_rmi, make_keyset
-    from repro_torch.data import gen_lognormal, gen_maps
+    from repro_torch.data import gen_maps
+    from repro_torch.index_service.delta import DeltaBuffer, combine_for_device
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.rmi_lookup import rmi_sharded_merged_lookup_cuda
+
+    t = lambda a: torch.as_tensor(np.ascontiguousarray(a), device=device)  # noqa: E731
+    worst = 0
+    for label, raw in (("maps", gen_maps(SMALL_N, seed=5)),
+                       ("dup", np.unique(_dup_heavy(rng, SMALL_N)))):
+        for S, sizes in SHARD_SIZES.items():
+            cuts = np.concatenate([[0], np.cumsum(sizes)]) * raw.size // sum(sizes)
+            shards = []
+            for s in range(S):
+                ks = make_keyset(raw[cuts[s]:cuts[s + 1]])
+                shards.append((ks, build_rmi(ks, RMIConfig(
+                    num_leaves=max(16, ks.n // SHARD_LEAF_DIV[s]), stage0_hidden=(),
+                    stage0_train_steps=0), device=device)))
+            st = ops.stack_shard_arrays([i for _, i in shards], [k.norm for k, _ in shards],
+                                        device)
+            deltas = {"empty": [combine_for_device(None, None, k.normalize) for k, _ in shards]}
+            staged, pow2 = [], []
+            for s, (ks, _) in enumerate(shards):
+                ins = _absent(ks.raw, rng.uniform(ks.raw[0], ks.raw[-1], 1200))
+                dels = np.sort(rng.choice(ks.raw, min(700, ks.n // 4), replace=False))
+                buf = DeltaBuffer.from_arrays(ins, np.zeros(ins.size, np.int64), dels,
+                                              ins.size + dels.size)
+                staged.append(combine_for_device(None, buf, ks.normalize))
+                k = 1024 if s == 0 else 300    # row 0 exactly 1024 staged: no pad
+                buf = DeltaBuffer.from_arrays(np.sort(ins[:k // 2]), np.zeros(k // 2, np.int64),
+                                              dels[:k - k // 2], k)
+                pow2.append(combine_for_device(None, buf, ks.normalize, min_pad=1))
+            deltas["staged"], deltas["pow2"] = staged, pow2
+            edges = np.array([raw[0] - 1.0, raw[0], raw[-1], raw[-1] + 1.0, -1e300, 1e300])
+            qraw = {"stored": rng.choice(raw, 20_000),
+                    "absent": rng.uniform(raw[0], raw[-1], 20_000), "edges": edges}
+            pool = np.concatenate(list(qraw.values()))
+            qraw["batch_777"] = rng.choice(pool, 777)
+            qraw["batch_1M"] = rng.choice(pool, BIG_BATCH)
+            sizes_t = (st["shard_n"], st["shard_m"], st["shard_ratio"])
+            stacked = (st["stage0"], st["leaf_w"], st["leaf_b"], st["err_lo"], st["err_hi"],
+                       st["keys"])
+            kw = dict(hidden=st["hidden"], max_window=st["max_window"])
+            for dname, rows in deltas.items():
+                dks, dps = _stacked_delta_rows(rows)
+                dkt, dpt = t(dks), t(dps)
+                for qname, q in qraw.items():
+                    qs = t(np.stack([k.normalize(q) for k, _ in shards]))
+                    views = [(qs, dkt, dpt)]
+                    if qname == "batch_777":  # broadcast rows, read in place
+                        views.append((qs[:1].expand(S, -1), dkt[:1].expand(S, -1),
+                                      dpt[:1].expand(S, -1)))
+                    for vq, vdk, vdp in views:
+                        kb, kc = rmi_sharded_merged_lookup_cuda(vq, *stacked, vdk, vdp,
+                                                                *sizes_t, **kw)
+                        pb, pc = ref.rmi_sharded_merged_lookup_reference(
+                            vq, *stacked, vdk, vdp, *sizes_t, **kw)
+                        torch.cuda.synchronize()
+                        err = max(int((kb - pb).abs().max()), int((kc - pc).abs().max()))
+                        worst = max(worst, err)
+                        record.append({"keys": label, "S": S, "delta": dname, "queries": qname,
+                                       "broadcast": vq.stride(0) == 0, "batch": int(vq.shape[1]),
+                                       "max_abs_err": err})
+                        check(err == 0, f"sharded lookup kernel != plain: {label}/S{S}/"
+                                        f"{dname}/{qname}")
+                    # stored keys at each shard's own float32 lower bound
+                    if qname == "stored":
+                        for s, (ks, _) in enumerate(shards):
+                            qn = ks.normalize(q)
+                            mine = np.isin(qn, ks.norm)
+                            want = np.searchsorted(ks.norm, qn[mine])
+                            check(bool((kb[s].cpu().numpy()[mine] == want).all()),
+                                  f"sharded lookup: stored keys of shard {s} off their bound")
+    return worst
+
+
+def compare_sharded_scan_kernel(rng, device, record):
+    """`rmi_sharded_scan_page_cuda` against its plain version on the
+    card, bit for bit, through the op (rank pre-pass, kernel, reduction)
+    and raw (adversarial owners, an int32-wrapping local rank): S in
+    {1, 3, 4} shard slabs with staged inserts (some tying base keys in
+    float32) and tombstones; NaN, inverted, infinite and out-of-span
+    bounds; page sizes 256, 160 and 1."""
+    import torch
+    from repro_torch.data import gen_maps
+    from repro_torch.index_service.scan import stack_scan_slabs
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.rmi_scan import rmi_sharded_scan_page_cuda
+
+    t = lambda a: torch.as_tensor(np.ascontiguousarray(a), device=device)  # noqa: E731
+    raw = gen_maps(SMALL_N, seed=6)
+    worst = 0.0
+    for S, sizes in SHARD_SIZES.items():
+        cuts = np.concatenate([[0], np.cumsum(sizes)]) * raw.size // sum(sizes)
+        views = []
+        for s in range(S):
+            part = raw[cuts[s]:cuts[s + 1]]
+            fresh = _absent(part, rng.uniform(part[0], part[-1], 800))
+            ties = _absent(part, part[rng.choice(part.size, 60)] * (1 + 1e-13) + 1e-9)
+            ins = np.unique(np.concatenate([fresh, ties]))
+            dels = np.sort(rng.choice(part, 500, replace=False))
+            views.append(_pin_arrays(part, rng.integers(-(1 << 40), 1 << 40, part.size), ins,
+                                     rng.integers(1, 1 << 31, ins.size), dels))
+        p = stack_scan_slabs(views)
+        slabs = [t(p[k]) for k in ("base", "bvals", "live_prefix", "ins", "ivals", "ins_rank")]
+        nb = p["base"]
+        live = sum(v.live_count for v in views)
+        bounds = [(nb[0, 10], nb[-1, 100]), (nb[0, 500], nb[0, 100]), (np.nan, nb[0, 77]),
+                  (nb[0, 77], np.nan), (-np.inf, np.inf), (-2.0, -1.0), (1.5, 3.0),
+                  (nb[S // 2, 3], nb[S // 2, (cuts[S // 2 + 1] - cuts[S // 2]) * 3 // 4])]
+        for page_size in SCAN_PAGE_SIZES:
+            pages = min(-(-live // page_size) + 2, 4096)
+            for lo, hi in bounds:
+                b = t(np.array([lo, hi], np.float32))
+                kw = dict(page_size=page_size, max_pages=pages)
+                got = ops.rmi_sharded_scan_page_op(b, *slabs, **kw)
+                want = ops.rmi_sharded_scan_page_op(b, *slabs, use_kernel=False, **kw)
+                err = scan_mismatch(got, want)
+                worst = max(worst, err)
+                check(err == 0, f"sharded scan kernel != plain: S{S}/{(lo, hi)}/{page_size}")
+            owners = [t(np.array(a, np.int32)[:S]) for a in (
+                [0, 2**31 - 5, 7, live // 2], [0, 300, 600, 900],
+                [300, 600, 900, 2**31 - 1])]
+            kw = dict(page_size=page_size, max_pages=min(pages, 64))
+            err = scan_mismatch(rmi_sharded_scan_page_cuda(*slabs, *owners, **kw),
+                                ref.rmi_sharded_scan_page_reference(*slabs, *owners, **kw))
+            worst = max(worst, err)
+            check(err == 0, f"raw sharded scan kernel != plain: S{S}/{page_size}")
+        torch.cuda.synchronize()
+        record.append({"S": S, "live": int(live), "max_abs_err": worst})
+    return worst
+
+
+# ---------------------------------------------------------------------------
+# the sharded main path (phases 3-4)
+# ---------------------------------------------------------------------------
+
+def check_snapshot_sharded(snap, dk, dp, rng, device, batch=BIG_BATCH):
+    """`IndexSnapshot.merged_lookup_fn("sharded_fused")` on the staged
+    index: equal to `cuda_fused` on stored keys (both outputs, and the
+    float32 lower bound), and bit-identical to its plain version (the
+    twin on the same broadcast rows, routed and reassembled) on stored
+    and absent queries.  Absent queries have no window guarantee under
+    either strategy's RMIs, so there the two may differ; the count of
+    absent queries each one places off the float32 lower bound is
+    reported."""
+    import torch
+    from repro_torch.kernels import ops, ref
+
+    ks = snap.keys
+    t0 = time.perf_counter()
+    plan = snap._sharded_plan()
+    out = {"plan_s": time.perf_counter() - t0, "S": plan["S"],
+           "shard_n": plan["shard_n"].tolist(), "max_window": plan["max_window"]}
+    fn, cf = snap.merged_lookup_fn("sharded_fused"), snap.merged_lookup_fn("cuda_fused")
+    S = plan["S"]
+    stacked = [plan[k] for k in ("stage0", "leaf_w", "leaf_b", "err_lo", "err_hi", "keys")]
+    sizes = (plan["shard_n"], plan["shard_m"], plan["shard_ratio"])
+    for name, qn in (("stored", ks.norm[rng.choice(ks.n, batch)]),
+                     ("absent", ks.normalize(rng.uniform(ks.raw[0], ks.raw[-1], batch)))):
+        q = torch.as_tensor(np.ascontiguousarray(qn, np.float32), device=device)
+        b, m = fn(q, dk, dp)
+        lb, ct = ref.rmi_sharded_merged_lookup_reference(
+            q.expand(S, -1), *stacked, dk.expand(S, -1), dp.expand(S, -1), *sizes,
+            hidden=plan["hidden"], max_window=plan["max_window"])
+        pb, pm = ops.sharded_reassemble(lb, ct, torch.searchsorted(plan["starts"], q, right=True),
+                                        plan["base_off"], plan["base_off"])
+        check(bool(torch.equal(b, pb) and torch.equal(m, pm)),
+              f"snapshot sharded_fused ({name}): kernel path != plain version")
+        cb, cm = cf(q, dk, dp)
+        b, m, cb, cm = (x.cpu().numpy() for x in (b, m, cb, cm))
+        want = np.searchsorted(ks.norm, qn)
+        if name == "stored":
+            check(bool(np.array_equal(b, cb) and np.array_equal(m, cm)),
+                  "snapshot sharded_fused != cuda_fused on stored keys")
+            check(bool(np.array_equal(b, want)), "snapshot sharded_fused off the f32 lower bound")
+        else:
+            hit = (b == want) & (cb == want)
+            check(bool(np.array_equal(m[hit], cm[hit])), "sharded_fused merged != cuda_fused")
+            out["absent_off_bound"] = {"sharded_fused": int((b != want).sum()),
+                                       "cuda_fused": int((cb != want).sum()),
+                                       "differ": int((b != cb).sum()), "of": int(batch)}
+    return out
+
+
+def sharded_lookup_oracle(svc, oracle):
+    """lookup_batch's float32 ranks on the sharded service: per routed
+    shard, the count of live keys (the global oracle's, cut at the
+    router's boundaries) whose float32 key in that shard's own frame
+    lies below the query's, plus the live keys of the lower shards."""
+    edges = np.concatenate([[-np.inf], svc.router.boundaries, [np.inf]])
+    shards = [sh._mgr.current().keys.normalize for sh in svc.shards]
+    lives = []
+    for s in range(len(shards)):
+        a, b = np.searchsorted(oracle.base, edges[s:s + 2])
+        part = oracle.base[a:b]
+        d0, d1 = np.searchsorted(oracle.dels, edges[s:s + 2])
+        keep = np.ones(part.size, bool)
+        keep[np.searchsorted(part, oracle.dels[d0:d1])] = False
+        i0, i1 = np.searchsorted(oracle.ins, edges[s:s + 2])
+        kept, ins = part[keep], oracle.ins[i0:i1]
+        lives.append(shards[s](np.insert(kept, np.searchsorted(kept, ins), ins)))
+    offs = np.concatenate([[0], np.cumsum([lv.size for lv in lives])])
+
+    def f32_ranks(qb):
+        route = svc.router.route(qb)
+        out = np.zeros(qb.size, np.int64)
+        for s, lv in enumerate(lives):
+            m = route == s
+            out[m] = offs[s] + np.searchsorted(lv, shards[s](qb[m]))
+        return out
+    return f32_ranks
+
+
+def sharded_scan_state(svc, oracle):
+    """The float32-frame scan oracle of the sharded service: the shards'
+    bases (concatenated: their ranges tile the key space) with their
+    staged inserts and tombstones, in the scan plane's shared frame.
+    The staged entries come from the shards' delta buffers and must make
+    up exactly the global oracle's live set."""
+    plane = svc._scan_plane()
+    snaps, ins, ivals, dels = [], [], [], []
+    for sh in svc.shards:
+        snap, frozen, active = sh._state()
+        check(frozen is None, "scan oracle: a shard holds a frozen delta level")
+        snaps.append(snap)
+        ins.append(active.ins_keys)
+        ivals.append(active.ins_vals)
+        dels.append(active.del_keys)
+    raw = np.concatenate([sn.keys.raw for sn in snaps])
+    vals = np.concatenate([sn.vals for sn in snaps])
+    ins, ivals, dels = np.concatenate(ins), np.concatenate(ivals), np.concatenate(dels)
+    want = oracle.base.size + oracle.ins.size - oracle.dels.size
+    check(raw.size + ins.size - dels.size == want, "scan oracle: live count")
+    fake = types.SimpleNamespace(keys=types.SimpleNamespace(
+        raw=raw, norm=plane.normalize(raw), normalize=plane.normalize), vals=vals)
+    return ScanState(fake, ins, ivals, dels)
+
+
+def check_sharded_scans(svc, state, ranges, tag, device):
+    """The scan checks of `check_scans` on the sharded service: each
+    scan_batch one dispatch, bit-identical to the plain op on the same
+    plane, its count the float32 rank difference, its keys the float32
+    merge in the plane's frame, its values equal outside tied float32
+    groups; the host `scan` equal to the float64 merge up to 100k rows."""
+    import torch
+    from repro_torch.kernels import ops
+
+    rows, worst = [], 0.0
+    plane = svc._scan_plane()
+    slabs = (plane.base, plane.bvals, plane.live_prefix, plane.ins, plane.ivals, plane.ins_rank)
+    for name, (lo, hi) in ranges.items():
+        lo_n, hi_n = (np.float32(x) for x in plane.normalize(np.array([lo, hi])))
+        r0 = int(state.rank_f32(lo_n))
+        r1 = max(int(state.rank_f32(hi_n)), r0)
+        want_k, want_v, src = state.rows_f32(lo_n, hi_n)
+        mixed = _mixed_groups(want_k, src)
+        for page_size in SCAN_PAGE_SIZES:
+            with ops.count_dispatches() as nd:
+                keys, vals, live = svc.scan_batch(lo, hi, page_size)
+                check(nd() == 1, f"{tag}/{name}: sharded scan_batch is one dispatch")
+            plain = ops.rmi_sharded_scan_page_op(
+                torch.as_tensor(np.array([lo_n, hi_n]), device=device), *slabs,
+                page_size=page_size, max_pages=keys.shape[0], use_kernel=False,
+                strategy="plain_check")
+            err = scan_mismatch((keys, vals, live), plain)
+            worst = max(worst, err)
+            check(err == 0, f"{tag}/{name}/{page_size}: sharded scan_batch != plain version")
+            m = live.flatten()
+            count = int(m.sum())
+            check(count == r1 - r0, f"{tag}/{name}: {count} rows, ranks say {r1 - r0}")
+            check(count == 0 or bool(m[:count].all()), f"{tag}/{name}: live rows not a prefix")
+            got_k = keys.flatten()[:count].cpu().numpy()
+            got_v = vals.flatten()[:count].cpu().numpy()
+            check(bool(np.array_equal(got_k, want_k)), f"{tag}/{name}: sharded scan keys")
+            check(bool(np.array_equal(got_v[~mixed], want_v[~mixed].astype(np.int32))),
+                  f"{tag}/{name}: sharded scan values")
+        host = None
+        if r1 - r0 <= HOST_SCAN_ROWS:
+            pages = list(svc.scan(lo, hi, SCAN_PAGE_SIZES[0]))
+            hk = np.concatenate([p.keys[p.live_mask] for p in pages]) if pages else np.empty(0)
+            hv = (np.concatenate([p.vals[p.live_mask] for p in pages]) if pages
+                  else np.empty(0, np.int64))
+            ek, ev = state.rows_f64(lo, hi)
+            check(bool(np.array_equal(hk, ek) and np.array_equal(hv, ev)),
+                  f"{tag}/{name}: sharded host scan != float64 oracle")
+            host = int(hk.size)
+        rows.append({"range": name, "rows": r1 - r0, "tied_rows": int(mixed.sum()),
+                     "host_rows": host})
+    return rows, worst, {"plane": plane}
+
+
+SHARDED_PATHS = {"sharded_lookup": ("rmi_sharded_merged_lookup_cuda",),
+                 "sharded_scan": ("rmi_sharded_scan_page_cuda",)}
+
+
+def drive_sharded(svc, base, rng, device, tag, n_writes, n_get, n_lookup, windows,
+                  rebalance_to=None):
+    """Writes, reads and scans on a sharded service over ``base`` (zero
+    payload): ``n_writes`` inserts (values 1..n) and deletes routed
+    across the shards, then get / contains / range_lookup / lookup_batch
+    and the scan ranges against the oracles; optionally a rebalance to
+    ``rebalance_to`` shards; a flush; and all the checks again.  Each
+    path's launch counts go to ``windows``.  Returns the staged plan
+    and plane (for the times), the oracle state and a summary."""
+    ins = _absent(base, rng.uniform(base[0], base[-1], n_writes * 11 // 10))
+    ins = np.sort(rng.choice(ins, n_writes, replace=False))
+    dels = np.sort(rng.choice(base, n_writes, replace=False))
+    ins_vals = 1 + np.arange(ins.size, dtype=np.int64)
+    t0 = time.perf_counter()
+    check(svc.insert(ins, ins_vals) == ins.size, f"{tag}: insert applied count")
+    check(svc.delete(dels) == dels.size, f"{tag}: delete applied count")
+    summary = {"write_s": time.perf_counter() - t0}
+    oracle = Oracle(base, ins, dels)
+    ranges = None
+    kept = None
+    states = []
+    staged = {}
+    for step in ("staged", "rebalanced", "compacted"):
+        if step == "rebalanced":
+            if rebalance_to is None:
+                continue
+            t0 = time.perf_counter()
+            svc.rebalance(rebalance_to)
+            summary["rebalance_s"] = time.perf_counter() - t0
+            check(svc.num_shards == rebalance_to, f"{tag}: rebalance to {rebalance_to} shards")
+        if step == "compacted":
+            t0 = time.perf_counter()
+            svc.flush()
+            summary["flush_s"] = time.perf_counter() - t0
+            check(all(len(sh._active) == 0 and sh.num_delta_levels == 0 for sh in svc.shards),
+                  f"{tag}: a shard kept staged entries through flush")
+            kept = np.ones(base.size, bool)
+            kept[np.searchsorted(base, dels)] = False
+            live = np.insert(base[kept], np.searchsorted(base[kept], ins), ins)
+            raw = np.concatenate([sh._mgr.current().keys.raw for sh in svc.shards])
+            check(bool(np.array_equal(raw, live)), f"{tag}: compacted key set")
+            vals = np.concatenate([sh._mgr.current().vals for sh in svc.shards])
+            want = np.zeros(live.size, np.int64)
+            want[np.searchsorted(live, ins)] = ins_vals
+            check(bool(np.array_equal(vals, want)), f"{tag}: compacted payload")
+            oracle = Oracle(live, np.empty(0), np.empty(0))
+        reset_counts()
+        t0 = time.perf_counter()
+        checked = check_reads(
+            svc, oracle, rng, f"{tag}/{step}", n_get, n_lookup,
+            f32_ranks=sharded_lookup_oracle(svc, oracle),
+            stored=np.concatenate([sh._mgr.current().keys.raw for sh in svc.shards]))
+        windows.append(("sharded_lookup", read_counts()))
+        if step == "staged":
+            staged["plan"] = svc._device_plan()
+        read_s = time.perf_counter() - t0
+        reset_counts()
+        t0 = time.perf_counter()
+        svc._scan_plane()   # cold: packs and uploads the stacked scan plane
+        plane_s = time.perf_counter() - t0
+        state = sharded_scan_state(svc, Oracle(base, ins, dels) if step != "compacted"
+                                   else oracle)
+        if ranges is None:
+            ranges = scan_ranges(state.raw, state.norm, ins, dels, rng)
+        rows, err, info = check_sharded_scans(svc, state, ranges, f"{tag}/{step}", device)
+        windows.append(("sharded_scan", read_counts()))
+        if step == "staged":
+            staged.update(plane=info["plane"], state=state)
+        summary[step] = {"checked": checked, "read_s": read_s,
+                         "scan_s": time.perf_counter() - t0,
+                         "scan_plane_build_s": plane_s,
+                         "scan_max_abs_err": err, "ranges": rows,
+                         "shards": svc.num_shards,
+                         "shard_live_keys": svc.stats_summary()["shard_live_keys"]}
+        states.append(err)
+    summary["scan_max_abs_err"] = max(states)
+    return staged, ranges, summary
+
+
+def run_sharded(args, base, rng, dev, card):
+    """The sharded main path at scale: `ShardedIndexService(num_shards=4,
+    strategy="sharded_fused")` over ``base`` (zero payload), staged and
+    compacted, then its times."""
+    import torch
+    from repro_torch.index_service import ServiceConfig, ShardedIndexService
+    from repro_torch.index_service.scan import scan_page_bound
+    from repro_torch.kernels import ops, ref, rmi_lookup
+    from repro_torch.kernels.rmi_lookup import rmi_sharded_merged_lookup_cuda
+    from repro_torch.kernels.rmi_scan import rmi_sharded_scan_page_cuda
+
+    t0 = time.perf_counter()
+    svc = ShardedIndexService(
+        base, ServiceConfig(num_shards=4, strategy="sharded_fused", delta_capacity=1 << 20),
+        vals=np.zeros(base.size, np.int64), device=dev)
+    emit({"phase": "sharded_build", "n": int(base.size), "build_s": time.perf_counter() - t0,
+          "shard_n": [sh._mgr.current().n for sh in svc.shards],
+          "num_leaves": [sh._mgr.current().index.num_leaves for sh in svc.shards],
+          "max_window": [sh._mgr.current().index.max_window for sh in svc.shards]})
+    ops.reset_dispatch_stats()
+    windows = []
+    t_main = time.perf_counter()
+    staged, ranges, summary = drive_sharded(svc, base, rng, dev, "sharded", N_WRITES, N_GET,
+                                            N_LOOKUP, windows)
+    launches = {k: 0 for ks in SHARDED_PATHS.values() for k in ks}
+    for path, counts in windows:
+        for k in SHARDED_PATHS[path]:
+            launches[k] += counts[k]
+    ledger = ops.dispatch_summary()
+    emit({"phase": "sharded_main_path", "seconds": time.perf_counter() - t_main,
+          "launches": launches, "windows": windows, "dispatch_rows": ledger["rows"],
+          **summary})
+    for op in ("rmi_sharded_routed_lookup", "rmi_sharded_scan_page"):
+        rows = [r for r in ledger["rows"] if r["op"] == op and r["strategy"] == "sharded_fused"]
+        check(bool(rows) and all(r["path"] == "kernel" for r in rows),
+              f"{op} rows must all be on path kernel")
+    check(all(v > 0 for v in launches.values()), f"a sharded kernel never launched: {launches}")
+
+    # ---- phase 4: times on the staged sharded index ---------------------
+    plan = staged["plan"]
+    S = int(plan.keys.shape[0])
+    # stored keys, absent keys, and keys on and past both ends of the span
+    span = base[-1] - base[0]
+    edges = np.concatenate([[base[0] - 1, base[-1] + 1, base[0], base[-1], -1e30, 1e30],
+                            base[0] - span * np.array([1e-9, 1e-3, 1.0]),
+                            base[-1] + span * np.array([1e-9, 1e-3, 1.0])])
+    absent = _absent(base, rng.uniform(base[0], base[-1], BIG_BATCH // 8))
+    qraw = rng.permutation(np.concatenate([
+        base[rng.choice(base.size, BIG_BATCH - absent.size - edges.size)], absent, edges]))
+    qs = torch.as_tensor(np.stack([norm(qraw) for norm in plan.q_normalizers]), device=dev)
+    args_l = (qs, plan.stage0, plan.leaf_w, plan.leaf_b, plan.err_lo, plan.err_hi, plan.keys,
+              plan.dkeys, plan.dprefix, plan.shard_n, plan.shard_m, plan.shard_ratio)
+    kw = dict(hidden=plan.hidden, max_window=plan.max_window)
+    steps = rmi_lookup._search_steps(plan.max_window)
+    d = int(plan.dkeys.shape[1])
+    dsteps = rmi_lookup._search_steps(d)
+    look = {"S": S, "batch": BIG_BATCH, "absent": int(absent.size), "edges": int(edges.size),
+            "steps": steps, "dsteps": dsteps, "delta_padded": d}
+    look["ms"] = time_ms(lambda: rmi_sharded_merged_lookup_cuda(*args_l, **kw))
+    look["plain_ms"] = time_ms(lambda: ref.rmi_sharded_merged_lookup_reference(*args_l, **kw),
+                               reps=3, warmup=1)
+    look["max_abs_err"] = lookup_mismatch(rmi_sharded_merged_lookup_cuda(*args_l, **kw),
+                                          ref.rmi_sharded_merged_lookup_reference(*args_l, **kw))
+    check(look["max_abs_err"] == 0,
+          f"phase 4: sharded lookup kernel != plain version ({look['max_abs_err']})")
+    look["searchsorted_ms"] = time_ms(lambda: torch.searchsorted(plan.keys, qs))
+    look["bound_ms"] = sharded_bound_bytes(BIG_BATCH, S, steps, dsteps, S * d,
+                                           int(plan.stage0.numel()) * 4) / HBM_BYTES_PER_S * 1e3
+    raw_q = base[rng.choice(base.size, BIG_BATCH)]
+    for batch in (65_536, BIG_BATCH):
+        svc.lookup_batch(raw_q[:batch])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(10):
+            svc.lookup_batch(raw_q[:batch])
+        torch.cuda.synchronize()
+        look[f"lookup_batch_qps_{batch}"] = batch * 10 / (time.perf_counter() - t0)
+    # where lookup_batch's host time goes (cProfile slows it; the rates above are without it)
+    look["host_profile"] = host_profile(lambda: svc.lookup_batch(raw_q), reps=5)
+
+    plane, state0 = staged["plane"], staged["state"]
+    slabs = (plane.base, plane.bvals, plane.live_prefix, plane.ins, plane.ivals, plane.ins_rank)
+    page = SCAN_PAGE_SIZES[0]
+    scans = []
+    for w in BIG_SCANS:
+        lo, hi = ranges[f"r{w}"]
+        qn = plane.normalize(np.array([lo, hi]))
+        r0 = int(state0.rank_f32(qn[0]))
+        rows = max(int(state0.rank_f32(qn[1])), r0) - r0
+        pages = scan_page_bound([plane.base_np[s, : r["n"]] for s, r in enumerate(plane.rows)],
+                                plane.ins_total, *qn, page)
+        owners = ops.sharded_scan_owners(torch.as_tensor(qn, device=dev), plane.base,
+                                         plane.live_prefix, plane.ins)
+        skw = dict(page_size=page, max_pages=pages)
+        row = {"rows": rows, "page_size": page, "lanes": S * pages * page}
+        row["ms"] = time_ms(lambda: rmi_sharded_scan_page_cuda(*slabs, *owners, **skw))
+        row["plain_ms"] = time_ms(
+            lambda: ref.rmi_sharded_scan_page_reference(*slabs, *owners, **skw),
+            reps=2, warmup=1)
+        row["max_abs_err"] = scan_mismatch(
+            rmi_sharded_scan_page_cuda(*slabs, *owners, **skw),
+            ref.rmi_sharded_scan_page_reference(*slabs, *owners, **skw))
+        check(row["max_abs_err"] == 0.0,
+              f"phase 4: sharded scan kernel != plain version at {w} rows")
+        delta_bytes = 12 * int(plane.ins.numel()) + 12 * S
+        row["bound_ms"] = scan_bound_bytes(rows, S * pages * page, index_bytes=4,
+                                           delta_bytes=delta_bytes) / HBM_BYTES_PER_S * 1e3
+        svc.scan_batch(lo, hi, page)   # the service as it stands (compacted), warm
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        for _ in range(5):
+            out = svc.scan_batch(lo, hi, page)
+        torch.cuda.synchronize()
+        row["scan_batch_rows_per_s"] = int(out[2].sum()) * 5 / (time.perf_counter() - t1)
+        scans.append(row)
+    emit({"phase": "sharded_times", "card": card, "n": int(base.size), "lookup": look,
+          "scans": scans})
+    return {"launches": launches, "lookup": look, "scans": scans,
+            "scan_max_abs_err": max([summary["scan_max_abs_err"]]
+                                    + [r["max_abs_err"] for r in scans])}
+
+
+def run_rebalance(args, rng, dev, n=2_000_000):
+    """A 2M-key sharded service (K = 4): staged writes, a rebalance to
+    three shards, a flush, and every read and scan check after each."""
+    from repro_torch.data import gen_maps
+    from repro_torch.index_service import ServiceConfig, ShardedIndexService
+
+    base = gen_maps(n, seed=args.seed + 7)
+    svc = ShardedIndexService(
+        base, ServiceConfig(num_shards=4, strategy="sharded_fused", delta_capacity=1 << 16),
+        vals=np.zeros(base.size, np.int64), device=dev)
+    windows = []
+    _, _, summary = drive_sharded(svc, base, rng, dev, "rebalance", 20_000, 100_000, 200_000,
+                                  windows, rebalance_to=3)
+    counts = {k: sum(c[k] for path, c in windows if k in SHARDED_PATHS[path])
+              for ks in SHARDED_PATHS.values() for k in ks}
+    check(all(v > 0 for v in counts.values()), f"rebalance path: a kernel never launched {counts}")
+    return {"n": int(base.size), "launches": counts, **summary}
+
+
+def reset_counts():
+    from repro_torch.kernels import rmi_lookup, rmi_scan
+    rmi_lookup.reset_launch_counts()
+    rmi_scan.reset_launch_counts()
+
+
+def read_counts():
+    from repro_torch.kernels import rmi_lookup, rmi_scan
+    return {**rmi_lookup.LAUNCHES, **rmi_scan.LAUNCHES}
+
+
+def run_single(args, base, rng, dev, card, record, worst, scan_worst):
+    """Phases 3-4 on the single-shard service over ``base``: the main
+    path (lookups, scans, compaction), the snapshot-level sharded_fused
+    path, and the times.  Returns what the kernels line needs; the
+    service and its tensors go when it returns."""
+    import torch
     from repro_torch.index_service import IndexService, ServiceConfig
-    from repro_torch.index_service.delta import combine_for_device
     from repro_torch.index_service.scan import device_scan_slab, scan_page_bound
-    from repro_torch.kernels import ops, ref, rmi_lookup, rmi_scan
+    from repro_torch.kernels import ops, ref, rmi_lookup
     from repro_torch.kernels.rmi_lookup import rmi_lookup_cuda, rmi_merged_lookup_cuda
     from repro_torch.kernels.rmi_scan import rmi_scan_page_cuda, rmi_scan_range_cuda
 
-    def reset_counts():
-        rmi_lookup.reset_launch_counts()
-        rmi_scan.reset_launch_counts()
-
-    def read_counts():
-        return {**rmi_lookup.LAUNCHES, **rmi_scan.LAUNCHES}
-
-    t_start = time.perf_counter()
-    dev = torch.device(DEVICE)
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True,
-    ).stdout.strip().splitlines()[0]
-    card = f"{smi} (torch {torch.__version__}, CUDA {torch.version.cuda})"
-
-    # ---- phase 1: card + build (one nvcc per source, all at once) --------
-    t0 = time.perf_counter()
-    with ThreadPoolExecutor(2) as pool:
-        libs = list(pool.map(lambda m: m.build(), (rmi_lookup, rmi_scan)))
-    build_s = time.perf_counter() - t0
-    for lib in libs:
-        log = lib.with_suffix(".log").read_text() if lib.with_suffix(".log").exists() else ""
-        emit({"phase": "build", "seconds": build_s, "library": lib.name,
-              "ptxas": [ln.strip() for ln in log.splitlines()
-                        if "registers" in ln or "spill" in ln]})
-
-    # ---- phase 2: kernels against plain versions at n = 50k -----------
-    # a stream of its own: gen_maps(n, seed) draws from default_rng(seed),
-    # and "absent" query candidates must not replay its keys
-    rng = np.random.default_rng((args.seed, 1))
-    record = []
-    worst = 0
-    small = {
-        "maps50k_linear": (gen_maps(SMALL_N, seed=1), ()),
-        "maps50k_mlp16x16": (gen_maps(SMALL_N, seed=2), (16, 16)),
-        "dup50k_linear": (_dup_heavy(rng, SMALL_N), ()),
-        "lognormal50k_linear": (gen_lognormal(SMALL_N, seed=3), ()),
-    }
-    for label, (raw, hidden) in small.items():
-        ks = make_keyset(raw)
-        idx = build_rmi(ks, RMIConfig(
-            num_leaves=max(16, ks.n // 64), stage0_hidden=hidden,
-            stage0_train_steps=300 if hidden else 0), device=dev)
-        found = rmi_lookup_cuda(
-            torch.as_tensor(ks.norm, device=dev),
-            rmi_lookup.stage0_flat(idx.stage0_params, dev),
-            *(torch.as_tensor(a, device=dev) for a in
-              (idx.leaf_w, idx.leaf_b, idx.err_lo, idx.err_hi, ks.norm)),
-            hidden=idx.hidden, n=idx.n, num_leaves=idx.num_leaves,
-            max_window=idx.max_window).cpu().numpy()
-        check(bool((found == np.searchsorted(ks.norm, ks.norm)).all()),
-              f"{label}: stored keys off their lower bound")
-        worst = max(worst, compare_kernels(label, ks, idx, rng, BIG_BATCH, dev, record))
-    scan_record = []
-    scan_worst = compare_scan_kernels(rng, dev, scan_record)
-    emit({"phase": "scan_kernels_vs_plain", "max_abs_err": scan_worst, "rows": scan_record})
-
     # ---- phase 3: the main path at scale ---------------------------------
-    t0 = time.perf_counter()
-    base = gen_maps(args.n, seed=args.seed)
-    gen_s = time.perf_counter() - t0
     t0 = time.perf_counter()
     # a zero payload, so scans carry the staged inserts' values through
     # compaction (gen_maps returns sorted unique keys)
@@ -664,7 +1226,7 @@ def main(argv=None) -> int:
     build_svc_s = time.perf_counter() - t0
     snap0 = svc._mgr.current()
     ks0 = snap0.keys
-    emit({"phase": "service_build", "n": int(ks0.n), "gen_s": gen_s,
+    emit({"phase": "service_build", "n": int(ks0.n),
           "build_s": build_svc_s, "num_leaves": snap0.index.num_leaves,
           "max_window": snap0.index.max_window, "max_dup_run": snap0.max_dup_run})
 
@@ -721,6 +1283,12 @@ def main(argv=None) -> int:
           "delta_entries": len(active)})
     windows.append(("lookup", read_counts()))
 
+    # the snapshot-level sharded_fused strategy on the staged index
+    reset_counts()
+    snapshot_sharded = check_snapshot_sharded(snap0, dk_t, dp_t, rng, dev)
+    windows.append(("snapshot_sharded", read_counts()))
+    emit({"phase": "snapshot_sharded_fused", **snapshot_sharded})
+
     # scans over the staged state
     reset_counts()
     t0 = time.perf_counter()
@@ -761,6 +1329,7 @@ def main(argv=None) -> int:
           "cold_scan_batch_s": compacted["cold_scan_batch_s"], "ranges": scan_rows1})
     main_s = time.perf_counter() - t_main
     path_kernels = {"lookup": ("rmi_lookup_cuda", "rmi_merged_lookup_cuda"),
+                    "snapshot_sharded": ("rmi_sharded_merged_lookup_cuda",),
                     "scan": ("rmi_scan_range_cuda", "rmi_scan_page_cuda")}
     launches = {k: 0 for ks in path_kernels.values() for k in ks}
     for path, counts in windows:
@@ -876,8 +1445,104 @@ def main(argv=None) -> int:
           "pack_slab_s": pack_slab_s, "staged_inserts": int(staged["ins_n"]),
           "tombstones": int(dels.size)})
 
+    return {"times": times, "scan_times": scan_times, "launches": launches,
+            "worst": worst, "scan_worst": scan_worst, "n": int(ks0.n),
+            "snapshot_sharded": snapshot_sharded}
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--n", type=int, default=PAPER_N, help="main-path key count")
+    ap.add_argument("--seed", type=int, default=0)
+    args = ap.parse_args(argv)
+
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: CUDA is not available", file=sys.stderr)
+        return 2
+    from repro_torch.core import RMIConfig, build_rmi, make_keyset
+    from repro_torch.data import gen_lognormal, gen_maps
+    from repro_torch.kernels import rmi_lookup, rmi_scan
+    from repro_torch.kernels.rmi_lookup import rmi_lookup_cuda
+
+    t_start = time.perf_counter()
+    dev = torch.device(DEVICE)
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    ).stdout.strip().splitlines()[0]
+    card = f"{smi} (torch {torch.__version__}, CUDA {torch.version.cuda})"
+
+    # ---- phase 1: card + build (one nvcc per source, all at once) --------
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(2) as pool:
+        libs = list(pool.map(lambda m: m.build(), (rmi_lookup, rmi_scan)))
+    build_s = time.perf_counter() - t0
+    for lib in libs:
+        log = lib.with_suffix(".log").read_text() if lib.with_suffix(".log").exists() else ""
+        emit({"phase": "build", "seconds": build_s, "library": lib.name,
+              "ptxas": [ln.strip() for ln in log.splitlines()
+                        if "registers" in ln or "spill" in ln]})
+
+    # ---- phase 2: kernels against plain versions at n = 50k -----------
+    # a stream of its own: gen_maps(n, seed) draws from default_rng(seed),
+    # and "absent" query candidates must not replay its keys
+    rng = np.random.default_rng((args.seed, 1))
+    record = []
+    worst = 0
+    small = {
+        "maps50k_linear": (gen_maps(SMALL_N, seed=1), ()),
+        "maps50k_mlp16x16": (gen_maps(SMALL_N, seed=2), (16, 16)),
+        "dup50k_linear": (_dup_heavy(rng, SMALL_N), ()),
+        "lognormal50k_linear": (gen_lognormal(SMALL_N, seed=3), ()),
+    }
+    for label, (raw, hidden) in small.items():
+        ks = make_keyset(raw)
+        idx = build_rmi(ks, RMIConfig(
+            num_leaves=max(16, ks.n // 64), stage0_hidden=hidden,
+            stage0_train_steps=300 if hidden else 0), device=dev)
+        found = rmi_lookup_cuda(
+            torch.as_tensor(ks.norm, device=dev),
+            rmi_lookup.stage0_flat(idx.stage0_params, dev),
+            *(torch.as_tensor(a, device=dev) for a in
+              (idx.leaf_w, idx.leaf_b, idx.err_lo, idx.err_hi, ks.norm)),
+            hidden=idx.hidden, n=idx.n, num_leaves=idx.num_leaves,
+            max_window=idx.max_window).cpu().numpy()
+        check(bool((found == np.searchsorted(ks.norm, ks.norm)).all()),
+              f"{label}: stored keys off their lower bound")
+        worst = max(worst, compare_kernels(label, ks, idx, rng, BIG_BATCH, dev, record))
+    scan_record = []
+    scan_worst = compare_scan_kernels(rng, dev, scan_record)
+    emit({"phase": "scan_kernels_vs_plain", "max_abs_err": scan_worst, "rows": scan_record})
+    sharded_record = []
+    sharded_lookup_worst = compare_sharded_lookup_kernel(rng, dev, sharded_record)
+    sharded_scan_worst = compare_sharded_scan_kernel(rng, dev, sharded_record)
+    emit({"phase": "sharded_kernels_vs_plain", "lookup_max_abs_err": sharded_lookup_worst,
+          "scan_max_abs_err": sharded_scan_worst, "rows": sharded_record})
+
+    # ---- phases 3-4: the single-shard service, then the sharded one ------
+    t0 = time.perf_counter()
+    base = gen_maps(args.n, seed=args.seed)
+    emit({"phase": "keys", "n": int(base.size), "gen_s": time.perf_counter() - t0})
+    single = run_single(args, base, rng, dev, card, record, worst, scan_worst)
+    # the single-shard service is gone: peak memory stays one service
+    gc.collect()
+    torch.cuda.empty_cache()
+    sharded = run_sharded(args, base, rng, dev, card)
+    del base
+    gc.collect()
+    torch.cuda.empty_cache()
+    rebalanced = run_rebalance(args, rng, dev)
+    emit({"phase": "rebalance", **rebalanced})
+
+    times, scan_times, launches = single["times"], single["scan_times"], single["launches"]
+    worst, scan_worst = single["worst"], single["scan_worst"]
     big = times[-1]
     sbig = scan_times[-1]
+    slook, sscan = sharded["lookup"], sharded["scans"][-1]
+    sharded_scan_worst = max(sharded_scan_worst, sharded["scan_max_abs_err"],
+                             rebalanced["scan_max_abs_err"])
+    sharded_lookup_worst = max(sharded_lookup_worst, slook["max_abs_err"])
     src = "src/repro_torch/kernels/csrc/rmi_lookup.cu"
     scan_src = "src/repro_torch/kernels/csrc/rmi_scan.cu"
     print(smi, flush=True)
@@ -908,7 +1573,21 @@ def main(argv=None) -> int:
          "bit_identical": scan_worst == 0,
          "ms": sbig["page_ms"], "plain_ms": sbig["page_plain_ms"],
          "bound_ms": sbig["page_bound_ms"], "bound_by": "bytes", "library_ms": None},
-    ], "batch": big["batch"], "scan_rows": sbig["rows"], "n": int(ks0.n), "card": smi,
+        {"name": "rmi_sharded_merged_lookup_cuda", "route": "cuda", "source": src,
+         "replaces": "src/repro/kernels/rmi_lookup.py:895",
+         "launches": launches["rmi_sharded_merged_lookup_cuda"]
+         + sharded["launches"]["rmi_sharded_merged_lookup_cuda"],
+         "max_abs_err": sharded_lookup_worst, "bit_identical": sharded_lookup_worst == 0,
+         "ms": slook["ms"], "plain_ms": slook["plain_ms"], "bound_ms": slook["bound_ms"],
+         "bound_by": "bytes", "library_ms": slook["searchsorted_ms"]},
+        {"name": "rmi_sharded_scan_page_cuda", "route": "cuda", "source": scan_src,
+         "replaces": "src/repro/kernels/rmi_lookup.py:605",
+         "launches": sharded["launches"]["rmi_sharded_scan_page_cuda"],
+         "max_abs_err": sharded_scan_worst, "bit_identical": sharded_scan_worst == 0,
+         "ms": sscan["ms"], "plain_ms": sscan["plain_ms"], "bound_ms": sscan["bound_ms"],
+         "bound_by": "bytes", "library_ms": None},
+    ], "batch": big["batch"], "scan_rows": sbig["rows"], "n": single["n"], "shards": slook["S"],
+        "sharded_scan_rows": sscan["rows"], "card": smi,
         "total_s": time.perf_counter() - t_start})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -2,9 +2,10 @@
 
 The reference's `RMIndex` and `IndexSnapshot` hold their state in NumPy
 attributes, so these converters read them by duck typing and never
-import the reference.  The ``snapshot-*.npz`` files are the second
-route across: both packages write the same format and load each
-other's files (`IndexSnapshot.save` / `IndexSnapshot.load`).
+import the reference.  The ``snapshot-*.npz`` and ``router.npz`` files are the
+second route across: both packages write the same formats and load each
+other's files (`IndexSnapshot.save` / `load`, and a sharded service's
+directory through `ShardedIndexService.save` / `load`).
 """
 
 from __future__ import annotations
@@ -13,6 +14,7 @@ import numpy as np
 
 from repro_torch.core.keys import KeySet
 from repro_torch.core.rmi import RMIConfig, RMIndex
+from repro_torch.index_service.router import LearnedRouter
 from repro_torch.index_service.snapshot import IndexSnapshot
 
 
@@ -71,3 +73,10 @@ def snapshot_from_reference(snap, device=None) -> IndexSnapshot:
         max_dup_run=int(snap.max_dup_run),
         device=device,
     )
+
+
+def router_from_reference(router) -> LearnedRouter:
+    """A reference `LearnedRouter` as the port's: the same boundaries,
+    weight and bias (the routing statistics start afresh)."""
+    return LearnedRouter(np.array(router.boundaries, np.float64),
+                         weight=float(router.weight), bias=float(router.bias))

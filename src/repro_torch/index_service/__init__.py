@@ -9,6 +9,8 @@ Public API:
   Scans:         ScanPage / PinnedView / scan_pages / repack_pages —
                  paged (keys, vals, live_mask) streams in base+delta
                  merge order over a view pinned at iterator creation
+  Sharding:      LearnedRouter, ShardedIndexService — K shard services
+                 behind a learned router, global ranks by prefix sums
 """
 
 from repro_torch.index_service.compact import (
@@ -37,7 +39,9 @@ from repro_torch.index_service.scan import (
     repack_pages,
     scan_pages,
 )
+from repro_torch.index_service.router import LearnedRouter
 from repro_torch.index_service.service import IndexService, ServiceConfig
+from repro_torch.index_service.sharded import ShardedIndexService
 from repro_torch.index_service.snapshot import (
     MERGED_STRATEGIES,
     REFERENCE_STRATEGY,
@@ -50,7 +54,7 @@ __all__ = [
     "CompactionStall", "CompactionStats", "Compactor", "merge_delta",
     "DeltaBuffer", "collapse_levels", "combine_for_device", "count_less",
     "live_mask", "member",
-    "IndexService", "ServiceConfig",
+    "IndexService", "ServiceConfig", "LearnedRouter", "ShardedIndexService",
     "DevicePlane", "scan_plane_key", "scan_plane_key_eq",
     "PinnedView", "ScanPage", "pin_view", "repack_pages", "scan_pages",
     "IndexSnapshot", "MERGED_STRATEGIES", "REFERENCE_STRATEGY",

@@ -70,7 +70,7 @@ from repro_torch.index_service.snapshot import (
 
 @dataclasses.dataclass
 class ServiceConfig:
-    delta_capacity: int = 4096       # staged entries the active delta holds
+    delta_capacity: int = 4096       # staged entries (per shard, when num_shards > 1)
     compact_fraction: float = 0.75   # delta fill that triggers compaction
     bloom_fpr: Optional[float] = None  # must stay None: not ported yet
     strategy: str = "binary"         # any member of snapshot.MERGED_STRATEGIES
@@ -78,6 +78,11 @@ class ServiceConfig:
     snapshot_dir: Optional[str] = None
     keep_snapshots: int = 2
     rmi: Optional[RMIConfig] = None  # None = linear stage-0 sized to n
+    # sharding (consumed by sharded.ShardedIndexService; IndexService
+    # itself is always the single-shard building block)
+    num_shards: int = 1
+    shard_balance_factor: float = 4.0  # re-fit boundaries when a shard
+    #                                    exceeds factor x the mean fill
     # write-rate-aware compaction: with gain > 0, the fill-fraction
     # trigger scales DOWN as the write-rate EWMA rises, so hot shards
     # compact earlier (smaller merges, fresher RMIs) while cold shards

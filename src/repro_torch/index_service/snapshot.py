@@ -38,11 +38,14 @@ from repro_torch.core.rmi import RMIConfig, RMIndex, build_rmi, refit_rmi, rmi_l
 from repro_torch.device import resolve_device
 from repro_torch.kernels import ops as kernels_ops
 from repro_torch.kernels import ref as kernels_ref
-from repro_torch.kernels.rmi_lookup import rmi_lookup_cuda, rmi_merged_lookup_cuda
+from repro_torch.kernels.rmi_lookup import (
+    rmi_lookup_cuda,
+    rmi_merged_lookup_cuda,
+)
 
 # strategies whose closures enter through a CUDA kernel (on the card;
 # on the CPU the same wrappers run their plain versions)
-KERNEL_STRATEGIES: Tuple[str, ...] = ("cuda", "cuda_fused")
+KERNEL_STRATEGIES: Tuple[str, ...] = ("cuda", "cuda_fused", "sharded_fused")
 
 _SNAP_RE = re.compile(r"snapshot-(\d+)\.npz$")
 
@@ -58,15 +61,28 @@ _SNAP_RE = re.compile(r"snapshot-(\d+)\.npz$")
 #       prefix gather.
 #   torch_fused — the plain PyTorch version of cuda_fused: same
 #       arithmetic, same results, no kernel.
+#   sharded_fused — the key space split into run-aligned sub-shards,
+#       each with its own small RMI; ONE launch of the sharded kernel
+#       (shard on a grid axis) runs every per-shard bounded search, then
+#       global ranks reassemble from prefix-summed shard offsets
+#       (`ops.sharded_reassemble`).  Same (base_lb, merged_rank) result.
 MERGED_STRATEGIES: Tuple[str, ...] = (
     "binary", "biased", "quaternary", "cuda", "cuda_fused", "torch_fused",
+    "sharded_fused",
 )
 
 # each port strategy's twin in the reference registry
 REFERENCE_STRATEGY: Dict[str, str] = {
     "binary": "binary", "biased": "biased", "quaternary": "quaternary",
     "cuda": "pallas", "cuda_fused": "pallas_fused", "torch_fused": "xla_fused",
+    "sharded_fused": "sharded_fused",
 }
+
+# sub-shard count for the snapshot-level `sharded_fused` strategy (the
+# service-level ShardedIndexService shards by its router instead);
+# small snapshots take fewer sub-shards so every chunk keeps >= 2
+# distinct float32 keys
+SHARDED_FUSED_SUBSHARDS = 4
 
 
 def validate_strategy(strategy: str) -> str:
@@ -147,14 +163,65 @@ class IndexSnapshot:
         return (tree["s0"], tree["leaf_w"], tree["leaf_b"], tree["err_lo"],
                 tree["err_hi"], base_norm)
 
+    def _sharded_plan(self) -> Dict[str, object]:
+        """Lazy sub-shard decomposition for the `sharded_fused` strategy.
+
+        The float32-normalized base array splits into up to
+        `SHARDED_FUSED_SUBSHARDS` contiguous chunks whose cut points are
+        *run-aligned* (moved to the start of any equal-f32 run), so no
+        duplicate run straddles a boundary and the route rule
+        ``shard(q) = #{chunk starts <= q}`` keeps the global lower bound
+        decomposable as ``chunk_offset + local lower bound``.  Each chunk
+        gets its own linear-stage-0 RMI built in the global normalized
+        frame (a KeySet whose norm IS the chunk, so stored keys hold the
+        per-shard window contract), and the per-shard arrays stack
+        zero/+inf-padded on this snapshot's device."""
+        plan = self._compiled.get("shard_plan")
+        if plan is not None:
+            return plan
+        norm = self.keys.norm
+        n = self.n
+        s = max(1, min(SHARDED_FUSED_SUBSHARDS, n // 512))
+        while True:
+            cuts = sorted(
+                {int(np.searchsorted(norm, norm[(j * n) // s], side="left"))
+                 for j in range(1, s)} - {0, n}
+            )
+            bounds = [0] + cuts + [n]
+            chunks = [norm[a:b] for a, b in zip(bounds[:-1], bounds[1:])]
+            if s == 1 or all(np.unique(c).size >= 2 for c in chunks):
+                break
+            s -= 1  # a chunk collapsed to one f32 run: coarsen
+        s = len(chunks)
+        rmis = []
+        for chunk in chunks:
+            ks = KeySet(raw=chunk.astype(np.float64), norm=chunk, lo=0.0, hi=1.0)
+            rmis.append(build_rmi(ks, RMIConfig(
+                num_leaves=max(8, chunk.size // 48),
+                stage0_hidden=(), stage0_train_steps=0,
+            ), device=self.device))
+        shard_n = np.array([c.size for c in chunks], np.int32)
+        base_off = np.zeros(s, np.int32)
+        base_off[1:] = np.cumsum(shard_n[:-1])
+        plan = {
+            **kernels_ops.stack_shard_arrays(rmis, chunks, self.device),
+            "S": s,
+            "starts": torch.tensor(np.array([c[0] for c in chunks[1:]], np.float32),
+                                   device=self.device),
+            "base_off": torch.tensor(base_off, device=self.device),
+        }
+        self._compiled["shard_plan"] = plan
+        return plan
+
     def merged_lookup_fn(self, strategy: str = "binary") -> Callable:
         """fn (q_norm, delta_keys, delta_prefix) -> (base_lb, rank).
 
         One RMI bounded search over the base plus one fixed-trip
         branchless lower bound over the fused delta array and a single
-        prefix gather — one CUDA launch under `cuda_fused`, kernel plus
-        torch ops under `cuda`, torch ops otherwise; see
-        MERGED_STRATEGIES.  Each call is one dispatch.
+        prefix gather — one CUDA launch under `cuda_fused`, one launch of
+        the sharded kernel plus torch routing and reassembly under
+        `sharded_fused`, kernel plus torch ops under `cuda`, torch ops
+        otherwise; see MERGED_STRATEGIES.  Each call is one dispatch.
         """
         validate_strategy(strategy)
         fn = self._compiled.get(strategy)
@@ -162,7 +229,28 @@ class IndexSnapshot:
             idx = self.index
             kw = dict(hidden=idx.hidden, n=idx.n, num_leaves=idx.num_leaves,
                       max_window=idx.max_window)
-            if strategy in ("cuda_fused", "torch_fused"):
+            if strategy == "sharded_fused":
+                plan = self._sharded_plan()
+                num_shards = plan["S"]
+                stacked = tuple(plan[k] for k in (
+                    "stage0", "leaf_w", "leaf_b", "err_lo", "err_hi", "keys"))
+                sizes = (plan["shard_n"], plan["shard_m"], plan["shard_ratio"])
+                skw = dict(hidden=plan["hidden"], max_window=plan["max_window"])
+
+                def merged(q, dkeys, dprefix):
+                    # route -> every shard row runs its bounded search in
+                    # one launch -> prefix-offset reassembly.  The delta
+                    # stays global at snapshot level, so each row
+                    # searches the same broadcast delta (stride-0 rows)
+                    # and merged offsets == base offsets.
+                    shard = torch.searchsorted(plan["starts"], q, right=True)
+                    qs = q.expand(num_shards, q.shape[0])
+                    dk = dkeys.expand(num_shards, dkeys.shape[0])
+                    dp = dprefix.expand(num_shards, dprefix.shape[0])
+                    return kernels_ops.sharded_routed_lookup(
+                        qs, shard, *stacked, dk, dp, *sizes, plan["base_off"],
+                        plan["base_off"], **skw)
+            elif strategy in ("cuda_fused", "torch_fused"):
                 impl = (rmi_merged_lookup_cuda if strategy == "cuda_fused"
                         else kernels_ref.rmi_merged_lookup_reference)
                 args = self._kernel_args()
@@ -268,9 +356,10 @@ class IndexSnapshot:
 
     def base_lookup_fn(self, strategy: str = "binary") -> Callable:
         """fn (q_norm) -> base lower bound, for callers that resolve the
-        delta on the host.  Both kernel strategies lower to the base RMI
+        delta on the host.  `cuda`/`cuda_fused` lower to the base RMI
         kernel here (no delta to fuse); `torch_fused` to the identical
-        `binary` search."""
+        `binary` search; `sharded_fused` to its merged closure with an
+        empty delta."""
         validate_strategy(strategy)
         # cuda/cuda_fused and binary/torch_fused are pairwise the same
         # base computation: share one closure
@@ -278,6 +367,18 @@ class IndexSnapshot:
         tag = alias.get(strategy, strategy)
         key = f"base:{tag}"
         fn = self._compiled.get(key)
+        if fn is None and tag == "sharded_fused":
+            # the sharded base search IS the merged path with nothing
+            # staged: reuse its (already counted) closure with an empty
+            # +inf-padded, zero-prefix delta
+            merged = self.merged_lookup_fn("sharded_fused")
+            dk0 = torch.full((64,), float("inf"), device=self.device)
+            dp0 = torch.zeros(65, dtype=torch.int32, device=self.device)
+
+            def fn(q):
+                return merged(q, dk0, dp0)[0]
+
+            self._compiled[key] = fn
         if fn is None:
             idx = self.index
             kw = dict(hidden=idx.hidden, n=idx.n, num_leaves=idx.num_leaves,

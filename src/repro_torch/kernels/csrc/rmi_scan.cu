@@ -12,6 +12,16 @@
 // two single-gather searches: j = lb(ins_rank, t) staged inserts
 // precede t, and the (t-j)-th live base row is lb(live_prefix, t-j+1)-1.
 //
+// rmi_sharded_scan_kernel replaces
+//   rmi_sharded_scan_page_pallas (src/repro/kernels/rmi_lookup.py:605,
+//                                 body _sharded_scan_kernel at :564)
+// One thread per (shard, output lane), the shard on blockIdx.y: a lane
+// owns global stream slot t when own_lo <= t < own_hi of its shard, and
+// resolves the shard-local rank ls0 + t - own_lo (int32, wrapping like
+// the reference) through the same rows-from-index path as the range
+// kernel, against its own shard's slab row; other lanes emit
+// (+inf, 0, dead).  The caller reduces min/sum/max over the shards.
+//
 // rmi_scan_page_kernel replaces
 //   rmi_scan_page_pallas  (src/repro/kernels/rmi_lookup.py:336,
 //                          body _scan_page_kernel at :301 and
@@ -32,6 +42,8 @@
 // per lane and is slow by design; it stays as the cross-check of the
 // range kernel's rows.  One lane per thread, no shared memory beyond the
 // two endpoint ranks, many resident warps to keep chains in flight;
+// the sharded kernel repeats the range kernel's per-lane work on each of
+// S rows, of which one owns the lane;
 // staging the top search levels in shared memory is later work.
 //
 // Every gather index is clipped exactly where the reference clips it: a
@@ -95,6 +107,22 @@ __device__ __forceinline__ void emit(bool valid, int p, int j,
   out_live[lane] = valid ? 1 : 0;
 }
 
+// Rank t -> merged row through the prefix-sum page index: j staged
+// inserts precede rank t, and the (t-j)-th live base row is
+// lb(live_prefix, t-j+1) - 1 (the reference's _scan_rows_from_index).
+__device__ __forceinline__ void rows_from_index(
+    int t, bool valid, const float* __restrict__ base,
+    const int* __restrict__ bvals, const int* __restrict__ live_prefix, int n,
+    const float* __restrict__ ins, const int* __restrict__ ivals,
+    const int* __restrict__ ins_rank, int ni, int psteps, int msteps,
+    int lane, float* __restrict__ out_k, int* __restrict__ out_v,
+    int* __restrict__ out_live) {
+  int j = lower_bound(ins_rank, t, ni, msteps);
+  int p = lower_bound(live_prefix, wadd(wsub(t, j), 1), n + 1, psteps) - 1;
+  emit(valid, p, j, base, bvals, n, ins, ivals, ni, lane, out_k, out_v,
+       out_live);
+}
+
 __global__ void __launch_bounds__(256)
 rmi_scan_range_kernel(const float* __restrict__ bounds,
                       const float* __restrict__ base,
@@ -118,10 +146,34 @@ rmi_scan_range_kernel(const float* __restrict__ bounds,
   int lane = blockIdx.x * blockDim.x + threadIdx.x;
   if (lane >= lanes) return;
   int t = wadd(r0, lane);
-  int j = lower_bound(ins_rank, t, ni, msteps);
-  int p = lower_bound(live_prefix, wadd(wsub(t, j), 1), n + 1, psteps) - 1;
-  emit(t < r1, p, j, base, bvals, n, ins, ivals, ni, lane, out_k, out_v,
-       out_live);
+  rows_from_index(t, t < r1, base, bvals, live_prefix, n, ins, ivals, ins_rank,
+                  ni, psteps, msteps, lane, out_k, out_v, out_live);
+}
+
+// Slabs (S, n), (S, n + 1) and (S, ni) row-major; outputs (S, lanes).
+__global__ void __launch_bounds__(256)
+rmi_sharded_scan_kernel(const float* __restrict__ base,
+                        const int* __restrict__ bvals,
+                        const int* __restrict__ live_prefix, int n,
+                        const float* __restrict__ ins,
+                        const int* __restrict__ ivals,
+                        const int* __restrict__ ins_rank, int ni,
+                        const int* __restrict__ ls0,
+                        const int* __restrict__ own_lo,
+                        const int* __restrict__ own_hi, int lanes, int psteps,
+                        int msteps, float* __restrict__ out_k,
+                        int* __restrict__ out_v, int* __restrict__ out_live) {
+  int lane = blockIdx.x * blockDim.x + threadIdx.x;
+  if (lane >= lanes) return;
+  long long s = blockIdx.y;
+  int lo = __ldg(own_lo + s);
+  bool owner = lane >= lo && lane < __ldg(own_hi + s);
+  int t = wadd(__ldg(ls0 + s), wsub(lane, lo));
+  long long o = s * lanes;
+  rows_from_index(t, owner, base + s * n, bvals + s * n,
+                  live_prefix + s * (n + 1), n, ins + s * ni, ivals + s * ni,
+                  ins_rank + s * ni, ni, psteps, msteps, lane, out_k + o,
+                  out_v + o, out_live + o);
 }
 
 __global__ void __launch_bounds__(256)
@@ -191,5 +243,19 @@ extern "C" int rmi_scan_page_launch(
   rmi_scan_page_kernel<<<grid, threads, 0, (cudaStream_t)stream>>>(
       starts, page_size, base, bvals, n, ins, ivals, ni, del_pos, nd,
       end_rank, lanes, steps, isteps, dsteps, out_k, out_v, out_live);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int rmi_sharded_scan_launch(
+    const float* base, const int* bvals, const int* live_prefix, int S, int n,
+    const float* ins, const int* ivals, const int* ins_rank, int ni,
+    const int* ls0, const int* own_lo, const int* own_hi, int lanes,
+    int psteps, int msteps, float* out_k, int* out_v, int* out_live,
+    void* stream) {
+  const int threads = 256;
+  dim3 grid((lanes + threads - 1) / threads, S);
+  rmi_sharded_scan_kernel<<<grid, threads, 0, (cudaStream_t)stream>>>(
+      base, bvals, live_prefix, n, ins, ivals, ins_rank, ni, ls0, own_lo,
+      own_hi, lanes, psteps, msteps, out_k, out_v, out_live);
   return (int)cudaGetLastError();
 }

@@ -13,15 +13,22 @@ import functools
 import threading
 import time
 
+import numpy as np
 import torch
 
+from repro_torch.core.models import pack_stage0
 from repro_torch.kernels import ref
 from repro_torch.kernels.rmi_lookup import (
     rmi_lookup_cuda,
     rmi_merged_lookup_cuda,
+    rmi_sharded_merged_lookup_cuda,
     stage0_flat,
 )
-from repro_torch.kernels.rmi_scan import rmi_scan_page_cuda, rmi_scan_range_cuda
+from repro_torch.kernels.rmi_scan import (
+    rmi_scan_page_cuda,
+    rmi_scan_range_cuda,
+    rmi_sharded_scan_page_cuda,
+)
 from repro_torch.obs import metrics as obs_metrics
 from repro_torch.obs import trace as obs_trace
 
@@ -257,3 +264,175 @@ def rmi_scan_range_op(
                        strategy=strategy, sig=sig + (use_kernel,)):
         keys, vals, live = impl(*args, page_size=page_size, max_pages=max_pages)
         return keys, vals, live.bool()
+
+
+# ---------------------------------------------------------------------------
+# sharded lookups and scans: stacked (S, ...) shard arrays
+# ---------------------------------------------------------------------------
+
+def _pad_m(a, m_pad: int) -> np.ndarray:
+    a = np.asarray(a, np.float32)
+    return np.pad(a, (0, m_pad - a.size))
+
+
+def pad_shard_row(index, keys_norm, n_pad: int, m_pad: int) -> dict:
+    """One shard's row of the stacked lookup layout, padded to an
+    explicit ``(n_pad, m_pad)`` bucket — the incremental counterpart of
+    `stack_shard_arrays`: the sharded service re-packs only the rows
+    whose snapshot changed and keeps the rest byte-stable.  Leaf arrays
+    pad with zeros, keys with +inf, the stage-0 parameters are one flat
+    buffer (`pack_stage0`), and ``ratio`` is ``np.float32(m / n)`` from
+    the host."""
+    k = np.asarray(keys_norm, np.float32)
+    keys = np.full(n_pad, np.inf, np.float32)
+    keys[: k.size] = k
+    return {
+        "stage0": pack_stage0(index.stage0_params),
+        "leaf_w": _pad_m(index.leaf_w, m_pad), "leaf_b": _pad_m(index.leaf_b, m_pad),
+        "err_lo": _pad_m(index.err_lo, m_pad), "err_hi": _pad_m(index.err_hi, m_pad),
+        "keys": keys,
+        "n": np.int32(index.n), "m": np.int32(index.num_leaves),
+        "ratio": np.float32(index.num_leaves / index.n),
+        "max_window": index.max_window,
+        "hidden": tuple(index.config.stage0_hidden),
+    }
+
+
+def stack_rows(rows, device) -> dict:
+    """Stack `pad_shard_row` rows into the (S, ...) tensors
+    `sharded_routed_lookup` takes, on ``device`` (fresh copies:
+    nothing aliases the rows), plus the shared ``hidden`` and the
+    maximum ``max_window``."""
+    hiddens = {r["hidden"] for r in rows}
+    if len(hiddens) != 1:
+        raise ValueError("shards disagree on stage-0 architecture")
+
+    def up(key, dtype=None):
+        return torch.from_numpy(np.stack(
+            [np.asarray(r[key], dtype) for r in rows])).to(device)
+
+    out = {k: up(k) for k in ("stage0", "leaf_w", "leaf_b", "err_lo", "err_hi", "keys")}
+    out["shard_n"] = up("n", np.int32)
+    out["shard_m"] = up("m", np.int32)
+    out["shard_ratio"] = up("ratio", np.float32)
+    out["hidden"] = hiddens.pop()
+    out["max_window"] = max(int(r["max_window"]) for r in rows)
+    return out
+
+
+def stack_shard_arrays(indexes, key_arrays, device) -> dict:
+    """Pad and stack per-shard (RMIndex, sorted f32 keys) pairs into the
+    (S, ...) layout `sharded_routed_lookup` consumes: leaf arrays
+    zero-padded to the widest shard, keys +inf-padded to the longest
+    (never read: the kernel clips by each shard's true n), stage-0
+    buffers one row per shard, true sizes and host-computed
+    ``f32(m / n)`` as (S,) arrays.  Returns tensors on ``device`` plus
+    the shared ``hidden`` and the maximum ``max_window``."""
+    n_max = max(np.asarray(k).size for k in key_arrays)
+    m_max = max(ix.num_leaves for ix in indexes)
+    return stack_rows([pad_shard_row(ix, k, n_max, m_max)
+                       for ix, k in zip(indexes, key_arrays)], device)
+
+
+def sharded_reassemble(local_base, delta_contrib, shard_of, base_offsets,
+                       merged_offsets):
+    """Global rank reassembly: pick each query's routed shard row and
+    add the prefix-sum offsets.
+
+    ``base_offsets[j]`` is the number of base keys in shards < j and
+    ``merged_offsets[j]`` the number of LIVE keys (base + delta net) in
+    shards < j, so
+
+        base(q)   = base_offsets[route(q)]   + local_base
+        merged(q) = merged_offsets[route(q)] + local_base + delta_contrib
+
+    (at the snapshot level, where the delta is global, callers pass
+    ``merged_offsets=base_offsets``).  int32 throughout, as in the
+    reference."""
+    j = shard_of.long()
+    lb = local_base.gather(0, j[None, :])[0]
+    ct = delta_contrib.gather(0, j[None, :])[0]
+    return base_offsets[j] + lb, merged_offsets[j] + lb + ct
+
+
+def sharded_routed_lookup(
+    q_stacked, shard_of, stage0, leaf_w, leaf_b, err_lo, err_hi,
+    sorted_keys, delta_keys, delta_prefix, shard_n, shard_m, shard_ratio,
+    base_off, merged_off, *, hidden=(), max_window, use_kernel=True,
+):
+    """Sharded merged lookup + routed reassembly, with no dispatch span
+    of its own: `rmi_sharded_merged_lookup_cuda` (its plain twin on the
+    CPU or with ``use_kernel=False``) over the stacked (S, ...) shard
+    tensors, then `sharded_reassemble`.  Returns global ``(base_rank,
+    merged_rank)``, int32 (B,)."""
+    impl = (rmi_sharded_merged_lookup_cuda if use_kernel
+            else ref.rmi_sharded_merged_lookup_reference)
+    lb, ct = impl(q_stacked, stage0, leaf_w, leaf_b, err_lo, err_hi, sorted_keys,
+                  delta_keys, delta_prefix, shard_n, shard_m, shard_ratio,
+                  hidden=tuple(hidden), max_window=max_window)
+    return sharded_reassemble(lb, ct, shard_of, base_off, merged_off)
+
+
+def rmi_sharded_routed_lookup_op(
+    q_stacked, shard_of, *plan, hidden=(), max_window, use_kernel=True,
+    strategy=None,
+):
+    """`sharded_routed_lookup` in ONE dispatch (``plan`` is its stacked
+    shard tensors, delta and offsets, in its order)."""
+    sorted_keys, delta_keys = plan[5], plan[6]
+    sig = (_shape(q_stacked), _shape(sorted_keys), _shape(delta_keys), use_kernel)
+    with dispatch_span("rmi_sharded_routed_lookup",
+                       kernel=use_kernel and _on_card(q_stacked),
+                       strategy=strategy or "sharded_fused", sig=sig):
+        return sharded_routed_lookup(q_stacked, shard_of, *plan, hidden=hidden,
+                                     max_window=max_window, use_kernel=use_kernel)
+
+
+def sharded_scan_owners(bounds, base_keys, live_prefix, ins_keys):
+    """The sharded scan's rank pre-pass, in plain torch (the reference
+    runs it in XLA outside its kernel): each shard's merged ranks of
+    ``bounds = [lo, hi)`` through its prefix-sum page index, and the
+    prefix sums of the per-shard spans.  Returns ``(ls0, own_lo,
+    own_hi)``, int32 (S,): shard s owns stream slots [own_lo, own_hi)
+    starting at its local rank ls0."""
+    dev = base_keys.device
+    b = torch.as_tensor(bounds, dtype=torch.float32, device=dev)
+    S = base_keys.shape[0]
+    steps, isteps = ref.trip_counts(base_keys.shape[1], ins_keys.shape[1])
+    qb = b[None, :].expand(S, 2)
+    bl = ref.rows_lower_bound(base_keys, qb, base_keys.shape[1], steps)
+    lr = (live_prefix.gather(1, bl.long())
+          + ref.rows_lower_bound(ins_keys, qb, ins_keys.shape[1], isteps))
+    ls0 = lr[:, 0].contiguous()
+    span = torch.maximum(lr[:, 1], ls0) - ls0   # inverted ranges clamp empty
+    pre = torch.cat([torch.zeros(1, dtype=torch.int32, device=dev),
+                     torch.cumsum(span, 0, dtype=torch.int32)])
+    return ls0, pre[:-1].contiguous(), pre[1:].contiguous()
+
+
+def rmi_sharded_scan_page_op(
+    bounds, base_keys, base_vals, live_prefix, ins_keys, ins_vals,
+    ins_rank, *, page_size=256, max_pages=1, use_kernel=True, strategy=None,
+):
+    """Sharded fused scan in ONE dispatch: rank ``bounds = [lo, hi)`` on
+    every shard (plain torch: all keys of lower shards sort below both
+    bounds, so the per-shard spans concatenate into the global stream and
+    their prefix sums are the ownership offsets), gather each shard's
+    owned rows (`rmi_sharded_scan_page_cuda`, or its plain twin on the
+    CPU or with ``use_kernel=False``), and reduce the owner-masked
+    (S, G, P) matrices into the global (G, P) page stream.  All slabs
+    share one normalized frame (`index_service.scan.pack_scan_slab`);
+    rows come back in it.  Returns ``(keys f32, vals i32, live_mask
+    bool)``, pages past the range fully masked."""
+    sig = (_shape(base_keys), _shape(ins_keys), page_size, max_pages, use_kernel)
+    impl = rmi_sharded_scan_page_cuda if use_kernel else ref.rmi_sharded_scan_page_reference
+    with dispatch_span("rmi_sharded_scan_page",
+                       kernel=use_kernel and _on_card(base_keys),
+                       strategy=strategy, sig=sig):
+        owners = sharded_scan_owners(bounds, base_keys, live_prefix, ins_keys)
+        keys, vals, live = impl(
+            base_keys, base_vals, live_prefix, ins_keys, ins_vals, ins_rank,
+            *owners, page_size=page_size, max_pages=max_pages)
+        # exactly one shard owns each stream slot
+        return (keys.amin(0), vals.sum(0, dtype=torch.int32),
+                live.amax(0).bool())

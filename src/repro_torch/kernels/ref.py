@@ -13,9 +13,11 @@ from __future__ import annotations
 
 from typing import Tuple
 
+import numpy as np
 import torch
 
 from repro_torch.core import search as search_lib
+from repro_torch.core.models import stage0_apply
 from repro_torch.core.rmi import leaf_and_pos
 
 
@@ -85,6 +87,47 @@ def rmi_merged_lookup_reference(
     return base, base + delta_prefix[torch.clamp(dlb, max=d)]
 
 
+def rmi_sharded_merged_lookup_reference(
+    q: torch.Tensor,               # (S, B) per-shard normalized queries
+    s0: torch.Tensor,              # (S, P) flat stage-0 buffers (pack_stage0)
+    leaf_w: torch.Tensor,          # (S, M) zero-padded past each shard's m
+    leaf_b: torch.Tensor,          # (S, M)
+    err_lo: torch.Tensor,          # (S, M)
+    err_hi: torch.Tensor,          # (S, M)
+    sorted_keys: torch.Tensor,     # (S, N) +inf-padded past each shard's n
+    delta_keys: torch.Tensor,      # (S, D) +inf-padded per-shard deltas
+    delta_prefix: torch.Tensor,    # (S, D+1) prefix, constant on the pad tail
+    shard_n: torch.Tensor,         # (S,) int32 true base sizes
+    shard_m: torch.Tensor,         # (S,) int32 true leaf counts
+    shard_ratio: torch.Tensor,     # (S,) float32, f32(m/n) from the host
+    *,
+    hidden: tuple,
+    max_window: int,               # the maximum over the shards
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain twin of `rmi_sharded_merged_lookup_cuda`: per shard, the
+    single-shard body with that shard's n, m and ``shard_ratio`` (the
+    position clamped to f32(n - 1)), ``steps`` from the maximum window
+    over the shards, the lower bound clamped to n, and the delta prefix
+    gather clamped to D.  Returns the per-shard ``(local_base,
+    delta_contrib)``, both int32 (S, B).  Rows may be broadcast views."""
+    d = delta_keys.shape[1]
+    bases, contribs = [], []
+    for s, (n, m) in enumerate(zip(shard_n.tolist(), shard_m.tolist())):
+        qs = q[s]
+        p0 = stage0_apply(s0[s], hidden, qs)
+        leaf = torch.clamp(
+            search_lib.to_index(torch.floor(p0 * shard_ratio[s])), max=m - 1)
+        pos = leaf_w[s][leaf] * qs + leaf_b[s][leaf]
+        pos = search_lib.clampf(pos, 0.0, float(np.float32(n - 1)))
+        lb = search_lib.model_binary_search(
+            sorted_keys[s, :n], qs, pos, err_lo[s][leaf], err_hi[s][leaf],
+            max_window)
+        dlb = search_lib.lower_bound_full(delta_keys[s], qs)
+        bases.append(torch.clamp(lb, max=n))
+        contribs.append(delta_prefix[s][torch.clamp(dlb, max=d)])
+    return torch.stack(bases), torch.stack(contribs)
+
+
 # ---------------------------------------------------------------------------
 # merged range scans (`csrc/rmi_scan.cu`)
 # ---------------------------------------------------------------------------
@@ -107,6 +150,22 @@ def array_lower_bound(arr: torch.Tensor, q: torch.Tensor, size: int,
     for _ in range(steps):
         mid = (lo + hi) >> 1
         v = arr[torch.clamp(mid, 0, size - 1)]
+        r = (v < q) & (lo < hi)
+        lo = torch.where(r, mid + 1, lo)
+        hi = torch.where(r, hi, mid)
+    return lo
+
+
+def rows_lower_bound(arr: torch.Tensor, q: torch.Tensor, size: int,
+                     steps: int) -> torch.Tensor:
+    """`array_lower_bound` on every row at once: ``arr`` (S, W), ``q``
+    (S, K) -> (S, K) int32 lower bounds of row s's queries in
+    ``arr[s, :size]``."""
+    lo = torch.zeros(q.shape, dtype=torch.int32, device=q.device)
+    hi = torch.full_like(lo, size)
+    for _ in range(steps):
+        mid = (lo + hi) >> 1
+        v = arr.gather(1, torch.clamp(mid, 0, size - 1).long())
         r = (v < q) & (lo < hi)
         lo = torch.where(r, mid + 1, lo)
         hi = torch.where(r, hi, mid)
@@ -248,3 +307,35 @@ def rmi_scan_page_reference(
     return scan_page_body(t, base_keys, base_vals, ins_keys, ins_vals,
                           del_pos, end_rank[0], steps=steps, isteps=isteps,
                           dsteps=dsteps)
+
+
+def rmi_sharded_scan_page_reference(
+    base_keys: torch.Tensor,       # (S, N) sorted f32, +inf padded
+    base_vals: torch.Tensor,       # (S, N) int32
+    live_prefix: torch.Tensor,     # (S, N+1) int32, pinned past the true n
+    ins_keys: torch.Tensor,        # (S, D) +inf padded
+    ins_vals: torch.Tensor,        # (S, D) int32
+    ins_rank: torch.Tensor,        # (S, D) int32, big pad
+    ls0: torch.Tensor,             # (S,) int32 local rank of lo per shard
+    own_lo: torch.Tensor,          # (S,) int32 shard's first stream slot
+    own_hi: torch.Tensor,          # (S,) int32 one past its last
+    *,
+    page_size: int,
+    max_pages: int,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain twin of `rmi_sharded_scan_page_cuda`: for each shard, the
+    stream slots ``t`` in [own_lo, own_hi) resolve the shard-local rank
+    ``ls0 + t - own_lo`` (int32, wrapping) through the shard's
+    prefix-sum page index; other slots come back (+inf, 0, 0).  Returns
+    (S, max_pages, page_size) keys f32, vals i32, live i32."""
+    psteps, msteps = trip_counts(base_keys.shape[1] + 1, ins_rank.shape[1])
+    t_rel = torch.arange(max_pages * page_size, dtype=torch.int32,
+                         device=base_keys.device).reshape(max_pages, page_size)
+    rows = []
+    for s in range(base_keys.shape[0]):
+        owner = (t_rel >= own_lo[s]) & (t_rel < own_hi[s])
+        rows.append(scan_rows_from_index(
+            ls0[s] + t_rel - own_lo[s], owner, base_keys[s], base_vals[s],
+            live_prefix[s], ins_keys[s], ins_vals[s], ins_rank[s],
+            psteps=psteps, msteps=msteps))
+    return tuple(torch.stack(parts) for parts in zip(*rows))

@@ -29,7 +29,7 @@ from typing import Dict, Tuple
 import numpy as np
 import torch
 
-from repro_torch.core.models import pack_stage0
+from repro_torch.core.models import pack_stage0, stage0_dims
 from repro_torch.core.search import _steps_for_window as _search_steps
 from repro_torch.kernels import nvcc, ref
 
@@ -38,7 +38,8 @@ MAX_HIDDEN = 64
 
 # launches per wrapper; a plain integer each, bumped only where the
 # kernel is launched
-LAUNCHES: Dict[str, int] = {"rmi_lookup_cuda": 0, "rmi_merged_lookup_cuda": 0}
+LAUNCHES: Dict[str, int] = {"rmi_lookup_cuda": 0, "rmi_merged_lookup_cuda": 0,
+                            "rmi_sharded_merged_lookup_cuda": 0}
 
 
 def reset_launch_counts() -> None:
@@ -72,17 +73,30 @@ def _declare(lib) -> None:
         p, p, p,                    # out_base, out_merged, stream
     ]
     lib.rmi_lookup_launch.restype = i
+    lib.rmi_sharded_lookup_launch.argtypes = [
+        p, i, i, p, i, i, i,        # q, S, B, s0, nl, h1, h2
+        p, p, p, p, p,              # leaf_w/b, err_lo/hi, keys
+        p, p, i,                    # dkeys, dprefix, D
+        p, p, p, i, i,              # shard_n/m/ratio, steps, dsteps
+        p, p, p, p,                 # row strides, out_base, out_contrib, stream
+    ]
+    lib.rmi_sharded_lookup_launch.restype = i
 
 
-def _launch(q, s0, leaf_w, leaf_b, err_lo, err_hi, sorted_keys,
-            delta_keys, delta_prefix, *, hidden, n, num_leaves, max_window):
-    dev = q.device
+def _check_hidden(hidden) -> tuple:
     hidden = tuple(int(h) for h in hidden)
     if len(hidden) > 2 or any(h < 1 or h > MAX_HIDDEN for h in hidden):
         raise ValueError(
             f"stage-0 hidden widths {hidden}: the kernel takes at most two "
             f"hidden layers of width <= {MAX_HIDDEN}"
         )
+    return hidden
+
+
+def _launch(q, s0, leaf_w, leaf_b, err_lo, err_hi, sorted_keys,
+            delta_keys, delta_prefix, *, hidden, n, num_leaves, max_window):
+    dev = q.device
+    hidden = _check_hidden(hidden)
     if not 1 <= n < 2**30 or sorted_keys.shape[0] != n:
         raise ValueError(f"need 1 <= n < 2**30 sorted keys, got n={n}")
     if leaf_w.shape[0] != num_leaves:
@@ -175,3 +189,85 @@ def rmi_merged_lookup_cuda(
         delta_prefix, hidden=hidden, n=n, num_leaves=num_leaves,
         max_window=max_window,
     )
+
+
+def _row_stride(t: torch.Tensor, name: str, dtype, dev, rows: int) -> int:
+    """Check one stacked (S, W) input: on ``dev``, of ``dtype``, ``rows``
+    rows, each contiguous; returns its row stride (0 for a row
+    broadcast with ``expand``)."""
+    if t.device != dev:
+        raise ValueError(f"{name} is on {t.device}, expected {dev}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name} has dtype {t.dtype}, expected {dtype}")
+    if t.ndim != 2 or t.shape[0] != rows or (t.shape[1] > 1 and t.stride(1) != 1):
+        raise ValueError(f"{name} must be ({rows}, W) with contiguous rows")
+    return t.stride(0)
+
+
+def rmi_sharded_merged_lookup_cuda(
+    q: torch.Tensor,                   # (S, B) per-shard normalized queries
+    s0: torch.Tensor,                  # (S, P) flat stage-0 buffers
+    leaf_w: torch.Tensor,              # (S, M) zero-padded
+    leaf_b: torch.Tensor,              # (S, M)
+    err_lo: torch.Tensor,              # (S, M)
+    err_hi: torch.Tensor,              # (S, M)
+    sorted_keys: torch.Tensor,         # (S, N) +inf-padded
+    delta_keys: torch.Tensor,          # (S, D) +inf-padded per-shard deltas
+    delta_prefix: torch.Tensor,        # (S, D+1) int32 prefix
+    shard_n: torch.Tensor,             # (S,) int32 true base sizes
+    shard_m: torch.Tensor,             # (S,) int32 true leaf counts
+    shard_ratio: torch.Tensor,         # (S,) float32 f32(m/n), host-computed
+    *,
+    hidden: tuple,
+    max_window: int,                   # the maximum over the shards
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Sharded merged lookup: every query on every shard row, one
+    launch.  Returns the per-shard ``(local_base, delta_contrib)``, both
+    int32 (S, B); `ops.sharded_reassemble` turns them into global
+    ranks.  Rows may be broadcast views (stride 0).  The caller keeps
+    each shard's n below its padded width and its leaf count below M."""
+    if q.device.type == "cpu":
+        return ref.rmi_sharded_merged_lookup_reference(
+            q, s0, leaf_w, leaf_b, err_lo, err_hi, sorted_keys, delta_keys,
+            delta_prefix, shard_n, shard_m, shard_ratio,
+            hidden=hidden, max_window=max_window)
+    dev = q.device
+    hidden = _check_hidden(hidden)
+    f32, i32 = torch.float32, torch.int32
+    if q.ndim != 2:
+        raise ValueError("q must be (S, B)")
+    S, B = q.shape
+    strides = [_row_stride(t, nm, dt, dev, S) for t, nm, dt in (
+        (q, "q", f32), (s0, "stage0", f32), (leaf_w, "leaf_w", f32),
+        (leaf_b, "leaf_b", f32), (err_lo, "err_lo", f32), (err_hi, "err_hi", f32),
+        (sorted_keys, "sorted_keys", f32), (delta_keys, "delta_keys", f32),
+        (delta_prefix, "delta_prefix", i32))]
+    d = delta_keys.shape[1]
+    dims = stage0_dims(hidden)
+    if s0.shape[1] < sum(a * b + b for a, b in zip(dims[:-1], dims[1:])):
+        raise ValueError(f"stage0 rows are too short for hidden widths {hidden}")
+    if d < 1 or delta_prefix.shape[1] != d + 1:
+        raise ValueError("delta_prefix must hold D + 1 entries per row")
+    if sorted_keys.shape[1] >= 2**30:
+        raise ValueError("need shard sizes n < 2**30")
+    ptrs = [nvcc.check_tensor(a, nm, dt, dev) for a, nm, dt in (
+        (shard_n, "shard_n", i32), (shard_m, "shard_m", i32),
+        (shard_ratio, "shard_ratio", f32))]
+    if any(a.shape[0] != S for a in (shard_n, shard_m, shard_ratio)):
+        raise ValueError("shard_n, shard_m and shard_ratio need one entry per shard")
+    base = torch.empty((S, B), dtype=i32, device=dev)
+    contrib = torch.empty((S, B), dtype=i32, device=dev)
+    if S == 0 or B == 0:
+        return base, contrib
+    stride_buf = (ctypes.c_longlong * len(strides))(*strides)
+    err = nvcc.load(SOURCE, _declare).rmi_sharded_lookup_launch(
+        q.data_ptr(), S, B, s0.data_ptr(), len(hidden) + 1,
+        hidden[0] if hidden else 0, hidden[1] if len(hidden) > 1 else 0,
+        leaf_w.data_ptr(), leaf_b.data_ptr(), err_lo.data_ptr(),
+        err_hi.data_ptr(), sorted_keys.data_ptr(), delta_keys.data_ptr(),
+        delta_prefix.data_ptr(), d, *ptrs, _search_steps(max_window),
+        _search_steps(d), ctypes.addressof(stride_buf), base.data_ptr(),
+        contrib.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+    nvcc.raise_on_error(err, "rmi_sharded_lookup")
+    LAUNCHES["rmi_sharded_merged_lookup_cuda"] += 1
+    return base, contrib

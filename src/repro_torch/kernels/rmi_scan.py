@@ -5,13 +5,18 @@ PyTorch wrappers.
     and gathers every page of merged rows between them through the
     prefix-sum page index.  Replaces the reference's
     ``rmi_scan_range_pallas``.
+``rmi_sharded_scan_page_cuda`` — the range kernel's rank-to-row path
+    over S stacked shard slabs in one launch: each shard emits the
+    stream slots it owns, others come back masked.  Replaces
+    ``rmi_sharded_scan_page_pallas``.
 ``rmi_scan_page_cuda``  — rank-addressed pages by nested searches over
     the tombstoned base positions.  Replaces ``rmi_scan_page_pallas``.
 
 For a CUDA tensor a wrapper launches the kernel (or raises); for a CPU
 tensor it runs the plain version in `kernels.ref`.  Each launch adds
 one to the wrapper's count in ``LAUNCHES``.  Outputs are ``(keys f32,
-vals i32, live i32)``, each (pages, page_size).
+vals i32, live i32)``, each (pages, page_size); (S, pages, page_size)
+for the sharded kernel.
 """
 
 from __future__ import annotations
@@ -28,7 +33,8 @@ INT32_MAX = 2**31 - 1
 
 # launches per wrapper; a plain integer each, bumped only where the
 # kernel is launched
-LAUNCHES: Dict[str, int] = {"rmi_scan_range_cuda": 0, "rmi_scan_page_cuda": 0}
+LAUNCHES: Dict[str, int] = {"rmi_scan_range_cuda": 0, "rmi_scan_page_cuda": 0,
+                            "rmi_sharded_scan_page_cuda": 0}
 
 
 def reset_launch_counts() -> None:
@@ -56,14 +62,21 @@ def _declare(lib) -> None:
         p, i, i, i, i,              # end_rank, lanes, steps, isteps, dsteps
         p, p, p, p,                 # out keys, vals, live, stream
     ]
+    lib.rmi_sharded_scan_launch.argtypes = [
+        p, p, p, i, i,              # base, bvals, live_prefix, S, n
+        p, p, p, i,                 # ins, ivals, ins_rank, ni
+        p, p, p, i, i, i,           # ls0, own_lo, own_hi, lanes, psteps, msteps
+        p, p, p, p,                 # out keys, vals, live, stream
+    ]
     lib.rmi_scan_range_launch.restype = i
+    lib.rmi_sharded_scan_launch.restype = i
     lib.rmi_scan_page_launch.restype = i
 
 
-def _outputs(pages: int, page_size: int, dev):
-    return (torch.empty((pages, page_size), dtype=torch.float32, device=dev),
-            torch.empty((pages, page_size), dtype=torch.int32, device=dev),
-            torch.empty((pages, page_size), dtype=torch.int32, device=dev))
+def _outputs(*shape: int, dev):
+    return (torch.empty(shape, dtype=torch.float32, device=dev),
+            torch.empty(shape, dtype=torch.int32, device=dev),
+            torch.empty(shape, dtype=torch.int32, device=dev))
 
 
 def _base_args(base_keys, base_vals, ins_keys, ins_vals, dev):
@@ -108,7 +121,7 @@ def rmi_scan_range_cuda(
     # ranks are int32: the largest lane rank, r0 + lanes, must fit
     if n + ni + lanes + 1 > INT32_MAX:
         raise ValueError(f"{lanes} lanes past {n + ni} rows overflow int32 ranks")
-    out = _outputs(max_pages, page_size, dev)
+    out = _outputs(max_pages, page_size, dev=dev)
     if lanes == 0:
         return out
     steps, isteps, psteps, msteps = ref.trip_counts(n, ni, n + 1, ni)
@@ -151,7 +164,7 @@ def rmi_scan_page_cuda(
     if nd < 1 or end_rank.shape != (1,):
         raise ValueError("need del_pos padded to >= 1 slot and end_rank (1,)")
     g = starts.shape[0]
-    out = _outputs(g, page_size, dev)
+    out = _outputs(g, page_size, dev=dev)
     if g == 0:
         return out
     lanes = g * page_size
@@ -167,4 +180,59 @@ def rmi_scan_page_cuda(
         torch.cuda.current_stream(dev).cuda_stream)
     nvcc.raise_on_error(err, "rmi_scan_page")
     LAUNCHES["rmi_scan_page_cuda"] += 1
+    return out
+
+
+def rmi_sharded_scan_page_cuda(
+    base_keys: torch.Tensor,       # (S, N) sorted f32, +inf padded
+    base_vals: torch.Tensor,       # (S, N) int32
+    live_prefix: torch.Tensor,     # (S, N+1) int32, pinned past the true n
+    ins_keys: torch.Tensor,        # (S, D) +inf-padded eff. insert keys
+    ins_vals: torch.Tensor,        # (S, D) int32
+    ins_rank: torch.Tensor,        # (S, D) int32, big pad
+    ls0: torch.Tensor,             # (S,) int32 local rank of lo per shard
+    own_lo: torch.Tensor,          # (S,) int32 shard's first stream slot
+    own_hi: torch.Tensor,          # (S,) int32 one past its last
+    *,
+    page_size: int,
+    max_pages: int,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Owner-masked per-shard pages: shard s emits stream slots t in
+    [own_lo[s], own_hi[s]) as its merged row at local rank
+    ``ls0[s] + t - own_lo[s]``; every other slot is (+inf, 0, 0).
+    Returns (S, max_pages, page_size) keys f32, vals i32, live i32."""
+    if base_keys.device.type == "cpu":
+        return ref.rmi_sharded_scan_page_reference(
+            base_keys, base_vals, live_prefix, ins_keys, ins_vals, ins_rank,
+            ls0, own_lo, own_hi, page_size=page_size, max_pages=max_pages)
+    dev = base_keys.device
+    if page_size < 1 or max_pages < 0:
+        raise ValueError("need page_size >= 1 and max_pages >= 0")
+    if base_keys.ndim != 2:
+        raise ValueError("base_keys must be (S, N)")
+    S, n = base_keys.shape
+    ni = ins_keys.shape[1] if ins_keys.ndim == 2 else 0
+    f32, i32 = torch.float32, torch.int32
+    shapes = ((base_vals, (S, n)), (live_prefix, (S, n + 1)), (ins_vals, (S, ni)),
+              (ins_rank, (S, ni)), (ls0, (S,)), (own_lo, (S,)), (own_hi, (S,)))
+    if not 1 <= n < 2**30 or ni < 1 or any(tuple(a.shape) != sh for a, sh in shapes):
+        raise ValueError("need (S, N) base rows with 1 <= N < 2**30, (S, N+1) "
+                         "live_prefix, (S, D >= 1) insert rows and (S,) offsets")
+    lanes = max_pages * page_size
+    if lanes > INT32_MAX:
+        raise ValueError(f"{lanes} lanes overflow int32")
+    out = _outputs(S, max_pages, page_size, dev=dev)
+    if lanes == 0 or S == 0:
+        return out
+    ptrs = [nvcc.check_tensor(a, nm, dt, dev, ndim=nd) for a, nm, dt, nd in (
+        (base_keys, "base_keys", f32, 2), (base_vals, "base_vals", i32, 2),
+        (live_prefix, "live_prefix", i32, 2), (ins_keys, "ins_keys", f32, 2),
+        (ins_vals, "ins_vals", i32, 2), (ins_rank, "ins_rank", i32, 2),
+        (ls0, "ls0", i32, 1), (own_lo, "own_lo", i32, 1), (own_hi, "own_hi", i32, 1))]
+    psteps, msteps = ref.trip_counts(n + 1, ni)
+    err = nvcc.load(SOURCE, _declare).rmi_sharded_scan_launch(
+        *ptrs[:3], S, n, *ptrs[3:6], ni, *ptrs[6:], lanes, psteps, msteps,
+        *(o.data_ptr() for o in out), torch.cuda.current_stream(dev).cuda_stream)
+    nvcc.raise_on_error(err, "rmi_sharded_scan")
+    LAUNCHES["rmi_sharded_scan_page_cuda"] += 1
     return out

@@ -19,6 +19,7 @@ from repro_torch.index_service import (  # noqa: E402
     IndexService,
     IndexSnapshot,
     ServiceConfig,
+    ShardedIndexService,
     build_snapshot,
 )
 from repro_torch.kernels import nvcc, rmi_lookup, rmi_scan  # noqa: E402
@@ -49,7 +50,8 @@ def test_port_imports_no_jax_and_no_reference():
     assert int(out[0]) >= 20, "walked too few modules"
     assert out[1] == "[]"
     for name in ("repro_torch.index_service.scan", "repro_torch.kernels.rmi_scan",
-                 "repro_torch.kernels.nvcc"):
+                 "repro_torch.kernels.nvcc", "repro_torch.index_service.router",
+                 "repro_torch.index_service.sharded"):
         assert name in out[2:], name
 
 
@@ -97,8 +99,28 @@ def test_cpu_tensors_take_the_plain_version_without_building():
     snap.scan_page_fn("cuda_fused", 16)(
         np.arange(3, dtype=np.int32), np.full(64, np.inf, np.float32),
         np.zeros(64, np.int32), np.full(64, snap.n, np.int32), snap.n)
-    assert rmi_lookup.LAUNCHES == {"rmi_lookup_cuda": 0, "rmi_merged_lookup_cuda": 0}
-    assert rmi_scan.LAUNCHES == {"rmi_scan_range_cuda": 0, "rmi_scan_page_cuda": 0}
+    assert rmi_lookup.LAUNCHES == {"rmi_lookup_cuda": 0, "rmi_merged_lookup_cuda": 0,
+                                   "rmi_sharded_merged_lookup_cuda": 0}
+    assert rmi_scan.LAUNCHES == {"rmi_scan_range_cuda": 0, "rmi_scan_page_cuda": 0,
+                                 "rmi_sharded_scan_page_cuda": 0}
+    assert nvcc._LIBS == {}
+
+
+def test_cpu_sharded_reads_build_nothing():
+    """The sharded service and the snapshot's sharded_fused strategy on
+    the CPU run the plain twins: no build, no launch counted."""
+    rmi_lookup.reset_launch_counts()
+    rmi_scan.reset_launch_counts()
+    keys = np.unique(np.random.default_rng(1).uniform(0.0, 1e6, 3000))
+    svc = ShardedIndexService(keys, ServiceConfig(num_shards=3, strategy="sharded_fused"),
+                              device="cpu")
+    svc.insert(keys[:5] + 0.5)
+    svc.get(keys[::7])
+    svc.contains(keys[::11])
+    svc.lookup_batch(keys[::13])
+    svc.scan_batch(1e5, 9e5, 64)
+    svc.shards[0].lookup_batch(keys[:40])
+    assert not any(rmi_lookup.LAUNCHES.values()) and not any(rmi_scan.LAUNCHES.values())
     assert nvcc._LIBS == {}
 
 
@@ -109,8 +131,10 @@ def test_kernel_build_targets_hopper_with_separate_roundings():
     src = rmi_lookup.SOURCE.read_text()
     assert "template <bool WITH_DELTA>" in src
     assert "rmi_merged_lookup_pallas" in src and "rmi_lookup_pallas" in src
+    assert "rmi_sharded_merged_lookup_pallas" in src
     scan_src = rmi_scan.SOURCE.read_text()
     assert "rmi_scan_range_pallas" in scan_src and "rmi_scan_page_pallas" in scan_src
+    assert "rmi_sharded_scan_page_pallas" in scan_src
     # each library is named by its own source
     assert rmi_lookup.library_path() != nvcc.library_path(rmi_scan.SOURCE)
     assert nvcc.library_path(rmi_scan.SOURCE).name.startswith("rmi_scan-")
