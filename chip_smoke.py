@@ -7,7 +7,7 @@
 Phases, each printing JSON lines; any mismatch raises and the exit code
 is non-zero:
 
-  1. card    — the card's name and power limit (nvidia-smi), the two
+  1. card    — the card's name and power limit (nvidia-smi), the three
                kernel libraries built in parallel and their compiler
                resource reports;
   2. kernels — each CUDA kernel against its plain PyTorch version on the
@@ -21,22 +21,38 @@ is non-zero:
                and wrapping page starts, unpadded power-of-two deltas);
                the sharded lookup and scan at S in {1, 3, 4} unequal
                shards (empty, staged and unpadded deltas, stride-0 rows,
-               page sizes 256 / 160 / 1);
-  3. main path — `IndexService(strategy="cuda_fused")` over
-               gen_maps(n) with a zero payload: every stored key at its
-               float32 lower bound, then 300k inserts (values 1..300k) +
-               300k deletes checked through get / lookup_batch /
-               range_lookup / contains against NumPy oracles, the
+               page sizes 256 / 160 / 1); the §4 hash probe on Maps,
+               Lognormal and Weblogs maps at 50k keys and slot ratios
+               0.75 / 1.0 / 1.25 and a map with no overflow (stored,
+               absent, float32-equal, NaN, infinite and out-of-span
+               queries); the §5 Bloom probe on oracle filters of
+               (num_bits, k) = (2^14, 3), (2^16, 7), (2^18, 10) and
+               num_bits above 2^31;
+  3. main path — `IndexService(strategy="cuda_fused", bloom_fpr=0.01)`
+               over gen_maps(n) with a zero payload: every stored key at
+               its float32 lower bound, then 300k inserts (values
+               1..300k) + 300k deletes checked through get / lookup_batch
+               / range_lookup / contains against NumPy oracles (and the
+               Bloom screen: no live key screened out, absent keys
+               screened, the false-positive rate in a band), the
                snapshot's `sharded_fused` strategy against `cuda_fused`,
                ~30 range scans through scan_batch / scan_page_fn / scan,
-               a warm compaction (flush) and the same checks again.  Then,
-               with that service released, `ShardedIndexService(
-               num_shards=4, strategy="sharded_fused")` over the same
-               keys: the same writes routed across the shards, every read
-               and scan check staged and after a flush, one dispatch per
-               warm read; and a 2M-key sharded service through a
-               rebalance to three shards.  Each path runs with the launch
-               counts zeroed just before and read just after;
+               a warm compaction (flush) and the same checks again; the
+               Bloom kernel on the service's own filter and on an oracle
+               filter of its own hash family over 20M keys.  Then the §4
+               hash index at full size: `build_model_hashmap` over the
+               same keys (S = n), every stored key through the kernel,
+               4M float32-absent keys, and the random-hash map through
+               the plain chain walk.  Then, with those released,
+               `ShardedIndexService(num_shards=4,
+               strategy="sharded_fused")` over every 8th of those keys
+               (24.4M; a cut of depth that keeps the run inside its time
+               limit): the same number of writes routed across the
+               shards, every read and scan check staged and after a
+               flush, one dispatch per warm read; and a 2M-key sharded
+               service with per-shard Bloom screens (bloom_fpr=0.02)
+               through a rebalance to three shards.  Each path runs with
+               the launch counts zeroed just before and read just after;
   4. times   — kernel, plain version and torch.searchsorted (the
                paper's binary-search yardstick, timed only) with CUDA
                events, the bound from bytes over 3.35 TB/s, lookup_batch
@@ -44,7 +60,9 @@ is non-zero:
                versions at 1<<20 and 1<<22 rows, scan_batch rows/s and
                the host build of the scan slab (`scan.pack_slab`); the
                sharded lookup at S = 4 x 1<<20 queries and the sharded
-               scan at 1<<20 and 1<<22 rows, on the staged sharded index.
+               scan at 1<<20 and 1<<22 rows, on the staged sharded index;
+               both probes at 1<<20 and 1<<24 queries (bound: the 32-byte
+               sectors their gathers touch), screened contains keys/s.
 
 The last line is ``{"ok": true, "device": {...}}``.  Without a card the
 script exits non-zero before printing any result.
@@ -73,17 +91,23 @@ SMALL_N = 50_000
 BIG_BATCH = 1 << 20            # largest batch held against the plain version
 BIG_DELTA = 1 << 20            # staged entries of the large delta
 N_WRITES = 300_000             # inserts, and deletes, on the main path
-N_GET = 1_000_000
-N_LOOKUP = 4_000_000
+# the checks' depth is cut so the whole run fits its time limit (PERF.md §4)
+N_GET = 500_000
+N_LOOKUP = 2_000_000
 SCAN_PAGE_SIZES = (256, 160, 1)
+SHARDED_STRIDE = 8              # the K = 4 service holds every 8th key
 SCAN_WIDTHS = (1, 2, 3, 10, 100, 1_000, 4_097, 10_000, 65_536, 100_000)
 BIG_SCANS = (1 << 20, 1 << 22)  # rows of the two timed ranges
-HOST_SCAN_ROWS = 100_000        # host `scan` checked on ranges up to this wide
+HOST_SCAN_ROWS = 20_000         # host `scan` checked on ranges up to this wide
 DEVICE = "cuda"
 
 
+T_START = time.perf_counter()
+
+
 def emit(obj) -> None:
-    print(json.dumps(obj), flush=True)
+    """One JSON line, stamped with the seconds since the script began."""
+    print(json.dumps({**obj, "t_s": round(time.perf_counter() - T_START, 1)}), flush=True)
 
 
 def check(cond: bool, what: str) -> None:
@@ -922,7 +946,8 @@ def check_sharded_scans(svc, state, ranges, tag, device):
     scan_batch one dispatch, bit-identical to the plain op on the same
     plane, its count the float32 rank difference, its keys the float32
     merge in the plane's frame, its values equal outside tied float32
-    groups; the host `scan` equal to the float64 merge up to 100k rows."""
+    groups; the host `scan` equal to the float64 merge up to
+    HOST_SCAN_ROWS rows."""
     import torch
     from repro_torch.kernels import ops
 
@@ -1183,7 +1208,8 @@ def run_rebalance(args, rng, dev, n=2_000_000):
 
     base = gen_maps(n, seed=args.seed + 7)
     svc = ShardedIndexService(
-        base, ServiceConfig(num_shards=4, strategy="sharded_fused", delta_capacity=1 << 16),
+        base, ServiceConfig(num_shards=4, strategy="sharded_fused", delta_capacity=1 << 16,
+                            bloom_fpr=0.02),
         vals=np.zeros(base.size, np.int64), device=dev)
     windows = []
     _, _, summary = drive_sharded(svc, base, rng, dev, "rebalance", 20_000, 100_000, 200_000,
@@ -1191,18 +1217,444 @@ def run_rebalance(args, rng, dev, n=2_000_000):
     counts = {k: sum(c[k] for path, c in windows if k in SHARDED_PATHS[path])
               for ks in SHARDED_PATHS.values() for k in ks}
     check(all(v > 0 for v in counts.values()), f"rebalance path: a kernel never launched {counts}")
-    return {"n": int(base.size), "launches": counts, **summary}
+    check(all(sh._mgr.current().bloom is not None for sh in svc.shards),
+          "rebalance path: a shard without its Bloom screen")
+    screen = svc.stats_summary()["contains"]
+    check(screen["bloom_screened"] > 0, "rebalance path: the per-shard screens screened nothing")
+    return {"n": int(base.size), "launches": counts, "bloom_screened": screen["bloom_screened"],
+            "bloom_fp": screen["bloom_fp"], **summary}
+
+
+# ---------------------------------------------------------------------------
+# §4 / §5 probes: both kernels against their plain versions (phase 2), the
+# hash-model index at scale, and the Bloom kernel on the service's filter
+# ---------------------------------------------------------------------------
+
+PROBE_DISTS = ("gen_maps", "gen_lognormal", "gen_weblogs")
+SLOT_RATIOS = (0.75, 1.0, 1.25)
+# the last filter has num_bits above 2**31, so h1 + i*h2 wraps at 2**32
+BLOOM_SHAPES = ((1 << 14, 3), (1 << 16, 7), (1 << 18, 10), ((1 << 31) + 96, 7))
+N_ABSENT_F32 = 4_000_000       # float32-absent queries of the hash index
+ORACLE_KEYS = 20_000_000       # folded keys of the kernel-family oracle filter
+HASH_BATCH = 1 << 27           # stored keys per hash_probe_op call
+PROBE_BATCHES = (1 << 20, 1 << 24)  # queries of the timed probe launches
+FPR_BAND = (0.0085, 0.0115)    # contains' false-positive rate on absent keys at fpr 0.01
+ORACLE_BAND = (0.95, 1.05)     # measured / (1 - e^{-kn/m})^k for the oracle filter
+
+
+def f32_twins(ks, stored):
+    """Raw keys absent from the key set whose float32 normalization
+    equals a stored key's: the next float64 above each of the ``stored``
+    keys, where that collides."""
+    up = np.nextafter(stored, np.inf)
+    return _absent(ks.raw, up[ks.normalize(up) == ks.normalize(stored)])
+
+
+def f32_absent(ks, cand):
+    """The raw candidates whose float32 normalization no stored key has."""
+    cn = ks.normalize(cand)
+    i = np.clip(np.searchsorted(ks.norm, cn), 0, ks.n - 1)
+    return cand[ks.norm[i] != cn]
+
+
+def f32_absent_queries(ks, rng, count):
+    """``count`` raw keys absent in the float32 frame: uniform keys over
+    the span, then (where stored keys fill the float32 grid: its upper
+    half holds 2**23 values, fewer than the keys stored there at 195M)
+    float32 values drawn uniformly over their bit patterns in [0, 1),
+    mapped back to raw keys."""
+    out = [f32_absent(ks, rng.uniform(ks.raw[0], ks.raw[-1], count))]
+    while sum(a.size for a in out) < count:
+        f = rng.integers(0, 0x3F800000, count, dtype=np.uint32).view(np.float32)
+        out.append(f32_absent(ks, ks.lo + f.astype(np.float64) * (ks.hi - ks.lo)))
+    return np.concatenate(out)[:count]
+
+
+def hash_query_pool(raw, ks, rng, n):
+    """Stored, absent (in the float32 frame), float32-equal, NaN,
+    infinite and out-of-span raw queries for the hash probe."""
+    span = raw[-1] - raw[0]
+    return {
+        "stored": raw[rng.choice(raw.size, n)],
+        "absent": f32_absent(ks, rng.uniform(raw[0], raw[-1], n)),
+        "f32_equal": f32_twins(ks, raw[rng.choice(raw.size, n)]),
+        "edges": np.array([np.nan, np.inf, -np.inf, raw[0] - span, raw[-1] + span,
+                           raw[0] - 1e-9 * span, raw[-1] + 1e-9 * span, -1e300, 1e300]),
+    }
+
+
+def hash_kwargs(hm, idx):
+    return dict(n=idx.n, num_leaves=idx.num_leaves, num_slots=hm.num_slots,
+                trips=max(0, hm.max_chain - 1))
+
+
+def compare_hash_kernel(label, hm, idx, ks, rng, device, record):
+    """`hash_probe_cuda` against its plain twin on the card, bit for bit,
+    over every query set and batches of 1, 777 and BIG_BATCH; the host
+    twin gives the card's answers too.  Returns the mismatch count."""
+    import torch
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.hash_probe import hash_probe_cuda
+
+    tabs = ops.hash_probe_tensors(hm, idx, ks, device)
+    kw = hash_kwargs(hm, idx)
+    sets = hash_query_pool(ks.raw, ks, rng, 20_000)
+    pool = np.concatenate(list(sets.values()))
+    sets.update(batch_1=pool[:1], batch_777=rng.choice(pool, 777),
+                **{f"batch_{BIG_BATCH}": rng.choice(pool, BIG_BATCH)})
+    worst = 0
+    for name, qs in sets.items():
+        q = torch.as_tensor(ks.normalize(qs), device=device)
+        got = hash_probe_cuda(q, *tabs, **kw)
+        err = int((got != ref.hash_probe_reference(q, *tabs, **kw)).sum())
+        worst = max(worst, err)
+        record.append({"map": label, "queries": name, "batch": int(q.numel()),
+                       "mismatches": err, "found": int(got.sum())})
+        check(err == 0, f"hash kernel != plain: {label}/{name}")
+        if name in ("stored", "f32_equal"):
+            check(bool(got.all()), f"{label}: a {name} key not found")
+        if name == "absent":
+            check(not bool(got.any()), f"{label}: an absent key found")
+    q = ks.normalize(sets["batch_777"])
+    host = ref.hash_probe_reference(torch.as_tensor(q), *(a.cpu() for a in tabs), **kw)
+    check(torch.equal(hash_probe_cuda(torch.as_tensor(q, device=device), *tabs, **kw).cpu(),
+                      host), f"{label}: card != host plain version")
+    return worst
+
+
+def family_words(keys_u32, num_bits, k):
+    """An oracle filter in NumPy: every probe bit of ``keys_u32`` set
+    under the kernels' own double hashing (uint32 `mix32`, ``h1 + i*h2``
+    wrapping at 2**32)."""
+    def mix32(h, seed):
+        h = h ^ np.uint32(seed * 0x9E3779B9 & 0xFFFFFFFF)
+        h ^= h >> np.uint32(16)
+        h *= np.uint32(0x7FEB352D)
+        h ^= h >> np.uint32(15)
+        h *= np.uint32(0x846CA68B)
+        h ^= h >> np.uint32(16)
+        return h
+
+    words = np.zeros(-(-num_bits // 32), np.uint32)
+    h = np.asarray(keys_u32, np.uint32)
+    h1, h2 = mix32(h, 1), mix32(h, 2) | np.uint32(1)
+    for i in range(k):
+        bit = (h1 + np.uint32(i) * h2) % np.uint32(num_bits)
+        np.bitwise_or.at(words, (bit >> np.uint32(5)).astype(np.int64),
+                         np.uint32(1) << (bit & np.uint32(31)))
+    return words
+
+
+def u32_tensor(a, device):
+    """uint32 values as an int32 tensor of their bit patterns."""
+    import torch
+    return torch.from_numpy(np.ascontiguousarray(a, np.uint32).view(np.int32)).to(device)
+
+
+def compare_bloom_kernel(rng, device, record):
+    """`bloom_probe_cuda` against its plain twin on the card, bit for
+    bit, on an oracle filter of each shape: members, random uint32 keys,
+    0 and 0xFFFFFFFF, batches of 1, 777 and BIG_BATCH.  Every member
+    must be found.  Returns the mismatch count."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.bloom_probe import bloom_probe_cuda
+
+    worst = 0
+    for num_bits, k in BLOOM_SHAPES:
+        members = rng.integers(0, 1 << 32, min(4_000, num_bits // 16), dtype=np.uint32)
+        words = u32_tensor(family_words(members, num_bits, k), device)
+        edge = np.array([0, 1, 0x7FFFFFFF, 0x80000000, 0xFFFFFFFF], np.uint32)
+        pool = np.concatenate([members, rng.integers(0, 1 << 32, 20_000, dtype=np.uint32),
+                               edge])
+        sets = {"members": members, "edges": edge, "batch_1": pool[:1],
+                "batch_777": rng.choice(pool, 777),
+                f"batch_{BIG_BATCH}": rng.choice(pool, BIG_BATCH)}
+        for name, qs in sets.items():
+            q = u32_tensor(qs, device)
+            got = bloom_probe_cuda(q, words, num_bits=num_bits, k=k)
+            err = int((got != ref.bloom_probe_reference(q, words, num_bits=num_bits,
+                                                        k=k)).sum())
+            worst = max(worst, err)
+            record.append({"num_bits": num_bits, "k": k, "queries": name,
+                           "batch": int(q.numel()), "mismatches": err, "hits": int(got.sum())})
+            check(err == 0, f"bloom kernel != plain: {num_bits}/{k}/{name}")
+            if name == "members":
+                check(bool(got.all()), f"bloom {num_bits}/{k}: a member not found")
+    return worst
+
+
+def compare_probe_kernels(rng, device, record):
+    """Phase 2 for the probes: hash maps of three distributions at 50k
+    keys and three slot ratios, a map with no overflow, and the Bloom
+    shapes.  Returns (hash mismatches, Bloom mismatches)."""
+    from repro_torch import data
+    from repro_torch.core import build_model_hashmap
+
+    worst = 0
+    for dist in PROBE_DISTS:
+        raw = getattr(data, dist)(SMALL_N, seed=4)
+        for ratio in SLOT_RATIOS:
+            hm, idx, ks = build_model_hashmap(raw, int(raw.size * ratio), device=device)
+            worst = max(worst, compare_hash_kernel(
+                f"{dist}/{ratio}/max_chain{hm.max_chain}", hm, idx, ks, rng, device, record))
+    raw = data.gen_maps(400, seed=5)
+    hm, idx, ks = build_model_hashmap(raw, 1 << 20, device=device)
+    check(hm.max_chain == 1 and hm.ovf_next.tolist() == [-1], "the sparse map overflows")
+    worst = max(worst, compare_hash_kernel("maps400/no_overflow", hm, idx, ks, rng, device,
+                                           record))
+    return worst, compare_bloom_kernel(rng, device, record)
+
+
+def distinct_sectors(ix, elems=8):
+    """Distinct 32-byte sectors that gathering 4-byte elements at ``ix``
+    touches (each read once)."""
+    import torch
+    return int(torch.unique(ix.to(torch.int64) // elems).numel())
+
+
+def hash_sectors(idx, tabs, q, kw):
+    """Distinct 32-byte sectors the hash probe of ``q`` must read: those
+    of the leaf parameters and the slot keys and links it gathers, and
+    of the overflow nodes it walks until the key is found or its chain
+    ends (each array's sectors counted once)."""
+    import torch
+    from repro_torch.core.learned_hash import model_slots
+    from repro_torch.core.rmi import leaf_and_pos
+    s0, leaf_w, leaf_b, slot_key, slot_next, ovf_key, ovf_next = tabs
+    leaf, _ = leaf_and_pos(s0, (), leaf_w, leaf_b, q, n=kw["n"], num_leaves=kw["num_leaves"])
+    slot = model_slots(idx, q, kw["num_slots"])
+    found = slot_key[slot] == q
+    nxt = slot_next[slot]
+    walked = []
+    for _ in range(kw["trips"]):
+        active = ~found & (nxt >= 0)
+        safe = torch.clamp(nxt, 0, ovf_key.shape[0] - 1)
+        walked.append(safe[active])
+        found = found | (active & (ovf_key[safe] == q))
+        nxt = torch.where(active, ovf_next[safe], torch.full_like(nxt, -1))
+    nodes = torch.cat(walked) if walked else slot[:0]
+    return 2 * (distinct_sectors(leaf) + distinct_sectors(slot) + distinct_sectors(nodes))
+
+
+def bloom_sectors(q, words, num_bits, k):
+    """Distinct 32-byte sectors of ``words`` the Bloom probe of ``q``
+    must read: the words of its probes up to and including the first
+    clear bit (k for a hit)."""
+    import torch
+    from repro_torch.kernels.ref import mix32
+    h = q.to(torch.int64) & 0xFFFFFFFF
+    h1, h2 = mix32(h, 1), mix32(h, 2) | 1
+    alive = torch.ones(q.shape, dtype=torch.bool, device=q.device)
+    read = []
+    for i in range(k):
+        bit = ((h1 + i * h2) & 0xFFFFFFFF) % num_bits
+        read.append((bit >> 5)[alive])
+        alive &= ((words[bit >> 5] >> (bit & 31).to(torch.int32)) & 1) != 0
+    return distinct_sectors(torch.cat(read))
+
+
+def probe_bound_ms(batch, sectors):
+    """Each query's key read (4 B) and bool written (1 B), plus 32 B per
+    distinct sector gathered, over the card's memory rate."""
+    return (batch * 5 + 32 * sectors) / HBM_BYTES_PER_S * 1e3
+
+
+def mean_walk(hm):
+    """Mean overflow nodes a stored key's probe walks (its place in its
+    chain, less one): the build's chain lengths."""
+    starts = np.sort(hm.slot_next[hm.slot_next >= 0])
+    if starts.size == 0:
+        return 0.0
+    lens = np.diff(np.append(starts, hm.ovf_next.size))
+    return float((lens * (lens + 1) // 2).sum() / (hm.num_slots - hm.num_empty + lens.sum()))
+
+
+def check_screen(svc, oracle, rng, tag, n=1_000_000):
+    """The single service's Bloom screen: no live key is screened out
+    (base keys, which reach the filter, and staged inserts), absent keys
+    are screened, and ``bloom_fp`` over the absent keys that pass the
+    screen is a rate within FPR_BAND (the filter's target is 0.01)."""
+    stats = svc.stats
+    s0, f0 = int(stats["bloom_screened"]), int(stats["bloom_fp"])
+    base_live = oracle.base[rng.choice(oracle.base.size, n)]
+    base_live = base_live[oracle.live(base_live)]
+    check(bool(svc.contains(base_live).all()), f"{tag}: a live key screened out")
+    if oracle.ins.size:
+        check(bool(svc.contains(oracle.ins).all()), f"{tag}: a staged insert screened out")
+    check(int(stats["bloom_screened"]) == s0, f"{tag}: the screen dropped live keys")
+    absent = _absent(oracle.base, rng.uniform(oracle.base[0], oracle.base[-1], n))
+    if oracle.ins.size:
+        absent = _absent(oracle.ins, absent)
+    check(not bool(svc.contains(absent).any()), f"{tag}: an absent key reported present")
+    screened = int(stats["bloom_screened"]) - s0
+    fp = int(stats["bloom_fp"]) - f0
+    check(screened > 0 and screened + fp == absent.size,
+          f"{tag}: absent keys neither screened nor counted")
+    rate = fp / absent.size
+    check(FPR_BAND[0] <= rate <= FPR_BAND[1], f"{tag}: false-positive rate {rate} off the band")
+    bloom = svc._mgr.current().bloom
+    return {"live_checked": int(base_live.size + oracle.ins.size), "absent": int(absent.size),
+            "bloom_screened": screened, "bloom_fp": fp, "fp_rate": rate,
+            "num_bits": bloom.num_bits, "num_hashes": bloom.num_hashes,
+            "bloom_mb": bloom.size_bytes / 1e6}
+
+
+def bloom_on_service_filter(snap, rng, device, batch=BIG_BATCH):
+    """The Bloom kernel on the service's own filter through
+    `ops.bloom_probe_op`: the float32 bit patterns of stored and absent
+    keys.  Returns the queries, the kernel's answers, and how many of
+    the stored keys it reports absent (the kernel hashes a uint32 fold
+    with `mix32`, the filter was built with `_mix64` of the float64 key:
+    ROADMAP queue C entry 11)."""
+    from repro_torch.kernels import ops
+    raw = snap.keys.raw
+    stored = raw[rng.choice(raw.size, batch // 2)]
+    absent = _absent(raw, rng.uniform(raw[0], raw[-1], batch - stored.size))
+    q = u32_tensor(np.concatenate([stored, absent]).astype(np.float32).view(np.uint32), device)
+    got = ops.bloom_probe_op(snap.bloom, q)
+    return q, got, {"stored": int(stored.size), "absent": int(absent.size),
+                    "stored_reported_absent": int((~got[:stored.size]).sum()),
+                    "absent_reported_present": int(got[stored.size:].sum())}
+
+
+def bloom_oracle(rng, device, n=None):
+    """The kernel against its own hash family's contract: an oracle
+    filter over ``n`` (default ORACLE_KEYS) distinct folded keys at the
+    service's sizing (`build_bloom`'s m and k for fpr 0.01); every member
+    found, and the false-positive rate on 4M non-members within
+    ORACLE_BAND of (1 - e^{-kn/m})^k."""
+    import math
+    from repro_torch.core.bloom import BloomFilter, optimal_bits_per_key, optimal_num_hashes
+    from repro_torch.kernels import ops
+    n = ORACLE_KEYS if n is None else n
+    t0 = time.perf_counter()
+    # distinct folded keys without a sort: an odd multiplier permutes the
+    # uint32 values, so members and non-members never meet
+    mult, add = np.uint64(rng.integers(1 << 20, 1 << 31) * 2 + 1), np.uint64(rng.integers(1 << 32))
+    keys = ((np.arange(n + 4_000_000, dtype=np.uint64) * mult + add)
+            & np.uint64(0xFFFFFFFF)).astype(np.uint32)
+    members, others = keys[:n], keys[n:]
+    split = {"keys_s": time.perf_counter() - t0}
+    num_bits = (int(math.ceil(optimal_bits_per_key(0.01) * members.size)) + 31) // 32 * 32
+    k = optimal_num_hashes(num_bits / members.size)
+    t0 = time.perf_counter()
+    bf = BloomFilter(num_bits=num_bits, num_hashes=k, words=family_words(members, num_bits, k))
+    split["build_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    found = sum(int(ops.bloom_probe_op(bf, u32_tensor(members[s:s + (1 << 23)], device)).sum())
+                for s in range(0, members.size, 1 << 23))
+    rate = float(ops.bloom_probe_op(bf, u32_tensor(others, device)).float().mean())
+    split["probe_s"] = time.perf_counter() - t0
+    check(found == members.size, f"oracle filter: {members.size - found} members not found")
+    theory = (1 - math.exp(-k * members.size / num_bits)) ** k
+    check(ORACLE_BAND[0] <= rate / theory <= ORACLE_BAND[1],
+          f"oracle filter: false-positive rate {rate} against {theory}")
+    return {"members": int(members.size), "num_bits": num_bits, "k": k,
+            "false_negatives": int(members.size - found), "non_members": int(others.size),
+            "fp_rate": rate, "fp_theory": theory, **split}
+
+
+def fig10(m):
+    """The paper's Fig. 10 statistics of a hash map."""
+    return {"empty_pct": 100.0 * m.num_empty / m.num_slots, "max_chain": m.max_chain,
+            "overflow": int(m.ovf_key.size) if m.max_chain > 1 else 0,
+            "conflicts": m.num_conflicts, "mean_walk": mean_walk(m)}
+
+
+def run_hash_index(args, base, rng, dev, card):
+    """The paper's §4 at full size: `build_model_hashmap` over ``base``
+    with S = n slots (n/4 leaves, slots computed on the card); every
+    stored key probed through `ops.hash_probe_op` on the kernel, 4M
+    float32-absent queries, the kernel against its twin on 1<<20 mixed
+    queries, the kernel's times; then the random-hash map through the
+    plain `compile_hash_lookup`, and Fig. 10's statistics of both."""
+    import torch
+    from repro_torch.core import build_model_hashmap, build_random_hashmap, compile_hash_lookup
+    from repro_torch.core.learned_hash import random_hash_u64
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.hash_probe import hash_probe_cuda
+
+    t0 = time.perf_counter()
+    hm, idx, ks = build_model_hashmap(base, base.size, device=dev)
+    build_s = time.perf_counter() - t0
+    n = ks.n
+    model_stats = fig10(hm)
+    emit({"phase": "hash_build", "n": n, "slots": hm.num_slots, "num_leaves": idx.num_leaves,
+          "build_s": build_s, **model_stats})
+
+    # -- the main path: counts zeroed just before, read just after -------
+    reset_counts()
+    t0 = time.perf_counter()
+    found = sum(int(ops.hash_probe_op(hm, idx, ks, ks.raw[s:s + HASH_BATCH], device=dev).sum())
+                for s in range(0, n, HASH_BATCH))
+    check(found == n, f"hash index: {n - found} stored keys not found")
+    absent = f32_absent_queries(ks, rng, N_ABSENT_F32)
+    absent_found = int(ops.hash_probe_op(hm, idx, ks, absent, device=dev).sum())
+    check(absent_found == 0, f"hash index: {absent_found} float32-absent keys found")
+    launches = read_counts()["hash_probe_cuda"]
+    main_s = time.perf_counter() - t0
+    check(launches > 0, "hash_probe_cuda never launched on the main path")
+
+    # the kernel against its twin, then its times
+    tabs = ops.hash_probe_tensors(hm, idx, ks, dev)
+    kw = hash_kwargs(hm, idx)
+    pool = np.concatenate(list(hash_query_pool(ks.raw, ks, rng, BIG_BATCH // 2).values()))
+    q = torch.as_tensor(ks.normalize(rng.choice(pool, BIG_BATCH)), device=dev)
+    mism = int((hash_probe_cuda(q, *tabs, **kw) != ref.hash_probe_reference(q, *tabs, **kw))
+               .sum())
+    check(mism == 0, f"hash index: kernel != plain on {mism} of {BIG_BATCH} queries")
+    times = []
+    for batch in PROBE_BATCHES:
+        qt = torch.as_tensor(ks.norm[rng.choice(n, batch)], device=dev)
+        row = {"batch": batch,
+               "ms": time_ms(lambda: hash_probe_cuda(qt, *tabs, **kw)),
+               "plain_ms": time_ms(lambda: ref.hash_probe_reference(qt, *tabs, **kw),
+                                   reps=3, warmup=1),
+               "sectors": hash_sectors(idx, tabs, qt, kw)}
+        row["bound_ms"] = probe_bound_ms(batch, row["sectors"])
+        row["max_abs_err"] = int((hash_probe_cuda(qt, *tabs, **kw)
+                                  != ref.hash_probe_reference(qt, *tabs, **kw)).sum())
+        check(row["max_abs_err"] == 0, f"hash index: kernel != plain at {batch} stored keys")
+        times.append(row)
+    del tabs, q, qt, hm, idx
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the random-hash baseline through the plain chain walk
+    t0 = time.perf_counter()
+    rnd = build_random_hashmap(ks.raw, n)
+    random_build_s = time.perf_counter() - t0
+    random_stats = fig10(rnd)
+    lookup = compile_hash_lookup(rnd, lambda rq: torch.as_tensor(
+        random_hash_u64(rq.cpu().numpy().view(np.uint64), n), device=dev), device=dev)
+    sample = ks.raw[rng.choice(n, N_ABSENT_F32)]
+    check(bool(lookup(torch.as_tensor(sample, device=dev)).all()),
+          "random hash map: a stored key not found")
+    miss = _absent(ks.raw, rng.uniform(ks.raw[0], ks.raw[-1], N_ABSENT_F32))
+    check(not bool(lookup(torch.as_tensor(miss, device=dev)).any()),
+          "random hash map: an absent key found")
+    del rnd, lookup
+    gc.collect()
+    torch.cuda.empty_cache()
+    out = {"n": n, "build_s": build_s, "random_build_s": random_build_s,
+           "launches": launches, "main_path_s": main_s, "stored_found": found,
+           "f32_absent": int(absent.size), "f32_absent_found": absent_found,
+           "mismatches": max([mism] + [r["max_abs_err"] for r in times]),
+           "model": model_stats, "random": random_stats, "times": times}
+    emit({"phase": "hash_index", "card": card, **out})
+    return out
 
 
 def reset_counts():
-    from repro_torch.kernels import rmi_lookup, rmi_scan
-    rmi_lookup.reset_launch_counts()
-    rmi_scan.reset_launch_counts()
+    from repro_torch.kernels import bloom_probe, hash_probe, rmi_lookup, rmi_scan
+    for m in (rmi_lookup, rmi_scan, hash_probe, bloom_probe):
+        m.reset_launch_counts()
 
 
 def read_counts():
-    from repro_torch.kernels import rmi_lookup, rmi_scan
-    return {**rmi_lookup.LAUNCHES, **rmi_scan.LAUNCHES}
+    from repro_torch.kernels import bloom_probe, hash_probe, rmi_lookup, rmi_scan
+    return {**rmi_lookup.LAUNCHES, **rmi_scan.LAUNCHES, **hash_probe.LAUNCHES,
+            **bloom_probe.LAUNCHES}
 
 
 def run_single(args, base, rng, dev, card, record, worst, scan_worst):
@@ -1216,19 +1668,24 @@ def run_single(args, base, rng, dev, card, record, worst, scan_worst):
     from repro_torch.kernels import ops, ref, rmi_lookup
     from repro_torch.kernels.rmi_lookup import rmi_lookup_cuda, rmi_merged_lookup_cuda
     from repro_torch.kernels.rmi_scan import rmi_scan_page_cuda, rmi_scan_range_cuda
+    from repro_torch.core.bloom import words_tensor
+    from repro_torch.kernels.bloom_probe import bloom_probe_cuda
 
     # ---- phase 3: the main path at scale ---------------------------------
     t0 = time.perf_counter()
     # a zero payload, so scans carry the staged inserts' values through
     # compaction (gen_maps returns sorted unique keys)
-    svc = IndexService(base, ServiceConfig(strategy="cuda_fused", delta_capacity=1 << 20),
+    svc = IndexService(base, ServiceConfig(strategy="cuda_fused", delta_capacity=1 << 20,
+                                           bloom_fpr=0.01),
                        vals=np.zeros(base.size, np.int64), device=dev)
     build_svc_s = time.perf_counter() - t0
     snap0 = svc._mgr.current()
     ks0 = snap0.keys
     emit({"phase": "service_build", "n": int(ks0.n),
           "build_s": build_svc_s, "num_leaves": snap0.index.num_leaves,
-          "max_window": snap0.index.max_window, "max_dup_run": snap0.max_dup_run})
+          "max_window": snap0.index.max_window, "max_dup_run": snap0.max_dup_run,
+          "bloom_bits": snap0.bloom.num_bits, "bloom_hashes": snap0.bloom.num_hashes,
+          "bloom_mb": snap0.bloom.size_bytes / 1e6})
 
     # kernels against plain versions on the full service index
     base_norm0 = snap0._device_tree()[1]
@@ -1277,10 +1734,11 @@ def run_single(args, base, rng, dev, card, record, worst, scan_worst):
     write_s = time.perf_counter() - t0
     oracle = Oracle(ks0.raw, ins, dels)
     checked = check_reads(svc, oracle, rng, "staged", N_GET, N_LOOKUP)
+    screen = {"staged": check_screen(svc, oracle, rng, "staged")}
     # keep the staged delta slab for the timing phase
     _, _, active, dk_t, dp_t = svc._capture()
     emit({"phase": "staged_reads", "write_s": write_s, "checked": checked,
-          "delta_entries": len(active)})
+          "delta_entries": len(active), "screen": screen["staged"]})
     windows.append(("lookup", read_counts()))
 
     # the snapshot-level sharded_fused strategy on the staged index
@@ -1315,6 +1773,7 @@ def run_single(args, base, rng, dev, card, record, worst, scan_worst):
     want_vals[np.searchsorted(snap1.keys.raw, ins)] = ins_vals
     check(bool(np.array_equal(snap1.vals, want_vals)), "compacted payload")
     checked1 = check_reads(svc, oracle1, rng, "compacted", N_GET, N_LOOKUP)
+    screen["compacted"] = check_screen(svc, oracle1, rng, "compacted")
     log0 = svc.compaction_log[-1]
     windows.append(("lookup", read_counts()))
 
@@ -1327,20 +1786,38 @@ def run_single(args, base, rng, dev, card, record, worst, scan_worst):
     windows.append(("scan", read_counts()))
     emit({"phase": "compacted_scans", "seconds": time.perf_counter() - t0,
           "cold_scan_batch_s": compacted["cold_scan_batch_s"], "ranges": scan_rows1})
+
+    # the Bloom kernel on the service's own (compacted) filter, and on an
+    # oracle filter of the kernel's own hash family
+    reset_counts()
+    t0 = time.perf_counter()
+    bq, bgot, fold = bloom_on_service_filter(snap1, rng, dev)
+    fold["seconds"] = time.perf_counter() - t0
+    bloom_oracle_row = bloom_oracle(rng, dev)
+    windows.append(("bloom", read_counts()))
+    bloom_words = words_tensor(snap1.bloom, dev)
+    bkw = dict(num_bits=snap1.bloom.num_bits, k=snap1.bloom.num_hashes)
+    bloom_worst = int((bgot != ref.bloom_probe_reference(bq, bloom_words, **bkw)).sum())
+    check(bloom_worst == 0, f"bloom kernel != plain on the service filter ({bloom_worst})")
+    emit({"phase": "bloom_kernel", "seconds": time.perf_counter() - t0, "filter": {
+        "num_bits": bkw["num_bits"], "k": bkw["k"], "mb": snap1.bloom.size_bytes / 1e6,
+        "mismatches": bloom_worst, **fold}, "oracle": bloom_oracle_row})
     main_s = time.perf_counter() - t_main
     path_kernels = {"lookup": ("rmi_lookup_cuda", "rmi_merged_lookup_cuda"),
                     "snapshot_sharded": ("rmi_sharded_merged_lookup_cuda",),
-                    "scan": ("rmi_scan_range_cuda", "rmi_scan_page_cuda")}
+                    "scan": ("rmi_scan_range_cuda", "rmi_scan_page_cuda"),
+                    "bloom": ("bloom_probe_cuda",)}
     launches = {k: 0 for ks in path_kernels.values() for k in ks}
     for path, counts in windows:
         for k in path_kernels[path]:
             launches[k] += counts[k]
     ledger = ops.dispatch_summary()
     emit({"phase": "compaction", "flush_s": flush_s, "leaves_refit": log0.leaves_refit,
-          "max_window": snap1.index.max_window, "checked": checked1})
+          "max_window": snap1.index.max_window, "checked": checked1,
+          "screen": screen["compacted"]})
     emit({"phase": "main_path", "seconds": main_s, "launches": launches,
           "windows": windows, "dispatch_rows": ledger["rows"]})
-    for op in ("merged_lookup", "rmi_scan_range", "rmi_scan_page"):
+    for op in ("merged_lookup", "rmi_scan_range", "rmi_scan_page", "bloom_probe"):
         rows = [r for r in ledger["rows"] if r["op"] == op]
         check(bool(rows) and all(r["path"] == "kernel" for r in rows),
               f"{op} rows must all be on path kernel")
@@ -1381,6 +1858,16 @@ def run_single(args, base, rng, dev, card, record, worst, scan_worst):
         torch.cuda.synchronize()
         row["lookup_batch_qps"] = batch * reps / (time.perf_counter() - t0)
         times.append(row)
+    # contains end to end with the screen: half stored keys, half absent
+    cq = rng.permutation(np.concatenate([
+        snap1.keys.raw[rng.choice(snap1.n, BIG_BATCH // 2)],
+        _absent(snap1.keys.raw, rng.uniform(snap1.keys.raw[0], snap1.keys.raw[-1],
+                                            BIG_BATCH // 2))]))
+    svc.contains(cq)
+    t0 = time.perf_counter()
+    for _ in range(5):
+        svc.contains(cq)
+    contains_qps = cq.size * 5 / (time.perf_counter() - t0)
     lat = []
     gq = snap1.keys.raw[rng.choice(snap1.n, 1024)]
     for _ in range(200):
@@ -1391,7 +1878,28 @@ def run_single(args, base, rng, dev, card, record, worst, scan_worst):
           "dsteps": dsteps, "delta_padded": d, "rows": times,
           "get_1024_p50_ms": float(np.percentile(lat, 50) * 1e3),
           "get_1024_p99_ms": float(np.percentile(lat, 99) * 1e3),
-          "flush_s": flush_s})
+          "contains_screened_qps": contains_qps, "flush_s": flush_s})
+
+    # ---- phase 4: the Bloom kernel on the service's filter ---------------
+    bloom_times = []
+    raw1 = snap1.keys.raw
+    for batch in PROBE_BATCHES:
+        stored = raw1[rng.choice(snap1.n, batch // 2)]
+        absent = rng.uniform(raw1[0], raw1[-1], batch - stored.size)
+        qt = u32_tensor(np.concatenate([stored, absent]).astype(np.float32).view(np.uint32),
+                        dev)
+        row = {"batch": batch,
+               "ms": time_ms(lambda: bloom_probe_cuda(qt, bloom_words, **bkw)),
+               "plain_ms": time_ms(lambda: ref.bloom_probe_reference(qt, bloom_words, **bkw),
+                                   reps=3, warmup=1),
+               "sectors": bloom_sectors(qt, bloom_words, **bkw)}
+        row["bound_ms"] = probe_bound_ms(batch, row["sectors"])
+        row["max_abs_err"] = int((bloom_probe_cuda(qt, bloom_words, **bkw)
+                                  != ref.bloom_probe_reference(qt, bloom_words, **bkw)).sum())
+        check(row["max_abs_err"] == 0, f"phase 4: bloom kernel != plain at {batch}")
+        bloom_worst = max(bloom_worst, row["max_abs_err"])
+        bloom_times.append(row)
+    emit({"phase": "bloom_times", "card": card, "rows": bloom_times})
 
     # ---- phase 4: scans on the staged 200M-key index ---------------------
     t0 = time.perf_counter()
@@ -1447,7 +1955,8 @@ def run_single(args, base, rng, dev, card, record, worst, scan_worst):
 
     return {"times": times, "scan_times": scan_times, "launches": launches,
             "worst": worst, "scan_worst": scan_worst, "n": int(ks0.n),
-            "snapshot_sharded": snapshot_sharded}
+            "snapshot_sharded": snapshot_sharded, "bloom_times": bloom_times,
+            "bloom_worst": bloom_worst}
 
 
 def main(argv=None) -> int:
@@ -1462,10 +1971,9 @@ def main(argv=None) -> int:
         return 2
     from repro_torch.core import RMIConfig, build_rmi, make_keyset
     from repro_torch.data import gen_lognormal, gen_maps
-    from repro_torch.kernels import rmi_lookup, rmi_scan
+    from repro_torch.kernels import hash_probe, rmi_lookup, rmi_scan
     from repro_torch.kernels.rmi_lookup import rmi_lookup_cuda
 
-    t_start = time.perf_counter()
     dev = torch.device(DEVICE)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -1475,8 +1983,8 @@ def main(argv=None) -> int:
 
     # ---- phase 1: card + build (one nvcc per source, all at once) --------
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(2) as pool:
-        libs = list(pool.map(lambda m: m.build(), (rmi_lookup, rmi_scan)))
+    with ThreadPoolExecutor(3) as pool:
+        libs = list(pool.map(lambda m: m.build(), (rmi_lookup, rmi_scan, hash_probe)))
     build_s = time.perf_counter() - t0
     for lib in libs:
         log = lib.with_suffix(".log").read_text() if lib.with_suffix(".log").exists() else ""
@@ -1519,6 +2027,10 @@ def main(argv=None) -> int:
     sharded_scan_worst = compare_sharded_scan_kernel(rng, dev, sharded_record)
     emit({"phase": "sharded_kernels_vs_plain", "lookup_max_abs_err": sharded_lookup_worst,
           "scan_max_abs_err": sharded_scan_worst, "rows": sharded_record})
+    probe_record = []
+    hash_worst, bloom_worst = compare_probe_kernels(rng, dev, probe_record)
+    emit({"phase": "probe_kernels_vs_plain", "hash_mismatches": hash_worst,
+          "bloom_mismatches": bloom_worst, "rows": probe_record})
 
     # ---- phases 3-4: the single-shard service, then the sharded one ------
     t0 = time.perf_counter()
@@ -1528,7 +2040,12 @@ def main(argv=None) -> int:
     # the single-shard service is gone: peak memory stays one service
     gc.collect()
     torch.cuda.empty_cache()
-    sharded = run_sharded(args, base, rng, dev, card)
+    hashed = run_hash_index(args, base, rng, dev, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    # the K = 4 service runs over every SHARDED_STRIDE-th key (a cut of
+    # depth: the whole run must fit its time limit; PERF.md §4)
+    sharded = run_sharded(args, base[::SHARDED_STRIDE].copy(), rng, dev, card)
     del base
     gc.collect()
     torch.cuda.empty_cache()
@@ -1540,11 +2057,15 @@ def main(argv=None) -> int:
     big = times[-1]
     sbig = scan_times[-1]
     slook, sscan = sharded["lookup"], sharded["scans"][-1]
+    hbig, bbig = hashed["times"][0], single["bloom_times"][0]   # 1<<20 queries
+    hash_worst = max(hash_worst, hashed["mismatches"])
+    bloom_worst = max(bloom_worst, single["bloom_worst"])
     sharded_scan_worst = max(sharded_scan_worst, sharded["scan_max_abs_err"],
                              rebalanced["scan_max_abs_err"])
     sharded_lookup_worst = max(sharded_lookup_worst, slook["max_abs_err"])
     src = "src/repro_torch/kernels/csrc/rmi_lookup.cu"
     scan_src = "src/repro_torch/kernels/csrc/rmi_scan.cu"
+    probe_src = "src/repro_torch/kernels/csrc/probe.cu"
     print(smi, flush=True)
     emit({"kernels": [
         {"name": "rmi_merged_lookup_cuda", "route": "cuda", "source": src,
@@ -1586,12 +2107,23 @@ def main(argv=None) -> int:
          "max_abs_err": sharded_scan_worst, "bit_identical": sharded_scan_worst == 0,
          "ms": sscan["ms"], "plain_ms": sscan["plain_ms"], "bound_ms": sscan["bound_ms"],
          "bound_by": "bytes", "library_ms": None},
+        {"name": "hash_probe_cuda", "route": "cuda", "source": probe_src,
+         "replaces": "src/repro/kernels/hash_probe.py:51", "launches": hashed["launches"],
+         "max_abs_err": hash_worst, "bit_identical": hash_worst == 0,
+         "ms": hbig["ms"], "plain_ms": hbig["plain_ms"], "bound_ms": hbig["bound_ms"],
+         "bound_by": "bytes", "library_ms": None},
+        {"name": "bloom_probe_cuda", "route": "cuda", "source": probe_src,
+         "replaces": "src/repro/kernels/bloom_probe.py:45",
+         "launches": launches["bloom_probe_cuda"],
+         "max_abs_err": bloom_worst, "bit_identical": bloom_worst == 0,
+         "ms": bbig["ms"], "plain_ms": bbig["plain_ms"], "bound_ms": bbig["bound_ms"],
+         "bound_by": "bytes", "library_ms": None},
     ], "batch": big["batch"], "scan_rows": sbig["rows"], "n": single["n"], "shards": slook["S"],
         "sharded_scan_rows": sscan["rows"], "card": smi,
-        "total_s": time.perf_counter() - t_start})
-    emit({"ok": True, "device": {"platform": "gpu",
-                                 "kind": torch.cuda.get_device_name(0),
-                                 "count": torch.cuda.device_count()}})
+        "total_s": time.perf_counter() - T_START})
+    print(json.dumps({"ok": True, "device": {"platform": "gpu",
+                                             "kind": torch.cuda.get_device_name(0),
+                                             "count": torch.cuda.device_count()}}), flush=True)
     return 0
 
 

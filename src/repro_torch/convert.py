@@ -12,7 +12,9 @@ from __future__ import annotations
 
 import numpy as np
 
+from repro_torch.core.bloom import BloomFilter
 from repro_torch.core.keys import KeySet
+from repro_torch.core.learned_hash import HashMap
 from repro_torch.core.rmi import RMIConfig, RMIndex
 from repro_torch.index_service.router import LearnedRouter
 from repro_torch.index_service.snapshot import IndexSnapshot
@@ -59,17 +61,38 @@ def keyset_from_reference(ks) -> KeySet:
                   lo=float(ks.lo), hi=float(ks.hi))
 
 
+def bloom_from_reference(bf) -> BloomFilter:
+    """A reference `BloomFilter` as the port's (its own copy of the
+    words)."""
+    return BloomFilter(num_bits=int(bf.num_bits), num_hashes=int(bf.num_hashes),
+                       words=np.array(bf.words, np.uint32))
+
+
+def hashmap_from_reference(hm) -> HashMap:
+    """A reference `HashMap` as the port's (its own copies of the
+    arrays)."""
+    return HashMap(
+        num_slots=int(hm.num_slots),
+        slot_key=np.array(hm.slot_key, np.float64),
+        slot_next=np.array(hm.slot_next, np.int64),
+        ovf_key=np.array(hm.ovf_key, np.float64),
+        ovf_next=np.array(hm.ovf_next, np.int64),
+        max_chain=int(hm.max_chain),
+        num_conflicts=int(hm.num_conflicts),
+        num_empty=int(hm.num_empty),
+    )
+
+
 def snapshot_from_reference(snap, device=None) -> IndexSnapshot:
     """A reference `IndexSnapshot` as the port's, its tensors on
-    ``device`` (None = "cuda").  Snapshots with a Bloom screen are
-    refused: the screen is not ported yet."""
-    if getattr(snap, "bloom", None) is not None:
-        raise NotImplementedError("Bloom screens are not ported yet")
+    ``device`` (None = "cuda"), its Bloom screen carried across."""
+    bloom = getattr(snap, "bloom", None)
     return IndexSnapshot(
         version=int(snap.version),
         keys=keyset_from_reference(snap.keys),
         index=index_from_reference(snap.index),
         vals=None if snap.vals is None else np.array(snap.vals),
+        bloom=None if bloom is None else bloom_from_reference(bloom),
         max_dup_run=int(snap.max_dup_run),
         device=device,
     )

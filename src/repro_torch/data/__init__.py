@@ -1,3 +1,3 @@
-from repro_torch.data.datasets import gen_lognormal, gen_maps
+from repro_torch.data.datasets import gen_lognormal, gen_maps, gen_weblogs
 
-__all__ = ["gen_lognormal", "gen_maps"]
+__all__ = ["gen_lognormal", "gen_maps", "gen_weblogs"]

@@ -1,11 +1,11 @@
 """Writable learned-index service: batched mixed-op front end.
 
-Composes the subsystem: a versioned base snapshot (RMI + sorted keys),
-an active delta buffer absorbing writes, a stack of frozen deltas
-mid-compaction, and a compactor that publishes successor snapshots
-through the version manager's atomic swap — on a background thread when
-configured, so reads and writes keep flowing while the RMI
-warm-rebuilds.  The snapshot's tensors live on the service's device
+Composes the subsystem: a versioned base snapshot (RMI + sorted keys +
+optional Bloom filter), an active delta buffer absorbing writes, a stack
+of frozen deltas mid-compaction, and a compactor that publishes
+successor snapshots through the version manager's atomic swap — on a
+background thread when configured, so reads and writes keep flowing
+while the RMI warm-rebuilds.  The snapshot's tensors live on the service's device
 (``device=None`` means "cuda"); with ``strategy="cuda_fused"`` every
 read is one launch of the fused CUDA lookup kernel.
 
@@ -14,8 +14,9 @@ Request routing (paper section in parentheses):
   * ``get`` / ``range_lookup``  — RMI bounded search over the base (§3)
     fused with one branchless binary search over the staged delta, then
     an exact host refinement (float32-collision proof);
-  * ``contains``                — delta levels are consulted exactly;
-    the rest goes through the same exact rank path;
+  * ``contains``                — Bloom screen over the base (§5) short-
+    circuits definite misses before any index probe; delta levels are
+    consulted exactly;
   * ``insert`` / ``delete``     — staged into the active delta (§3.3's
     open problem, LSM-style); compaction merges them into the next
     snapshot version;
@@ -24,7 +25,7 @@ Request routing (paper section in parentheses):
     one launch of the fused scan kernel.
 
 Every public op records count/latency; ``stats_summary()`` reports
-ns/op, hit rates and compaction telemetry.
+ns/op, hit rates, Bloom screens, and compaction telemetry.
 """
 
 from __future__ import annotations
@@ -72,7 +73,7 @@ from repro_torch.index_service.snapshot import (
 class ServiceConfig:
     delta_capacity: int = 4096       # staged entries (per shard, when num_shards > 1)
     compact_fraction: float = 0.75   # delta fill that triggers compaction
-    bloom_fpr: Optional[float] = None  # must stay None: not ported yet
+    bloom_fpr: Optional[float] = None  # None = no existence screen
     strategy: str = "binary"         # any member of snapshot.MERGED_STRATEGIES
     background: bool = False         # compact on a worker thread
     snapshot_dir: Optional[str] = None
@@ -128,6 +129,7 @@ _STATS_KEYS: Tuple[str, ...] = (
     "range", "range_s",
     "insert", "insert_s", "insert_applied",
     "delete", "delete_s", "delete_applied",
+    "bloom_screened", "bloom_fp",
     "scan", "scan_s", "scan_pages", "scan_rows",
     "lookup_batch", "lookup_batch_s",
     "scan_batch", "scan_batch_s",
@@ -325,11 +327,17 @@ class IndexService:
         return rank
 
     def contains(self, keys) -> np.ndarray:
-        """Existence check.  Keys mentioned by any delta level resolve
-        exactly from the levels (youngest decides); unmentioned keys
-        are base-only and resolve through the exact rank path (one
-        dispatch).  The reference's Bloom screen in front of that path
-        is not ported yet."""
+        """Existence check: delta-absorbing Bloom screen.
+
+        Keys mentioned by any delta level resolve exactly from the
+        levels (youngest decides) — the base Bloom is never consulted
+        for them, so tombstoned keys cannot surface as stale-filter
+        positives between compactions.  Unmentioned keys are base-only
+        and go through the snapshot's Bloom (host NumPy, rebuilt over
+        the merged key set at every compaction boundary); the survivors
+        resolve through the exact rank path (one dispatch), and
+        ``bloom_fp`` counts the filter's true false positives against
+        that refreshed state."""
         t0 = time.perf_counter()
         with obs_trace.span("service.contains", cat="service"):
             q = np.atleast_1d(np.asarray(keys, np.float64))
@@ -345,9 +353,17 @@ class IndexService:
                     member(snap.keys.raw, qm), frozen, active, qm
                 )
             rest = np.flatnonzero(~mentioned)
+            if snap.bloom is not None and rest.size:
+                maybe = snap.bloom.contains(q[rest])
+                self.stats["bloom_screened"] += int((~maybe).sum())
+                rest = rest[maybe]
             if rest.size:
                 _, live = self._rank_exact(q[rest])
                 out[rest] = live
+                if snap.bloom is not None:
+                    # passed the filter but not in the base: a genuine
+                    # false positive of the *current* (refreshed) Bloom
+                    self.stats["bloom_fp"] += int((~live).sum())
         dt = time.perf_counter() - t0
         self.stats["contains"] += q.size
         self.stats["contains_hits"] += int(out.sum())
@@ -897,6 +913,8 @@ class IndexService:
                 **per_op("contains"),
                 "hit_rate": (s["contains_hits"] / s["contains"]
                              if s["contains"] else 0.0),
+                "bloom_screened": int(s["bloom_screened"]),
+                "bloom_fp": int(s["bloom_fp"]),
             },
             "range": per_op("range"),
             "scan": {

@@ -477,9 +477,13 @@ class ShardedIndexService:
     def contains(self, keys) -> np.ndarray:
         """Existence check, delta-absorbing like the unsharded service:
         keys MENTIONED by a shard's delta levels resolve exactly on the
-        host, and the rest resolve through ONE `_ranks` device dispatch.
-        (The reference's per-shard Bloom screen in front of that
-        dispatch is not ported yet.)"""
+        host (the stale-on-delete snapshot Bloom is never consulted for
+        them), unmentioned keys screen through the per-shard snapshot
+        Bloom — rebuilt over the live set at every compaction — and the
+        survivors resolve through ONE `_ranks` device dispatch.
+        Accounting matches the unsharded service (count/hits/latency
+        here; Bloom screens and genuine false positives credited to the
+        owning shard, so aggregate telemetry survives rebalances)."""
         t0 = time.perf_counter()
         q = np.atleast_1d(np.asarray(keys, np.float64))
         with obs_trace.span("service.contains", cat="service",
@@ -511,15 +515,35 @@ class ShardedIndexService:
                 if mentioned.any():
                     # delta-absorbed: a mentioned key's liveness is decided
                     # by the youngest level that knows it (plus exact base
-                    # membership) — no device dispatch
+                    # membership) — no device dispatch, no Bloom
                     qmm = qm[mentioned]
                     out[idx[mentioned]] = live_mask(
                         member(snap.keys.raw, qmm), frozen, active, qmm
                     )
-                maybe[idx[~mentioned]] = True
+                rest = ~mentioned
+                if snap.bloom is not None:
+                    mb = np.zeros(qm.shape, bool)
+                    mb[rest] = snap.bloom.contains(qm[rest])
+                    self._shards[s].stats["bloom_screened"] += int(
+                        (rest & ~mb).sum()
+                    )
+                    maybe[idx[mb]] = True
+                else:
+                    maybe[idx[rest]] = True
             if maybe.any():
                 _, lv = self._ranks(q[maybe])
                 out[maybe] = lv
+                if not lv.all():
+                    # survivors the filter passed that turned out dead are
+                    # its GENUINE false positives (deleted keys no longer
+                    # inflate this: they are delta-absorbed until the
+                    # compaction boundary rebuilds the filter)
+                    fp = np.flatnonzero(maybe)[~lv]
+                    for s in np.unique(shard_of[fp]):
+                        if caps[int(s)][0].bloom is not None:
+                            self._shards[int(s)].stats["bloom_fp"] += int(
+                                (shard_of[fp] == s).sum()
+                            )
             return out
 
     def range_lookup(self, lo: float, hi: float) -> Tuple[int, int]:
@@ -1287,6 +1311,8 @@ class ShardedIndexService:
                     **per_op("contains"),
                     "hit_rate": (s["contains_hits"] / s["contains"]
                                  if s["contains"] else 0.0),
+                    "bloom_screened": int(agg("bloom_screened")),
+                    "bloom_fp": int(agg("bloom_fp")),
                 },
                 "range": per_op("range"),
                 "scan": {
@@ -1301,4 +1327,5 @@ class ShardedIndexService:
                 "compact_stalls": int(agg("compact_stalls")),
                 "write_stalls": int(agg("write_stalls")),
                 "write_stall_s": float(agg("write_stall_s")),
+                "bloom_screened": int(agg("bloom_screened")),
             }

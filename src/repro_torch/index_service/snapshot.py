@@ -2,11 +2,11 @@
 
 A snapshot is the unit of consistency for the writable index service:
 one (RMI, sorted base keys, max_window) triple plus the optional value
-payload, all built together and never mutated afterwards.  Batched
-readers grab ``VersionManager.current()`` once per batch; because a
-swap only replaces the *reference* and the previous snapshot is
-retained as the second buffer, an in-flight batch keeps consistent
-arrays even if a compaction publishes mid-batch.  Each snapshot keeps
+payload and base Bloom filter, all built together and never mutated
+afterwards.  Batched readers grab ``VersionManager.current()`` once per
+batch; because a swap only replaces the *reference* and the previous
+snapshot is retained as the second buffer, an in-flight batch keeps
+consistent arrays even if a compaction publishes mid-batch.  Each snapshot keeps
 its device tensors (keys, leaf arrays, stage-0 buffer) on its own
 ``device``, uploaded once at first use.
 
@@ -33,6 +33,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import search as search_lib
+from repro_torch.core.bloom import BloomFilter, build_bloom
 from repro_torch.core.keys import KeySet, make_keyset
 from repro_torch.core.rmi import RMIConfig, RMIndex, build_rmi, refit_rmi, rmi_lookup
 from repro_torch.device import resolve_device
@@ -114,13 +115,11 @@ class IndexSnapshot:
     keys: KeySet
     index: RMIndex
     vals: Optional[np.ndarray] = None       # payload aligned with keys.raw
-    bloom: None = None                      # the Bloom screen is not ported yet
+    bloom: Optional[BloomFilter] = None     # existence screen over base keys
     max_dup_run: int = 1
     device: Optional[torch.device] = None   # None = "cuda"
 
     def __post_init__(self):
-        if self.bloom is not None:
-            raise NotImplementedError("Bloom screens are not ported yet")
         self.device = resolve_device(self.device)
         self._compiled: Dict[str, Callable] = {}
 
@@ -459,6 +458,10 @@ class IndexSnapshot:
             payload[f"s0_{k}"] = v
         if self.vals is not None:
             payload["vals"] = self.vals
+        if self.bloom is not None:
+            payload["bloom_words"] = self.bloom.words
+            payload["bloom_bits"] = np.int64(self.bloom.num_bits)
+            payload["bloom_hashes"] = np.int64(self.bloom.num_hashes)
         tmp = path + ".tmp"
         with open(tmp, "wb") as f:
             np.savez_compressed(f, **payload)
@@ -468,11 +471,6 @@ class IndexSnapshot:
     @staticmethod
     def load(path: str, device=None) -> "IndexSnapshot":
         with np.load(path) as z:
-            if "bloom_words" in z.files:
-                raise NotImplementedError(
-                    f"{path} carries a Bloom screen; Bloom screens are not "
-                    "ported yet"
-                )
             raw = z["raw"]
             lo, hi = float(z["key_lo"]), float(z["key_hi"])
             # build-time normalization (make_keyset / build_snapshot)
@@ -507,10 +505,18 @@ class IndexSnapshot:
                 is_btree=z["is_btree"], seg_lo=z["seg_lo"], seg_hi=z["seg_hi"],
                 max_window=int(z["max_window"]),
             )
+            bloom = None
+            if "bloom_words" in z.files:
+                bloom = BloomFilter(
+                    num_bits=int(z["bloom_bits"]),
+                    num_hashes=int(z["bloom_hashes"]),
+                    words=z["bloom_words"],
+                )
             vals = z["vals"] if "vals" in z.files else None
             return IndexSnapshot(
                 version=int(z["version"]), keys=keys, index=index,
-                vals=vals, max_dup_run=int(z["max_dup_run"]), device=device,
+                vals=vals, bloom=bloom, max_dup_run=int(z["max_dup_run"]),
+                device=device,
             )
 
 
@@ -531,11 +537,9 @@ def build_snapshot(
     reused, only changed leaves refit); falls back to a cold `build_rmi`
     when the warm path is incompatible or the resulting search window
     degrades past 4x the old one.  Returns (snapshot, leaves_refit);
-    leaves_refit is -1 for a cold build.  ``bloom_fpr`` must be None:
-    the Bloom screen is not ported yet.
+    leaves_refit is -1 for a cold build.  With ``bloom_fpr`` the
+    snapshot carries a Bloom screen over its raw keys (host NumPy).
     """
-    if bloom_fpr is not None:
-        raise NotImplementedError("Bloom screens are not ported yet")
     dev = resolve_device(device)
     raw_keys = np.asarray(raw_keys, np.float64)
     if vals is None:
@@ -563,8 +567,11 @@ def build_snapshot(
     if index is None:
         index = build_rmi(keys, cfg, device=dev, verbose=verbose)
 
+    bloom = None
+    if bloom_fpr is not None:
+        bloom = build_bloom(keys.raw, fpr=bloom_fpr)
     snap = IndexSnapshot(
-        version=version, keys=keys, index=index, vals=vals,
+        version=version, keys=keys, index=index, vals=vals, bloom=bloom,
         max_dup_run=_max_dup_run(keys.norm), device=dev,
     )
     return snap, refit

@@ -16,8 +16,12 @@ import time
 import numpy as np
 import torch
 
+from repro_torch.core.bloom import words_tensor
 from repro_torch.core.models import pack_stage0
+from repro_torch.device import resolve_device
 from repro_torch.kernels import ref
+from repro_torch.kernels.bloom_probe import as_u32_bits, bloom_probe_cuda
+from repro_torch.kernels.hash_probe import hash_probe_cuda
 from repro_torch.kernels.rmi_lookup import (
     rmi_lookup_cuda,
     rmi_merged_lookup_cuda,
@@ -436,3 +440,54 @@ def rmi_sharded_scan_page_op(
         # exactly one shard owns each stream slot
         return (keys.amin(0), vals.sum(0, dtype=torch.int32),
                 live.amax(0).bool())
+
+
+# ---------------------------------------------------------------------------
+# §4 / §5 point probes
+# ---------------------------------------------------------------------------
+
+def bloom_probe_op(bf, queries_u32, *, device=None) -> torch.Tensor:
+    """Batched Bloom probe through `bloom_probe_cuda` (the kernel on the
+    card, its plain version on the CPU) -> (B,) bool.  `bf` is a
+    core.BloomFilter; ``queries_u32`` pre-folded uint32 keys: a tensor
+    (int32 bit patterns or uint32; its device decides) or an array
+    (moved to ``device``).  The words are uploaded on every call, as
+    the reference's op does; hold them with `core.compile_bloom_probe`
+    for repeated probes."""
+    q = queries_u32
+    if not isinstance(q, torch.Tensor):
+        q = torch.as_tensor(np.ascontiguousarray(q, np.uint32), device=resolve_device(device))
+    q = as_u32_bits(q)
+    words = words_tensor(bf, q.device)
+    with dispatch_span("bloom_probe", kernel=_on_card(q), strategy="cuda",
+                       sig=(_shape(q), bf.num_bits, bf.num_hashes)):
+        return bloom_probe_cuda(q, words, num_bits=bf.num_bits, k=bf.num_hashes)
+
+
+def hash_probe_tensors(hm, index, keys, device) -> tuple:
+    """The probe's tables on ``device``: the linear stage-0, the leaf
+    parameters, and the slot and overflow keys normalized into the key
+    set's float32 frame (NaN stays NaN) with int32 links."""
+    dev = torch.device(device)
+    t = lambda a: torch.as_tensor(a, device=dev)  # noqa: E731
+    return (
+        t(pack_stage0(index.stage0_params)), t(index.leaf_w), t(index.leaf_b),
+        t(keys.normalize(hm.slot_key)), t(hm.slot_next.astype(np.int32)),
+        t(keys.normalize(hm.ovf_key)), t(hm.ovf_next.astype(np.int32)),
+    )
+
+
+def hash_probe_op(hm, index, keys, q_raw, *, device=None) -> torch.Tensor:
+    """Batched hash-model probe through `hash_probe_cuda` -> (B,) bool.
+    `hm` is a HashMap, `index` its linear-stage RMI, `keys` the KeySet
+    whose frame normalizes the raw float64 queries ``q_raw`` (on the
+    host, as the reference does).  The tables go to ``device`` (None =
+    "cuda") on every call."""
+    dev = resolve_device(device)
+    q = torch.as_tensor(keys.normalize(q_raw), device=dev)
+    with dispatch_span("hash_probe", kernel=_on_card(q), strategy="cuda",
+                       sig=(_shape(q), hm.num_slots, index.n)):
+        return hash_probe_cuda(
+            q, *hash_probe_tensors(hm, index, keys, dev), n=index.n,
+            num_leaves=index.num_leaves, num_slots=hm.num_slots,
+            trips=max(0, hm.max_chain - 1))

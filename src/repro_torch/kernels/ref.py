@@ -17,6 +17,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import search as search_lib
+from repro_torch.core.learned_hash import mul_u32
 from repro_torch.core.models import stage0_apply
 from repro_torch.core.rmi import leaf_and_pos
 
@@ -339,3 +340,73 @@ def rmi_sharded_scan_page_reference(
             live_prefix[s], ins_keys[s], ins_vals[s], ins_rank[s],
             psteps=psteps, msteps=msteps))
     return tuple(torch.stack(parts) for parts in zip(*rows))
+
+
+# ---------------------------------------------------------------------------
+# §4 hash-model probe and §5 Bloom probe
+# ---------------------------------------------------------------------------
+
+def hash_probe_reference(
+    q: torch.Tensor,               # (B,) normalized f32 queries
+    s0: torch.Tensor,              # (2,) linear stage-0 [w, b] (stage0_flat)
+    leaf_w: torch.Tensor,          # (M,)
+    leaf_b: torch.Tensor,          # (M,)
+    slot_key: torch.Tensor,        # (S,) normalized f32, NaN = empty
+    slot_next: torch.Tensor,       # (S,) int32 first overflow node, -1 none
+    ovf_key: torch.Tensor,         # (O,) normalized f32
+    ovf_next: torch.Tensor,        # (O,) int32 next node, -1 ends
+    *,
+    n: int,
+    num_leaves: int,
+    num_slots: int,
+    trips: int,
+) -> torch.Tensor:
+    """Plain twin of `hash_probe_cuda` -> (B,) bool: linear stage-0 ->
+    leaf -> position clamped to [0, f32(n - 1)] -> ``slot = int(pos *
+    f32(S/n))`` clamped -> primary compare -> ``trips`` fixed steps
+    down the overflow chain (the reference's `_hash_kernel`).  Every
+    gather index is clipped; NaN and infinite queries find nothing."""
+    _, pos = leaf_and_pos(s0, (), leaf_w, leaf_b, q, n=n, num_leaves=num_leaves)
+    ratio = torch.tensor(np.float32(num_slots / n), device=q.device)
+    slot = torch.clamp(search_lib.to_index(pos * ratio), max=num_slots - 1)
+    found = slot_key[slot] == q
+    nxt = slot_next[slot]
+    last = ovf_key.shape[0] - 1
+    for _ in range(trips):
+        valid = nxt >= 0
+        safe = torch.clamp(nxt, 0, last)
+        found = found | (valid & (ovf_key[safe] == q))
+        nxt = torch.where(valid, ovf_next[safe], torch.full_like(nxt, -1))
+    return found
+
+
+def mix32(h: torch.Tensor, seed: int) -> torch.Tensor:
+    """The reference's uint32 `_mix32` on int64 values in [0, 2**32)."""
+    h = h ^ (seed * 0x9E3779B9 & 0xFFFFFFFF)
+    h = h ^ (h >> 16)
+    h = mul_u32(h, 0x7FEB352D)
+    h = h ^ (h >> 15)
+    h = mul_u32(h, 0x846CA68B)
+    return h ^ (h >> 16)
+
+
+def bloom_probe_reference(
+    queries: torch.Tensor,         # (B,) int32 uint32 bit patterns
+    words: torch.Tensor,           # (num_bits/32,) int32 uint32 bit patterns
+    *,
+    num_bits: int,
+    k: int,
+) -> torch.Tensor:
+    """Plain twin of `bloom_probe_cuda` -> (B,) bool: ``h1 = mix32(q,
+    1)``, ``h2 = mix32(q, 2) | 1``, and for i < k bit ``((h1 + i*h2) mod
+    2**32) mod num_bits`` must be set (the reference's `_bloom_kernel`).
+    The uint32 arithmetic runs in int64 masked to 32 bits."""
+    q = queries.to(torch.int64) & 0xFFFFFFFF
+    h1 = mix32(q, 1)
+    h2 = mix32(q, 2) | 1
+    hit = torch.ones(q.shape, dtype=torch.bool, device=q.device)
+    for i in range(k):
+        bit = ((h1 + i * h2) & 0xFFFFFFFF) % num_bits
+        word = words[bit >> 5]
+        hit &= ((word >> (bit & 31).to(word.dtype)) & 1) != 0
+    return hit

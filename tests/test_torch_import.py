@@ -22,7 +22,8 @@ from repro_torch.index_service import (  # noqa: E402
     ShardedIndexService,
     build_snapshot,
 )
-from repro_torch.kernels import nvcc, rmi_lookup, rmi_scan  # noqa: E402
+from repro_torch.kernels import bloom_probe, hash_probe, nvcc, ops  # noqa: E402
+from repro_torch.kernels import rmi_lookup, rmi_scan  # noqa: E402
 
 SRC = pathlib.Path(__file__).resolve().parents[1] / "src"
 
@@ -51,7 +52,9 @@ def test_port_imports_no_jax_and_no_reference():
     assert out[1] == "[]"
     for name in ("repro_torch.index_service.scan", "repro_torch.kernels.rmi_scan",
                  "repro_torch.kernels.nvcc", "repro_torch.index_service.router",
-                 "repro_torch.index_service.sharded"):
+                 "repro_torch.index_service.sharded", "repro_torch.core.bloom",
+                 "repro_torch.core.learned_hash", "repro_torch.kernels.hash_probe",
+                 "repro_torch.kernels.bloom_probe"):
         assert name in out[2:], name
 
 
@@ -82,11 +85,6 @@ def test_entry_points_refuse_without_a_card(entry, monkeypatch, tmp_path):
     assert svc.device.type == "cpu"
 
 
-def test_bloom_screen_refused_until_ported():
-    with pytest.raises(NotImplementedError):
-        IndexService(_keys(), ServiceConfig(bloom_fpr=0.01), device="cpu")
-
-
 def test_cpu_tensors_take_the_plain_version_without_building():
     """A wrapper given CPU tensors runs its plain version: no build, no
     launch counted."""
@@ -103,6 +101,25 @@ def test_cpu_tensors_take_the_plain_version_without_building():
                                    "rmi_sharded_merged_lookup_cuda": 0}
     assert rmi_scan.LAUNCHES == {"rmi_scan_range_cuda": 0, "rmi_scan_page_cuda": 0,
                                  "rmi_sharded_scan_page_cuda": 0}
+    assert nvcc._LIBS == {}
+
+
+def test_cpu_probes_and_the_screen_build_nothing():
+    """The §4/§5 probes and a Bloom-screened service on the CPU run the
+    plain twins: no build, no launch counted."""
+    from repro_torch.core import build_bloom, build_model_hashmap
+    hash_probe.reset_launch_counts()
+    bloom_probe.reset_launch_counts()
+    keys = _keys(2_000)
+    hm, idx, ks = build_model_hashmap(keys, keys.size, device="cpu")
+    assert ops.hash_probe_op(hm, idx, ks, keys, device="cpu").all()
+    ops.bloom_probe_op(build_bloom(keys, fpr=0.01), np.arange(64, dtype=np.uint32),
+                       device="cpu")
+    svc = IndexService(keys, ServiceConfig(bloom_fpr=0.01), device="cpu")
+    assert svc.contains(keys[::3]).all()
+    assert svc.stats_summary()["contains"]["bloom_screened"] == 0
+    assert hash_probe.LAUNCHES == {"hash_probe_cuda": 0}
+    assert bloom_probe.LAUNCHES == {"bloom_probe_cuda": 0}
     assert nvcc._LIBS == {}
 
 
@@ -135,8 +152,12 @@ def test_kernel_build_targets_hopper_with_separate_roundings():
     scan_src = rmi_scan.SOURCE.read_text()
     assert "rmi_scan_range_pallas" in scan_src and "rmi_scan_page_pallas" in scan_src
     assert "rmi_sharded_scan_page_pallas" in scan_src
+    probe_src = hash_probe.SOURCE.read_text()
+    assert "hash_probe_pallas" in probe_src and "bloom_probe_pallas" in probe_src
+    assert bloom_probe.SOURCE == hash_probe.SOURCE
     # each library is named by its own source
     assert rmi_lookup.library_path() != nvcc.library_path(rmi_scan.SOURCE)
+    assert nvcc.library_path(hash_probe.SOURCE).name.startswith("probe-")
     assert nvcc.library_path(rmi_scan.SOURCE).name.startswith("rmi_scan-")
 
 
