@@ -7,11 +7,14 @@
 Phases, each printing JSON lines; any mismatch raises and the exit code
 is non-zero:
 
-  1. card    — the card's name and power limit (nvidia-smi), the three
+  1. card    — the card's name and power limit (nvidia-smi), the four
                kernel libraries built in parallel and their compiler
                resource reports;
   2. kernels — each CUDA kernel against its plain PyTorch version on the
-               card, bit for bit: the lookups at n = 50k (linear and
+               card: flash attention within the reference's tolerances
+               (f32 2e-5, bf16 2e-2) at the reference's four test shapes,
+               S = 48, 1000 and 1, both dtypes, causal and not; the rest
+               bit for bit: the lookups at n = 50k (linear and
                (16,16) MLP stage-0, and a duplicate-heavy key set) and on
                the full service index (stored, absent, leaf-boundary,
                duplicate-run and out-of-range queries, batches of 1, 777
@@ -28,6 +31,22 @@ is non-zero:
                queries); the §5 Bloom probe on oracle filters of
                (num_bits, k) = (2^14, 3), (2^16, 7), (2^18, 10) and
                num_bits above 2^31;
+  LM phase   — yi-6b at full width and depth (bf16, random weights from a
+               seeded generator on the card): `prefill` of 2 x 4,096
+               tokens, each call launching the attention kernel once a
+               layer (32) and no plain attention; layer 0's q, k, v
+               through the kernel against the plain twin (bf16 2e-2, a
+               relative L2 error of 1e-2, and within one bf16 rounding of
+               the float32 twin); the kernel, its
+               twin and scaled_dot_product_attention (timed only) at that
+               shape against the bound max(operations / 989 TFLOP/s,
+               bytes / 3.35 TB/s); prefill against 256 sequential
+               `decode_step`s (bf16 at 32 layers: the same top-1 token,
+               max |Δlogit| <= 0.05 max |logit|; float32 at 4 layers:
+               allclose at 1e-3); a `ServeEngine` run whose page table is
+               held against the binary baseline midway; and
+               `launch.serve` (16 requests of 32 new tokens, 8 slots,
+               max_len 512).  The model is released before phase 3;
   3. main path — `IndexService(strategy="cuda_fused", bloom_fpr=0.01)`
                over gen_maps(n) with a zero payload: every stored key at
                its float32 lower bound, then 300k inserts (values
@@ -42,8 +61,9 @@ is non-zero:
                filter of its own hash family over 20M keys.  Then the §4
                hash index at full size: `build_model_hashmap` over the
                same keys (S = n), every stored key through the kernel,
-               4M float32-absent keys, and the random-hash map through
-               the plain chain walk.  Then, with those released,
+               4M float32-absent keys, and the random-hash map (every
+               4th key in as many slots: a cut of depth for the time
+               limit) through the plain chain walk.  Then, with those released,
                `ShardedIndexService(num_shards=4,
                strategy="sharded_fused")` over every 8th of those keys
                (24.4M; a cut of depth that keeps the run inside its time
@@ -62,7 +82,8 @@ is non-zero:
                sharded lookup at S = 4 x 1<<20 queries and the sharded
                scan at 1<<20 and 1<<22 rows, on the staged sharded index;
                both probes at 1<<20 and 1<<24 queries (bound: the 32-byte
-               sectors their gathers touch), screened contains keys/s.
+               sectors their gathers touch), screened contains keys/s;
+               the attention kernel's row comes from the LM phase.
 
 The last line is ``{"ok": true, "device": {...}}``.  Without a card the
 script exits non-zero before printing any result.
@@ -96,6 +117,7 @@ N_GET = 500_000
 N_LOOKUP = 2_000_000
 SCAN_PAGE_SIZES = (256, 160, 1)
 SHARDED_STRIDE = 8              # the K = 4 service holds every 8th key
+RANDOM_HASH_STRIDE = 4          # the §4 random-hash baseline holds every 4th key
 SCAN_WIDTHS = (1, 2, 3, 10, 100, 1_000, 4_097, 10_000, 65_536, 100_000)
 BIG_SCANS = (1 << 20, 1 << 22)  # rows of the two timed ranges
 HOST_SCAN_ROWS = 20_000         # host `scan` checked on ranges up to this wide
@@ -1567,7 +1589,10 @@ def run_hash_index(args, base, rng, dev, card):
     stored key probed through `ops.hash_probe_op` on the kernel, 4M
     float32-absent queries, the kernel against its twin on 1<<20 mixed
     queries, the kernel's times; then the random-hash map through the
-    plain `compile_hash_lookup`, and Fig. 10's statistics of both."""
+    plain `compile_hash_lookup`, and Fig. 10's statistics of both.  The
+    random-hash map holds every RANDOM_HASH_STRIDE-th key in as many
+    slots (a cut of depth: the whole run must fit its time limit, and a
+    random hash's statistics at S = n do not depend on n)."""
     import torch
     from repro_torch.core import build_model_hashmap, build_random_hashmap, compile_hash_lookup
     from repro_torch.core.learned_hash import random_hash_u64
@@ -1621,19 +1646,21 @@ def run_hash_index(args, base, rng, dev, card):
     torch.cuda.empty_cache()
 
     # the random-hash baseline through the plain chain walk
+    rkeys = ks.raw[::RANDOM_HASH_STRIDE].copy()
+    rn = int(rkeys.size)
     t0 = time.perf_counter()
-    rnd = build_random_hashmap(ks.raw, n)
+    rnd = build_random_hashmap(rkeys, rn)
     random_build_s = time.perf_counter() - t0
-    random_stats = fig10(rnd)
+    random_stats = {"n": rn, **fig10(rnd)}
     lookup = compile_hash_lookup(rnd, lambda rq: torch.as_tensor(
-        random_hash_u64(rq.cpu().numpy().view(np.uint64), n), device=dev), device=dev)
-    sample = ks.raw[rng.choice(n, N_ABSENT_F32)]
+        random_hash_u64(rq.cpu().numpy().view(np.uint64), rn), device=dev), device=dev)
+    sample = rkeys[rng.choice(rn, N_ABSENT_F32)]
     check(bool(lookup(torch.as_tensor(sample, device=dev)).all()),
           "random hash map: a stored key not found")
-    miss = _absent(ks.raw, rng.uniform(ks.raw[0], ks.raw[-1], N_ABSENT_F32))
+    miss = _absent(rkeys, rng.uniform(rkeys[0], rkeys[-1], N_ABSENT_F32))
     check(not bool(lookup(torch.as_tensor(miss, device=dev)).any()),
           "random hash map: an absent key found")
-    del rnd, lookup
+    del rnd, lookup, rkeys
     gc.collect()
     torch.cuda.empty_cache()
     out = {"n": n, "build_s": build_s, "random_build_s": random_build_s,
@@ -1645,16 +1672,290 @@ def run_hash_index(args, base, rng, dev, card):
     return out
 
 
+# ---------------------------------------------------------------------------
+# the LM substrate: flash attention, prefill, decode and serving (yi-6b)
+# ---------------------------------------------------------------------------
+
+LM_ARCH = "yi-6b"
+LM_BATCH, LM_SEQ = 2, 4096      # prefill: two prompts at yi-6b's trained context
+LM_CHECK_SEQ = 256              # prefill against sequential decode
+LM_F32_LAYERS = 4               # depth of the float32 prefill/decode check
+ATTN_SHAPES = ((1, 4, 2, 128, 32), (2, 8, 8, 128, 64), (1, 8, 1, 256, 64),
+               (2, 4, 4, 64, 128),  # the reference's test shapes (B, Hq, Hkv, S, D)
+               (2, 4, 2, 48, 128), (1, 8, 2, 1000, 64),  # ragged tails
+               (1, 8, 2, 1, 64))
+ATTN_TOL = {"float32": 2e-5, "bfloat16": 2e-2}   # tests/test_kernels.py:83
+# layer 0 at the prefill shape: one bf16 rounding of the float32 twin
+# (2^-8 relative, with room for float32 summation order), and an L2 error
+# relative to the bf16 twin
+LAYER0_RTOL, LAYER0_ATOL, LAYER0_REL_L2 = 5e-3, 1e-5, 1e-2
+BF16_FLOPS_PER_S = 989e12      # H100 SXM dense bf16 tensor-core rate
+SERVE_ARGV = ["--arch", LM_ARCH, "--requests", "16", "--max-new", "32",
+              "--batch-slots", "8", "--max-len", "512"]
+
+
+def attention_bound(b, hq, hkv, s, d, elem_bytes, causal=True):
+    """The least time for the attention: max(operations / bf16 peak,
+    bytes / memory rate), with 4·B·Hq·S²·D operations for the two
+    products ((S+1)/(2S) of them under the causal mask) and q, k, v read
+    once and o written once."""
+    flops = 4 * b * hq * s * s * d * ((s + 1) / (2 * s) if causal else 1.0)
+    moved = elem_bytes * d * s * b * (2 * hq + 2 * hkv)
+    flops_ms = flops / BF16_FLOPS_PER_S * 1e3
+    bytes_ms = moved / HBM_BYTES_PER_S * 1e3
+    return {"flops": flops, "bytes": moved, "bound_ms": max(flops_ms, bytes_ms),
+            "bound_by": "operations" if flops_ms >= bytes_ms else "bytes"}
+
+
+def compare_attention_kernel(dev, seed, record):
+    """`flash_attention_cuda` against `ref.mha_reference` on the card at
+    the reference's test shapes and ragged ones, both dtypes, causal and
+    not; returns the largest |difference|."""
+    import torch
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+    g = torch.Generator(device=dev).manual_seed(seed)
+    worst = 0.0
+    for b, hq, hkv, s, d in ATTN_SHAPES:
+        for name, tol in ATTN_TOL.items():
+            dt = getattr(torch, name)
+            q, k, v = (torch.randn((b, h, s, d), generator=g, device=dev).to(dt)
+                       for h in (hq, hkv, hkv))
+            for causal in (True, False):
+                got = flash_attention_cuda(q, k, v, causal=causal)
+                want = ref.mha_reference(q, k, v, causal=causal)
+                torch.cuda.synchronize()
+                check(got.dtype == dt and got.shape == q.shape,
+                      f"attention {b, hq, hkv, s, d} {name}: wrong output")
+                err = float((got.float() - want.float()).abs().max())
+                ok = bool(torch.allclose(got.float(), want.float(), atol=tol, rtol=tol))
+                record.append({"shape": [b, hq, hkv, s, d], "dtype": name,
+                               "causal": causal, "max_abs_err": err, "within_tol": ok})
+                check(ok, f"attention {b, hq, hkv, s, d} {name} causal={causal}: "
+                          f"max |kernel - plain| {err} over tol {tol}")
+                worst = max(worst, err)
+    return worst
+
+
+def _lm_tokens(rng, cfg, b, s, dev):
+    import torch
+    return torch.as_tensor(rng.integers(0, cfg.vocab_size, (b, s)), dtype=torch.int32,
+                           device=dev)
+
+
+def _prefill_vs_decode(api, params, tokens):
+    """Prefill's last-position logits and those after feeding the same
+    tokens one decode_step at a time."""
+    import torch
+    b, s = tokens.shape
+    lp, _ = api.prefill(params, {"tokens": tokens})
+    cache = api.init_cache(b, s + 4)
+    for t in range(s):
+        ld, cache = api.decode(params, cache, tokens[:, t])
+    torch.cuda.synchronize()
+    return lp.float(), ld.float()
+
+
+def check_translate(engine, tag):
+    """Every live (request, logical page) through the allocator's learned
+    page table equals the binary baseline and the pages the allocator
+    handed out."""
+    kv = engine.kv
+    rid = np.array([r for r, pages in kv._per_req.items() for _ in pages], np.int64)
+    lp = np.array([i for pages in kv._per_req.values() for i in range(len(pages))],
+                  np.int64)
+    want = np.array([pg for pages in kv._per_req.values() for pg in pages], np.int64)
+    out = {"live_pages": int(rid.size)}
+    for strategy in ("binary", "cuda_fused"):
+        kv.strategy = strategy
+        got = kv.translate(rid, lp)
+        check(np.array_equal(got, kv.translate_binary(rid, lp)) and np.array_equal(got, want),
+              f"{tag}: translate ({strategy}) != the allocator's pages")
+        out[strategy] = True
+    kv.strategy = "binary"
+    return out
+
+
+def run_lm(args, dev, card):
+    """The LM substrate's serving path at full width: yi-6b prefill
+    (every layer's attention through the kernel), prefill against
+    sequential decode in bf16 at full depth and in float32 at 4 layers,
+    and `launch.serve` through `ServeEngine`."""
+    import dataclasses
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+    from repro_torch.launch import serve
+    from repro_torch.models import get_model, layers, transformer
+    from repro_torch.serve.engine import Request, ServeEngine
+
+    # a float32 reference runs in float32, not TF32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = get_arch(LM_ARCH, reduced=args.lm_reduced)
+    b = LM_BATCH
+    s = LM_SEQ if not args.lm_reduced else 128
+    s_check = LM_CHECK_SEQ if not args.lm_reduced else 32
+    rng = np.random.default_rng((args.seed, 2))
+    api = get_model(cfg, dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params = api.init(torch.Generator(device=dev).manual_seed(args.seed))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(t.numel() for t in [params["embed"], params["final_norm"]]
+                   + [w for blk in params["blocks"] for w in blk.values()])
+    tokens = _lm_tokens(rng, cfg, b, s, dev)
+
+    # ---- the main path: prefill, every layer through the kernel --------
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_dispatch_stats()
+    reset_counts()
+    times = []
+    calls = 3
+    for _ in range(calls):
+        t0 = time.perf_counter()
+        logits, cache = api.prefill(params, {"tokens": tokens})
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    launches = read_counts()["flash_attention_cuda"]
+    attn_rows = [r for r in ops.dispatch_summary()["rows"] if r["op"] == "attention"]
+    check(launches == calls * cfg.num_layers,
+          f"prefill launched the attention kernel {launches} times, "
+          f"want {calls} x {cfg.num_layers}")
+    check(all(r["path"] == "kernel" for r in attn_rows),
+          f"prefill reached plain attention: {attn_rows}")
+    peak = torch.cuda.max_memory_allocated()
+    check(tuple(logits.shape) == (b, cfg.padded_vocab)
+          and bool(torch.isfinite(logits).all()), "prefill logits not finite")
+    check(tuple(cache["k"].shape) == (cfg.num_layers, b, cfg.num_kv_heads, s,
+                                      transformer._head_dim(cfg))
+          and cache["len"] == s, "prefill cache shape")
+    emit({"phase": "lm_prefill", "card": card, "arch": cfg.name, "params": n_params,
+          "init_s": init_s, "batch": b, "seq": s, "prefill_s": times,
+          "prefill_tok_per_s": b * s / min(times), "peak_mem_gb": peak / 1e9,
+          "attention_launches": launches})
+    del logits, cache
+
+    # ---- layer 0's q, k, v at the prefill shape: kernel against twin ---
+    p0 = params["blocks"][0]
+    positions = torch.arange(s, device=dev)
+    q, k, v = transformer._qkv(cfg, p0, layers.embed(tokens, params["embed"]))
+    q = layers.apply_rope(q, positions, cfg.rope_theta).contiguous()
+    k = layers.apply_rope(k, positions, cfg.rope_theta).contiguous()
+    v = v.contiguous()
+    got = flash_attention_cuda(q, k, v, causal=True).float()
+    want = ref.mha_reference(q, k, v, causal=True).float()
+    tol = ATTN_TOL["bfloat16"]
+    layer0_err = float((got - want).abs().max())
+    # Here the outputs are small (about N(0, 1/row) under random weights),
+    # so 2e-2 is as large as a typical output: hold the kernel also to
+    # the float32 twin on the same (exactly widened) inputs, within one
+    # bf16 rounding of each output (2^-8 relative, plus float32 slack),
+    # and to a relative L2 error against the bf16 twin.
+    want32 = ref.mha_reference(q.float(), k.float(), v.float(), causal=True)
+    layer0 = {"max_abs_err": layer0_err, "mean_abs_out": float(want.abs().mean()),
+              "rel_l2_err": float((got - want).norm() / want.norm()),
+              "max_abs_err_f32": float((got - want32).abs().max()),
+              "tol": tol, "rounding_rtol": LAYER0_RTOL, "rounding_atol": LAYER0_ATOL,
+              "rel_l2_max": LAYER0_REL_L2}
+    layer0["ok"] = (bool(torch.allclose(got, want, atol=tol, rtol=tol))
+                    and bool(torch.allclose(got, want32, atol=LAYER0_ATOL,
+                                            rtol=LAYER0_RTOL))
+                    and layer0["rel_l2_err"] <= LAYER0_REL_L2)
+    emit({"phase": "lm_layer0_attention", **layer0})
+    check(layer0["ok"], f"layer 0 attention: kernel against its twins: {layer0}")
+    del got, want, want32
+    kernel_ms = time_ms(lambda: flash_attention_cuda(q, k, v, causal=True), reps=5, warmup=1)
+    plain_ms = time_ms(lambda: ref.mha_reference(q, k, v, causal=True), reps=3, warmup=1)
+    sdpa_ms = time_ms(lambda: F.scaled_dot_product_attention(
+        q, k, v, is_causal=True, enable_gqa=True), reps=10)
+    hq, hkv, d = q.shape[1], k.shape[1], q.shape[3]
+    bound = attention_bound(b, hq, hkv, s, d, q.element_size())
+    timing = {"shape": [b, hq, hkv, s, d], "dtype": "bfloat16", "causal": True,
+              "ms": kernel_ms, "plain_ms": plain_ms, "sdpa_ms": sdpa_ms, **bound,
+              "tflops": bound["flops"] / kernel_ms / 1e9, "layer0_max_abs_err": layer0_err}
+    emit({"phase": "lm_attention_times", "card": card, **timing})
+    del q, k, v
+    torch.cuda.empty_cache()
+
+    # ---- prefill against sequential decode ------------------------------
+    lp, ld = _prefill_vs_decode(api, params, _lm_tokens(rng, cfg, b, s_check, dev))
+    bf16 = {"layers": cfg.num_layers, "top1_prefill": lp.argmax(-1).tolist(),
+            "top1_decode": ld.argmax(-1).tolist(),
+            "max_abs_diff": float((lp - ld).abs().max()),
+            "max_abs_logit": float(lp.abs().max())}
+    emit({"phase": "lm_prefill_vs_decode", "dtype": "bfloat16", "seq": s_check, **bf16})
+    check(bf16["top1_prefill"] == bf16["top1_decode"],
+          "bf16 prefill and sequential decode disagree on a top-1 token")
+    check(bf16["max_abs_diff"] <= 0.05 * bf16["max_abs_logit"],
+          "bf16 prefill against sequential decode past 0.05 x max |logit|")
+    cfg32 = dataclasses.replace(cfg, dtype="float32", num_layers=min(LM_F32_LAYERS,
+                                                                    cfg.num_layers))
+    api32 = get_model(cfg32, dev)
+    params32 = {"embed": params["embed"].float(), "final_norm": params["final_norm"].float(),
+                "blocks": [{n: w.float() for n, w in blk.items()}
+                           for blk in params["blocks"][:cfg32.num_layers]]}
+    lp, ld = _prefill_vs_decode(api32, params32, _lm_tokens(rng, cfg, b, s_check, dev))
+    f32 = {"layers": cfg32.num_layers, "max_abs_diff": float((lp - ld).abs().max()),
+           "max_abs_logit": float(lp.abs().max()),
+           "allclose_1e-3": bool(torch.allclose(lp, ld, atol=1e-3, rtol=1e-3))}
+    emit({"phase": "lm_prefill_vs_decode", "dtype": "float32", "seq": s_check, **f32})
+    check(f32["allclose_1e-3"], "float32 prefill against sequential decode past 1e-3")
+    del params32, api32, lp, ld
+
+    # ---- serving: a short admit/tick run with the page table held ------
+    engine = ServeEngine(api, params, batch_slots=8, max_len=256)
+    reqs = [Request(uid=i, prompt=[int(t) for t in rng.integers(0, cfg.vocab_size, 8 + i)],
+                    max_new_tokens=24) for i in range(12)]
+    queue = list(reqs)
+    translated = None
+    for tick in range(2_000):
+        while queue and engine.admit(queue[0]):
+            queue.pop(0)
+        engine.tick()
+        if tick == 20:
+            translated = check_translate(engine, "engine tick 20")
+        if not queue and not engine._active:
+            break
+    check(translated is not None and translated["live_pages"] > 0,
+          "no live pages to translate midway")
+    check(all(r.done and not r.truncated and len(r.generated) == 24 for r in reqs),
+          "admit/tick run left a request unfinished")
+    check(engine.kv.num_allocated == 0, "admit/tick run leaked pages")
+    emit({"phase": "lm_engine_translate", "ticks": tick + 1, **translated})
+    del engine, params, api, tokens
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- serving through the entry point a user calls -------------------
+    argv = SERVE_ARGV + (["--reduced"] if args.lm_reduced else []) + [
+        "--seed", str(args.seed), "--device", str(dev)]
+    out = serve.main(argv)
+    check(out["completed"] == 16 and out["tokens"] == 16 * 32, f"serve: {out}")
+    check(out["kv_pages_in_use"] == 0 and out["truncated"] == 0, f"serve: {out}")
+    emit({"phase": "lm_serve", "card": card, "argv": argv, **out})
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"launches": launches, "timing": timing, "layer0_err": layer0_err,
+            "layer0_ok": layer0["ok"],
+            "prefill_tok_per_s": b * s / min(times), "serve": out}
+
+
 def reset_counts():
-    from repro_torch.kernels import bloom_probe, hash_probe, rmi_lookup, rmi_scan
-    for m in (rmi_lookup, rmi_scan, hash_probe, bloom_probe):
+    from repro_torch.kernels import (bloom_probe, flash_attention, hash_probe, rmi_lookup,
+                                     rmi_scan)
+    for m in (rmi_lookup, rmi_scan, hash_probe, bloom_probe, flash_attention):
         m.reset_launch_counts()
 
 
 def read_counts():
-    from repro_torch.kernels import bloom_probe, hash_probe, rmi_lookup, rmi_scan
+    from repro_torch.kernels import (bloom_probe, flash_attention, hash_probe, rmi_lookup,
+                                     rmi_scan)
     return {**rmi_lookup.LAUNCHES, **rmi_scan.LAUNCHES, **hash_probe.LAUNCHES,
-            **bloom_probe.LAUNCHES}
+            **bloom_probe.LAUNCHES, **flash_attention.LAUNCHES}
 
 
 def run_single(args, base, rng, dev, card, record, worst, scan_worst):
@@ -1963,6 +2264,8 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--n", type=int, default=PAPER_N, help="main-path key count")
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--lm-reduced", action="store_true",
+                    help="the reduced yi-6b in the LM phase (a rehearsal, not a result)")
     args = ap.parse_args(argv)
 
     import torch
@@ -1971,7 +2274,7 @@ def main(argv=None) -> int:
         return 2
     from repro_torch.core import RMIConfig, build_rmi, make_keyset
     from repro_torch.data import gen_lognormal, gen_maps
-    from repro_torch.kernels import hash_probe, rmi_lookup, rmi_scan
+    from repro_torch.kernels import flash_attention, hash_probe, rmi_lookup, rmi_scan
     from repro_torch.kernels.rmi_lookup import rmi_lookup_cuda
 
     dev = torch.device(DEVICE)
@@ -1983,8 +2286,9 @@ def main(argv=None) -> int:
 
     # ---- phase 1: card + build (one nvcc per source, all at once) --------
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(3) as pool:
-        libs = list(pool.map(lambda m: m.build(), (rmi_lookup, rmi_scan, hash_probe)))
+    with ThreadPoolExecutor(4) as pool:
+        libs = list(pool.map(lambda m: m.build(),
+                             (rmi_lookup, rmi_scan, hash_probe, flash_attention)))
     build_s = time.perf_counter() - t0
     for lib in libs:
         log = lib.with_suffix(".log").read_text() if lib.with_suffix(".log").exists() else ""
@@ -1992,7 +2296,11 @@ def main(argv=None) -> int:
               "ptxas": [ln.strip() for ln in log.splitlines()
                         if "registers" in ln or "spill" in ln]})
 
-    # ---- phase 2: kernels against plain versions at n = 50k -----------
+    # ---- phase 2: kernels against plain versions ------------------------
+    attn_record = []
+    attn_worst = compare_attention_kernel(dev, args.seed, attn_record)
+    emit({"phase": "attention_kernel_vs_plain", "max_abs_err": attn_worst,
+          "rows": attn_record})
     # a stream of its own: gen_maps(n, seed) draws from default_rng(seed),
     # and "absent" query candidates must not replay its keys
     rng = np.random.default_rng((args.seed, 1))
@@ -2031,6 +2339,13 @@ def main(argv=None) -> int:
     hash_worst, bloom_worst = compare_probe_kernels(rng, dev, probe_record)
     emit({"phase": "probe_kernels_vs_plain", "hash_mismatches": hash_worst,
           "bloom_mismatches": bloom_worst, "rows": probe_record})
+
+    # ---- the LM substrate (yi-6b), released before the index phases -----
+    lm = run_lm(args, dev, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    attn_worst = max(attn_worst, lm["layer0_err"])
+    attn_ok = all(r["within_tol"] for r in attn_record) and lm["layer0_ok"]
 
     # ---- phases 3-4: the single-shard service, then the sharded one ------
     t0 = time.perf_counter()
@@ -2118,8 +2433,16 @@ def main(argv=None) -> int:
          "max_abs_err": bloom_worst, "bit_identical": bloom_worst == 0,
          "ms": bbig["ms"], "plain_ms": bbig["plain_ms"], "bound_ms": bbig["bound_ms"],
          "bound_by": "bytes", "library_ms": None},
+        {"name": "flash_attention_cuda", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+         "replaces": "src/repro/kernels/flash_attention.py:83",
+         "launches": lm["launches"], "max_abs_err": attn_worst, "within_tol": attn_ok,
+         "ms": lm["timing"]["ms"], "plain_ms": lm["timing"]["plain_ms"],
+         "bound_ms": lm["timing"]["bound_ms"], "bound_by": lm["timing"]["bound_by"],
+         "library_ms": lm["timing"]["sdpa_ms"]},
     ], "batch": big["batch"], "scan_rows": sbig["rows"], "n": single["n"], "shards": slook["S"],
-        "sharded_scan_rows": sscan["rows"], "card": smi,
+        "sharded_scan_rows": sscan["rows"], "attention_shape": lm["timing"]["shape"],
+        "card": smi,
         "total_s": time.perf_counter() - T_START})
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -1,7 +1,8 @@
 """Carry the reference package's state across into the port.
 
 The reference's `RMIndex` and `IndexSnapshot` hold their state in NumPy
-attributes, so these converters read them by duck typing and never
+attributes, and its LM parameters are a pytree the caller turns into
+NumPy arrays, so these converters read them by duck typing and never
 import the reference.  The ``snapshot-*.npz`` and ``router.npz`` files are the
 second route across: both packages write the same formats and load each
 other's files (`IndexSnapshot.save` / `load`, and a sharded service's
@@ -11,13 +12,16 @@ directory through `ShardedIndexService.save` / `load`).
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 from repro_torch.core.bloom import BloomFilter
 from repro_torch.core.keys import KeySet
 from repro_torch.core.learned_hash import HashMap
 from repro_torch.core.rmi import RMIConfig, RMIndex
+from repro_torch.device import resolve_device
 from repro_torch.index_service.router import LearnedRouter
 from repro_torch.index_service.snapshot import IndexSnapshot
+from repro_torch.models.layers import dtype_of
 
 
 def config_from_reference(cfg) -> RMIConfig:
@@ -103,3 +107,28 @@ def router_from_reference(router) -> LearnedRouter:
     weight and bias (the routing statistics start afresh)."""
     return LearnedRouter(np.array(router.boundaries, np.float64),
                          weight=float(router.weight), bias=float(router.bias))
+
+
+def _lm_tensor(a, dtype, device) -> torch.Tensor:
+    # bfloat16 NumPy arrays (ml_dtypes) have no torch.from_numpy route;
+    # float32 holds every bfloat16 value, so the trip is exact both ways
+    f32 = np.ascontiguousarray(np.asarray(a).astype(np.float32))
+    return torch.from_numpy(f32).to(device=device, dtype=dtype)
+
+
+def lm_params_from_reference(params, cfg, device=None) -> dict:
+    """The reference's dense-LM parameter pytree (NumPy arrays, the layer
+    axis first in ``blocks``) as the port's parameters: one dict per
+    layer, in ``cfg.dtype`` on ``device`` (None = "cuda")."""
+    dev = resolve_device(device)
+    dt = dtype_of(cfg.dtype)
+    blocks = params["blocks"]
+    layers = int(np.asarray(blocks["wq"]).shape[0])
+    if layers != cfg.num_layers:
+        raise ValueError(f"{layers} stacked layers, config has {cfg.num_layers}")
+    return {
+        "embed": _lm_tensor(params["embed"], dt, dev),
+        "blocks": [{name: _lm_tensor(np.asarray(a)[i], dt, dev)
+                    for name, a in blocks.items()} for i in range(layers)],
+        "final_norm": _lm_tensor(params["final_norm"], dt, dev),
+    }

@@ -4,7 +4,9 @@ into a shared library with a plain C interface, loaded with ctypes.
 Each library is built at first use into ``build/repro_torch`` under the
 repository root (``REPRO_TORCH_BUILD_DIR`` overrides it), named by the
 hash of its source and the flags, so an edited source never loads a
-stale build.  The compiler's resource report (``-Xptxas -v``) lands
+stale build.  Every source takes ``NVCC_FLAGS`` unless its module passes
+its own (the attention source drops ``-fmad=false``: it is held to a
+tolerance, the RMI sources bit for bit).  The compiler's resource report (``-Xptxas -v``) lands
 beside each library as ``.log``.
 """
 
@@ -27,7 +29,7 @@ NVCC_FLAGS = (
     "-fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
-_LIBS: Dict[pathlib.Path, ctypes.CDLL] = {}
+_LIBS: Dict[tuple, ctypes.CDLL] = {}
 _LOCK = threading.Lock()
 
 
@@ -46,23 +48,23 @@ def _nvcc() -> str:
     return os.path.join(home, "bin", "nvcc")
 
 
-def library_path(source: pathlib.Path) -> pathlib.Path:
+def library_path(source: pathlib.Path, flags=NVCC_FLAGS) -> pathlib.Path:
     digest = hashlib.sha256(
-        source.read_bytes() + " ".join(NVCC_FLAGS).encode()
+        source.read_bytes() + " ".join(flags).encode()
     ).hexdigest()[:16]
     return build_dir() / f"{source.stem}-{digest}.so"
 
 
-def build(source: pathlib.Path) -> pathlib.Path:
-    """Compile ``source`` unless this source hash is built; returns the
-    library's path."""
-    out = library_path(source)
+def build(source: pathlib.Path, flags=NVCC_FLAGS) -> pathlib.Path:
+    """Compile ``source`` with ``flags`` unless this source hash is built;
+    returns the library's path."""
+    out = library_path(source, flags)
     if out.exists():
         return out
     out.parent.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
     proc = subprocess.run(
-        [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(source)],
+        [_nvcc(), *flags, "-o", str(tmp), str(source)],
         capture_output=True, text=True, check=True,
     )
     out.with_suffix(".log").write_text(proc.stdout + proc.stderr)
@@ -70,15 +72,16 @@ def build(source: pathlib.Path) -> pathlib.Path:
     return out
 
 
-def load(source: pathlib.Path, declare) -> ctypes.CDLL:
-    """The loaded library of ``source``, built if needed; ``declare(lib)``
-    sets its functions' argtypes once, at first load."""
+def load(source: pathlib.Path, declare, flags=NVCC_FLAGS) -> ctypes.CDLL:
+    """The loaded library of ``source``, built with ``flags`` if needed;
+    ``declare(lib)`` sets its functions' argtypes once, at first load."""
+    key = (source, tuple(flags))
     with _LOCK:
-        lib = _LIBS.get(source)
+        lib = _LIBS.get(key)
         if lib is None:
-            lib = ctypes.CDLL(str(build(source)))
+            lib = ctypes.CDLL(str(build(source, flags)))
             declare(lib)
-            _LIBS[source] = lib
+            _LIBS[key] = lib
     return lib
 
 

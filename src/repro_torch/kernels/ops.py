@@ -21,6 +21,7 @@ from repro_torch.core.models import pack_stage0
 from repro_torch.device import resolve_device
 from repro_torch.kernels import ref
 from repro_torch.kernels.bloom_probe import as_u32_bits, bloom_probe_cuda
+from repro_torch.kernels.flash_attention import flash_attention_cuda
 from repro_torch.kernels.hash_probe import hash_probe_cuda
 from repro_torch.kernels.rmi_lookup import (
     rmi_lookup_cuda,
@@ -491,3 +492,20 @@ def hash_probe_op(hm, index, keys, q_raw, *, device=None) -> torch.Tensor:
             q, *hash_probe_tensors(hm, index, keys, dev), n=index.n,
             num_leaves=index.num_leaves, num_slots=hm.num_slots,
             trips=max(0, hm.max_chain - 1))
+
+
+# ---------------------------------------------------------------------------
+# LM substrate: attention
+# ---------------------------------------------------------------------------
+
+def attention_op(q, k, v, *, causal=True, use_kernel=True) -> torch.Tensor:
+    """(B, Hq, S, D) GQA attention: `flash_attention_cuda` for tensors on
+    the card (it masks ragged tiles itself, so every S goes to it), the
+    plain `ref.mha_reference` on the CPU or with ``use_kernel=False``."""
+    kernel = use_kernel and _on_card(q)
+    with dispatch_span("attention", kernel=kernel, strategy="cuda",
+                       sig=(_shape(q), _shape(k), str(q.dtype), causal)):
+        if not kernel:
+            return ref.mha_reference(q, k, v, causal=causal)
+        return flash_attention_cuda(q.contiguous(), k.contiguous(), v.contiguous(),
+                                    causal=causal)

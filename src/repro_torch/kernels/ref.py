@@ -410,3 +410,20 @@ def bloom_probe_reference(
         word = words[bit >> 5]
         hit &= ((word >> (bit & 31).to(word.dtype)) & 1) != 0
     return hit
+
+
+def mha_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                  causal: bool = True) -> torch.Tensor:
+    """(B, Hq, S, D) GQA attention, float32 softmax, no tiling: the
+    flash-attention kernel's plain version (the reference's
+    `mha_reference`; it holds the (S, S) scores in memory)."""
+    b, hq, s, d = q.shape
+    group = hq // k.shape[1]
+    kr = torch.repeat_interleave(k, group, dim=1)
+    vr = torch.repeat_interleave(v, group, dim=1)
+    s_ = torch.einsum("bhqd,bhkd->bhqk", q.float(), kr.float()) / np.sqrt(d)
+    if causal:
+        mask = torch.tril(torch.ones((s, s), dtype=torch.bool, device=q.device))
+        s_ = torch.where(mask[None, None], s_, -1e30)
+    p = torch.softmax(s_, dim=-1)
+    return torch.einsum("bhqk,bhkd->bhqd", p, vr.float()).to(q.dtype)

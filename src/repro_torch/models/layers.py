@@ -1,0 +1,86 @@
+"""Shared neural-net layers: norms, RoPE, SwiGLU, embeddings, logits.
+
+Plain functions over explicit parameter tensors, as in the reference
+(`repro/models/layers.py`), with each rounding where the reference
+rounds: `rmsnorm` casts back to x's dtype before the scale, and
+`apply_rope` casts cos and sin to x's dtype before the multiply.
+The reference's training and sharding hints (`name_ckpt`, `pin_dp`,
+`remat_policy_of`) and `cross_entropy` wait for the training slice.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+
+
+def dtype_of(name: str) -> torch.dtype:
+    return {"bfloat16": torch.bfloat16, "float32": torch.float32}[name]
+
+
+# ---------------------------------------------------------------------------
+# Norms
+# ---------------------------------------------------------------------------
+
+def rmsnorm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    dt = x.dtype
+    xf = x.float()
+    ms = (xf * xf).mean(dim=-1, keepdim=True)
+    return (xf * torch.rsqrt(ms + eps)).to(dt) * scale
+
+
+# ---------------------------------------------------------------------------
+# RoPE
+# ---------------------------------------------------------------------------
+
+def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:
+    exps = torch.arange(0, head_dim, 2, dtype=torch.float32, device=device) / head_dim
+    return 1.0 / (theta ** exps)
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
+    """x: (..., S, D); positions: (S,) or broadcastable to x's S dim."""
+    d = x.shape[-1]
+    freqs = rope_freqs(d, theta, x.device)                       # (D/2,)
+    angles = positions[..., :, None].float() * freqs             # (S, D/2)
+    cos = torch.cos(angles).to(x.dtype)
+    sin = torch.sin(angles).to(x.dtype)
+    x1, x2 = x[..., 0::2], x[..., 1::2]
+    o1 = x1 * cos - x2 * sin
+    o2 = x2 * cos + x1 * sin
+    return torch.stack([o1, o2], dim=-1).reshape(x.shape)
+
+
+# ---------------------------------------------------------------------------
+# Dense / SwiGLU
+# ---------------------------------------------------------------------------
+
+def init_dense(generator: torch.Generator, in_dim: int, out_dim: int,
+               dtype: torch.dtype) -> torch.Tensor:
+    """(in, out) weight, N(0, 1/in), drawn in float32 on the generator's
+    device and cast to ``dtype``."""
+    w = torch.randn((in_dim, out_dim), generator=generator, dtype=torch.float32,
+                    device=generator.device)
+    return (w * (1.0 / math.sqrt(in_dim))).to(dtype)
+
+
+def swiglu(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
+           w_down: torch.Tensor) -> torch.Tensor:
+    g = x @ w_gate
+    u = x @ w_up
+    return (F.silu(g) * u) @ w_down
+
+
+# ---------------------------------------------------------------------------
+# Embedding / logits
+# ---------------------------------------------------------------------------
+
+def embed(tokens: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
+    return table[tokens.long()]
+
+
+def logits_from_hidden(h: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
+    """Tied output head: h (..., D) @ table^T (V, D) -> (..., V)."""
+    return h @ table.T

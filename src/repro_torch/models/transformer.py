@@ -1,0 +1,159 @@
+"""Decoder-only transformer, dense GQA path: parameters, prefill and the
+single-token decode over a static-size KV cache.
+
+Covers yi-6b and yi-9b (the dense family).  Parameters are a plain dict:
+``embed`` (V, D), ``final_norm`` (D,) and ``blocks``, one dict per layer
+with the reference's (in, out) weight layout, so ``h @ wq`` reads as in
+`repro/models/transformer.py`.  The reference stacks the layers and
+scans over them; here a Python loop walks the list, and `decode_step`
+writes each layer's new KV entry into the cache in place.  The MoE FFN
+and the training path (`forward_train`, `loss_fn`) wait for later
+slices (ROADMAP queue A).
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, List, Tuple
+
+import torch
+
+from repro_torch.models import attention as attn_lib
+from repro_torch.models import layers as L
+
+Params = Dict[str, Any]
+
+
+def _head_dim(cfg) -> int:
+    return cfg.head_dim or cfg.d_model // cfg.num_heads
+
+
+def init_block_params(cfg, generator: torch.Generator) -> Dict[str, torch.Tensor]:
+    """One layer's parameters (the dense FFN), drawn on the generator's
+    device."""
+    dt = L.dtype_of(cfg.dtype)
+    hd = _head_dim(cfg)
+    d = cfg.d_model
+    dev = generator.device
+    return {
+        "ln1": torch.ones((d,), dtype=dt, device=dev),
+        "ln2": torch.ones((d,), dtype=dt, device=dev),
+        "wq": L.init_dense(generator, d, cfg.num_heads * hd, dt),
+        "wk": L.init_dense(generator, d, cfg.num_kv_heads * hd, dt),
+        "wv": L.init_dense(generator, d, cfg.num_kv_heads * hd, dt),
+        "wo": L.init_dense(generator, cfg.num_heads * hd, d, dt),
+        "w_gate": L.init_dense(generator, d, cfg.d_ff, dt),
+        "w_up": L.init_dense(generator, d, cfg.d_ff, dt),
+        "w_down": L.init_dense(generator, cfg.d_ff, d, dt),
+    }
+
+
+def init_params(cfg, generator: torch.Generator) -> Params:
+    """Random parameters from ``generator``, on its device.  The numbers
+    differ from the reference's `jax.random` ones for the same seed; the
+    tests carry the reference's parameters across with
+    `convert.lm_params_from_reference`."""
+    dt = L.dtype_of(cfg.dtype)
+    dev = generator.device
+    table = torch.randn((cfg.padded_vocab, cfg.d_model), generator=generator,
+                        dtype=torch.float32, device=dev)
+    return {
+        "embed": (table * 0.02).to(dt),
+        "blocks": [init_block_params(cfg, generator) for _ in range(cfg.num_layers)],
+        "final_norm": torch.ones((cfg.d_model,), dtype=dt, device=dev),
+    }
+
+
+# ---------------------------------------------------------------------------
+# Forward passes
+# ---------------------------------------------------------------------------
+
+def _qkv(cfg, p, x):
+    hd = _head_dim(cfg)
+    b, s, _ = x.shape
+    h = L.rmsnorm(x, p["ln1"])
+    q = (h @ p["wq"]).reshape(b, s, cfg.num_heads, hd).transpose(1, 2)
+    k = (h @ p["wk"]).reshape(b, s, cfg.num_kv_heads, hd).transpose(1, 2)
+    v = (h @ p["wv"]).reshape(b, s, cfg.num_kv_heads, hd).transpose(1, 2)
+    return q, k, v
+
+
+def _attn_train(cfg, p, x, positions):
+    """Full-sequence causal attention block: (x', (k, v)) with k after
+    RoPE, as the reference's `_attn_train`."""
+    b, s, _ = x.shape
+    q, k, v = _qkv(cfg, p, x)
+    q = L.apply_rope(q, positions, cfg.rope_theta)
+    k = L.apply_rope(k, positions, cfg.rope_theta)
+    o = attn_lib.chunked_attention(q, k, v, causal=True, chunk=cfg.attn_chunk)
+    o = o.transpose(1, 2).reshape(b, s, -1)
+    return x + o @ p["wo"], (k, v)
+
+
+def _ffn(cfg, p, x):
+    if cfg.num_experts:
+        raise NotImplementedError(
+            "the MoE FFN (models/moe.py) is not ported yet: ROADMAP queue A, "
+            "after the training slice")
+    h = L.rmsnorm(x, p["ln2"])
+    return x + L.swiglu(h, p["w_gate"], p["w_up"], p["w_down"])
+
+
+# ---------------------------------------------------------------------------
+# Serving: prefill + single-token decode over a static-size KV cache
+# ---------------------------------------------------------------------------
+
+def init_cache(cfg, batch: int, max_len: int, device) -> Dict[str, Any]:
+    dt = L.dtype_of(cfg.dtype)
+    shape = (cfg.num_layers, batch, cfg.num_kv_heads, max_len, _head_dim(cfg))
+    return {
+        "k": torch.zeros(shape, dtype=dt, device=device),
+        "v": torch.zeros(shape, dtype=dt, device=device),
+        "len": 0,
+    }
+
+
+def prefill(cfg, params: Params, tokens: torch.Tensor) -> Tuple[torch.Tensor, Any]:
+    """tokens (B, S) -> (last-position logits (B, V), cache of len S)."""
+    x = L.embed(tokens, params["embed"])
+    positions = torch.arange(tokens.shape[1], device=tokens.device)
+    ks: List[torch.Tensor] = []
+    vs: List[torch.Tensor] = []
+    for p in params["blocks"]:
+        x, (k, v) = _attn_train(cfg, p, x, positions)
+        x = _ffn(cfg, p, x)
+        ks.append(k)
+        vs.append(v)
+    x = L.rmsnorm(x[:, -1], params["final_norm"])
+    logits = L.logits_from_hidden(x, params["embed"])
+    cache = {"k": torch.stack(ks), "v": torch.stack(vs), "len": int(tokens.shape[1])}
+    return logits, cache
+
+
+def block_decode(cfg, p, x, kc, vc, pos: int):
+    """x (B, 1, D); kc/vc (B, Hkv, S, hd), written in place at ``pos``.
+    Returns (x', kc, vc)."""
+    b = x.shape[0]
+    q, k, v = _qkv(cfg, p, x)
+    posv = torch.full((1,), pos, dtype=torch.int32, device=x.device)
+    q = L.apply_rope(q, posv, cfg.rope_theta)
+    k = L.apply_rope(k, posv, cfg.rope_theta)
+    kc, vc = attn_lib.update_kv_cache(kc, vc, k, v, pos)
+    o = attn_lib.decode_attention(q, kc, vc, pos + 1)
+    o = o.transpose(1, 2).reshape(b, 1, -1)
+    x = x + o @ p["wo"]
+    return _ffn(cfg, p, x), kc, vc
+
+
+def decode_step(cfg, params: Params, cache, token: torch.Tensor) -> Tuple[torch.Tensor, Any]:
+    """token (B,) -> (logits (B, V), cache advanced by one position).
+
+    The cache's tensors are updated in place, one layer at a time (the
+    reference donates its cache to the same effect); the returned dict
+    holds the same tensors."""
+    pos = int(cache["len"])
+    x = L.embed(token[:, None], params["embed"])
+    for i, p in enumerate(params["blocks"]):
+        x, _, _ = block_decode(cfg, p, x, cache["k"][i], cache["v"][i], pos)
+    x = L.rmsnorm(x[:, 0], params["final_norm"])
+    logits = L.logits_from_hidden(x, params["embed"])
+    return logits, {"k": cache["k"], "v": cache["v"], "len": pos + 1}

@@ -171,3 +171,37 @@ def test_launch_rejects_what_the_kernel_does_not_take():
     with pytest.raises(ValueError, match="n < 2\\*\\*30"):
         rmi_lookup._launch(q, *arrs, None, None, hidden=(), n=2**30,
                            num_leaves=8, max_window=4)
+
+
+def test_lm_modules_import_without_jax():
+    """The LM slice's modules are among those the fresh interpreter
+    imports with neither JAX nor the reference loaded."""
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    out = subprocess.run(
+        [sys.executable, "-c", _PROBE], capture_output=True, text=True,
+        env=env, check=True, timeout=120,
+    ).stdout.split()
+    assert out[1] == "[]"
+    for name in ("repro_torch.configs", "repro_torch.configs.yi_6b",
+                 "repro_torch.models.layers", "repro_torch.models.attention",
+                 "repro_torch.models.transformer", "repro_torch.models.registry",
+                 "repro_torch.kernels.flash_attention", "repro_torch.serve.kvcache",
+                 "repro_torch.serve.engine", "repro_torch.launch.serve"):
+        assert name in out[2:], name
+
+
+def test_serve_refuses_without_a_card_unless_asked_for_the_cpu(monkeypatch, capsys):
+    from repro_torch.launch import serve
+    from repro_torch.models import get_model
+    from repro_torch.configs import REDUCED
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    argv = ["--arch", "yi-6b", "--reduced", "--requests", "2", "--max-new", "3"]
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        serve.main(argv)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        get_model(REDUCED["yi-6b"])
+    with pytest.raises(NotImplementedError, match="5b"):
+        serve.main(argv + ["--device", "cpu", "--prefix-bloom"])
+    out = serve.main(argv + ["--device", "cpu"])
+    assert out["completed"] == 2 and out["tokens"] == 6 and out["kv_pages_in_use"] == 0
+    assert '"completed": 2' in capsys.readouterr().out
