@@ -13,7 +13,9 @@ is non-zero:
   2. kernels — each CUDA kernel against its plain PyTorch version on the
                card: flash attention within the reference's tolerances
                (f32 2e-5, bf16 2e-2) at the reference's four test shapes,
-               S = 48, 1000 and 1, both dtypes, causal and not; the rest
+               S = 48, 1000 and 1 and yi-6b's heads at S = 1000, both
+               dtypes, causal and not, and its refusal of inputs that
+               require grad (it has no backward); the rest
                bit for bit: the lookups at n = 50k (linear and
                (16,16) MLP stage-0, and a duplicate-heavy key set) and on
                the full service index (stored, absent, leaf-boundary,
@@ -1683,13 +1685,18 @@ LM_F32_LAYERS = 4               # depth of the float32 prefill/decode check
 ATTN_SHAPES = ((1, 4, 2, 128, 32), (2, 8, 8, 128, 64), (1, 8, 1, 256, 64),
                (2, 4, 4, 64, 128),  # the reference's test shapes (B, Hq, Hkv, S, D)
                (2, 4, 2, 48, 128), (1, 8, 2, 1000, 64),  # ragged tails
-               (1, 8, 2, 1, 64))
+               (1, 8, 2, 1, 64),
+               (1, 32, 4, 1000, 128))  # yi-6b's heads, GQA group 8, ragged tail
 ATTN_TOL = {"float32": 2e-5, "bfloat16": 2e-2}   # tests/test_kernels.py:83
 # layer 0 at the prefill shape: one bf16 rounding of the float32 twin
 # (2^-8 relative, with room for float32 summation order), and an L2 error
 # relative to the bf16 twin
 LAYER0_RTOL, LAYER0_ATOL, LAYER0_REL_L2 = 5e-3, 1e-5, 1e-2
 BF16_FLOPS_PER_S = 989e12      # H100 SXM dense bf16 tensor-core rate
+# B9's bf16 design, and the time at the prefill shape of the CUDA-core
+# design it replaced (NVIDIA H100 80GB HBM3, 700.00 W; PERF.md §6)
+ATTN_DESIGN = "wgmma"
+ATTN_EARLIER_MS = 22.09
 SERVE_ARGV = ["--arch", LM_ARCH, "--requests", "16", "--max-new", "32",
               "--batch-slots", "8", "--max-len", "512"]
 
@@ -1735,6 +1742,40 @@ def compare_attention_kernel(dev, seed, record):
                           f"max |kernel - plain| {err} over tol {tol}")
                 worst = max(worst, err)
     return worst
+
+
+def check_attention_refuses_grad(dev, seed):
+    """C16: the kernel has no backward, so on the card
+    `flash_attention_cuda` and `chunked_attention` raise when an input
+    requires grad under grad mode, and run under `torch.no_grad()`."""
+    import torch
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+    from repro_torch.models.attention import chunked_attention
+    g = torch.Generator(device=dev).manual_seed(seed)
+    qkv = [torch.randn((1, h, 64, 32), generator=g, device=dev).to(torch.bfloat16)
+           for h in (4, 2, 2)]
+    want = ref.mha_reference(*qkv)
+    out = {}
+    for name, fn in (("flash_attention_cuda", flash_attention_cuda),
+                     ("chunked_attention", chunked_attention)):
+        for which in range(3):
+            args = list(qkv)
+            args[which] = args[which].clone().requires_grad_(True)
+            try:
+                fn(*args)
+                raised = False
+            except RuntimeError as e:
+                raised = "no backward" in str(e)
+            check(raised, f"{name} with input {which} requiring grad did not raise")
+            with torch.no_grad():
+                got = fn(*args)
+            torch.cuda.synchronize()
+            check(not got.requires_grad and bool(torch.allclose(
+                got.float(), want.float(), atol=ATTN_TOL["bfloat16"],
+                rtol=ATTN_TOL["bfloat16"])), f"{name} under no_grad: wrong output")
+        out[name] = True
+    return out
 
 
 def _lm_tokens(rng, cfg, b, s, dev):
@@ -1876,7 +1917,8 @@ def run_lm(args, dev, card):
     bound = attention_bound(b, hq, hkv, s, d, q.element_size())
     timing = {"shape": [b, hq, hkv, s, d], "dtype": "bfloat16", "causal": True,
               "ms": kernel_ms, "plain_ms": plain_ms, "sdpa_ms": sdpa_ms, **bound,
-              "tflops": bound["flops"] / kernel_ms / 1e9, "layer0_max_abs_err": layer0_err}
+              "tflops": bound["flops"] / kernel_ms / 1e9, "layer0_max_abs_err": layer0_err,
+              "design": ATTN_DESIGN, "earlier_ms": ATTN_EARLIER_MS}
     emit({"phase": "lm_attention_times", "card": card, **timing})
     del q, k, v
     torch.cuda.empty_cache()
@@ -2301,6 +2343,7 @@ def main(argv=None) -> int:
     attn_worst = compare_attention_kernel(dev, args.seed, attn_record)
     emit({"phase": "attention_kernel_vs_plain", "max_abs_err": attn_worst,
           "rows": attn_record})
+    emit({"phase": "attention_grad_guard", **check_attention_refuses_grad(dev, args.seed)})
     # a stream of its own: gen_maps(n, seed) draws from default_rng(seed),
     # and "absent" query candidates must not replay its keys
     rng = np.random.default_rng((args.seed, 1))

@@ -5,11 +5,16 @@ and the PyTorch wrapper.
     softmax over (B, Hq, S, D) queries and (B, Hkv, S, D) keys and
     values, float32 or bfloat16, D in {32, 64, 128}, any S.  Replaces the
     reference's ``flash_attention`` (a Pallas kernel, which needs S to
-    divide its blocks; this one masks the ragged tail itself).
+    divide its blocks; this one masks the ragged tail itself).  The
+    dtype picks the instance: bfloat16 runs on the tensor cores (wgmma
+    fed by TMA, P split into two bf16 halves), float32 on the CUDA
+    cores; neither stands in for the other.
 
 For a CUDA tensor the wrapper launches the kernel (or raises); for a CPU
 tensor it runs the plain version, `kernels.ref.mha_reference`.  Each
-launch adds one to ``LAUNCHES["flash_attention_cuda"]``.
+launch adds one to ``LAUNCHES["flash_attention_cuda"]``.  The kernel has
+no backward: on the card, a call with grad mode on and an input that
+requires grad raises rather than return an output with no graph.
 
 The source is held to a tolerance against its twin, not bit for bit, so
 it builds with the compiler's default contraction (no ``-fmad=false``,
@@ -66,6 +71,10 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     """(B, Hq, S, D) attention output in q's dtype."""
     if q.device.type == "cpu":
         return ref.mha_reference(q, k, v, causal=causal)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        raise RuntimeError(
+            "flash_attention_cuda has no backward kernel: an input requires grad "
+            "under grad mode (run it under torch.no_grad(), or on the CPU)")
     dev = q.device
     if q.ndim != 4 or k.ndim != 4 or v.ndim != 4:
         raise ValueError("q, k and v must be 4-D (B, H, S, D)")

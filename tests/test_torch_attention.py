@@ -5,8 +5,11 @@ reference's `flash_attention` (Pallas, interpret mode) and its
 ones, at the reference's tolerances (2e-5 in float32, 2e-2 in
 bfloat16); the model's `chunked_attention` (padding, query offset,
 non-causal), `decode_attention` and `update_kv_cache` against the
-reference's.  The `cuda`-marked test holds the kernel against its twin
-on the card.
+reference's.  The kernel's numerics (bf16 tensor-core products with P
+split into two bf16 halves) are emulated in plain torch and held to the
+bound `chip_smoke.py` holds the card to.  The `cuda`-marked tests hold
+the kernel against its twin on the card and check that it refuses
+inputs that require grad (it has no backward).
 """
 
 import numpy as np
@@ -199,6 +202,10 @@ def test_kernel_source_names_what_it_replaces_and_builds_with_contraction():
     src = fa.SOURCE.read_text()
     assert "src/repro/kernels/flash_attention.py:83" in src
     assert "-1e30f" in src and "1e-30f" in src
+    # the bf16 instances: both products on the tensor cores, tiles by TMA
+    assert "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16" in src
+    assert "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16" in src
+    assert "cp.async.bulk.tensor.3d" in src and "cuTensorMapEncodeTiled" in src
     assert "-fmad=false" not in fa.FLAGS and "-fmad=false" in nvcc.NVCC_FLAGS
     assert "arch=compute_90a,code=sm_90a" in " ".join(fa.FLAGS)
     assert fa.library_path().name.startswith("flash_attention-")
@@ -210,7 +217,8 @@ def test_cuda_kernel_matches_plain_twin_on_card():
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA card")
     dev = torch.device("cuda")
-    for shape in SHAPES + [(2, 4, 2, 48, 128), (1, 8, 2, 1000, 64), (1, 8, 2, 1, 64)]:
+    for shape in SHAPES + [(2, 4, 2, 48, 128), (1, 8, 2, 1000, 64), (1, 8, 2, 1, 64),
+                           (1, 32, 4, 1000, 128)]:
         for dtype in ("float32", "bfloat16"):
             _, (q, k, v) = _qkv(shape, dtype)
             q, k, v = (t.to(dev) for t in (q, k, v))
@@ -220,3 +228,103 @@ def test_cuda_kernel_matches_plain_twin_on_card():
                 torch.cuda.synchronize()
                 tol = TOL[dtype]
                 assert torch.allclose(got.float(), want.float(), atol=tol, rtol=tol)
+
+
+# chip_smoke.py's layer-0 bound: one bf16 rounding of the float32 twin
+LAYER0_RTOL, LAYER0_ATOL = 5e-3, 1e-5
+
+
+def _emulate_tensor_core_kernel(q, k, v, *, split, bk=64):
+    """The bf16 kernel's rounding points in plain torch: bf16 operands,
+    float32 scores and accumulation (a product of two bf16 values is
+    exact in float32), an online softmax over tiles of ``bk`` keys, P
+    fed to the P.V product as bf16(P) plus, with ``split``,
+    bf16(P - bf16(P)); the output rounded to bf16 once."""
+    b, hq, s, d = q.shape
+    group = hq // k.shape[1]
+    kr, vr = (torch.repeat_interleave(t, group, 1).float() for t in (k, v))
+    rows = torch.arange(s)[:, None]
+    m = torch.full((b, hq, s, 1), -1e30)
+    l = torch.zeros((b, hq, s, 1))
+    acc = torch.zeros((b, hq, s, d))
+    for k0 in range(0, s, bk):
+        sc = torch.einsum("bhqd,bhkd->bhqk", q.float(), kr[:, :, k0:k0 + bk])
+        sc = sc * np.float32(1.0 / np.sqrt(d))
+        sc = torch.where(torch.arange(k0, min(k0 + bk, s))[None, :] > rows,
+                         torch.tensor(-1e30), sc)
+        m_new = torch.maximum(m, sc.amax(-1, keepdim=True))
+        p = torch.exp(sc - m_new)
+        alpha = torch.exp(m - m_new)
+        hi = p.to(torch.bfloat16).float()
+        pv = hi + (p - hi).to(torch.bfloat16).float() if split else hi
+        l = l * alpha + p.sum(-1, keepdim=True)
+        acc = acc * alpha + torch.einsum("bhqk,bhkd->bhqd", pv, vr[:, :, k0:k0 + bk])
+        m = m_new
+    return (acc / torch.clamp(l, min=1e-30)).to(torch.bfloat16)
+
+
+@pytest.mark.parametrize("split", [True, False], ids=["p-split-hi-lo", "p-single-bf16"])
+def test_tensor_core_numerics_stay_within_one_bf16_rounding(split):
+    """The split P keeps every output within one bf16 rounding of the
+    float32 twin on the same (exactly widened) inputs; a single bf16 P
+    (the textbook kernel) rounds each probability to 8 bits and does not."""
+    _, (q, k, v) = _qkv((1, 4, 2, 256, 64), "bfloat16", seed=3)
+    want = ref.mha_reference(q.float(), k.float(), v.float(), causal=True)
+    got = _emulate_tensor_core_kernel(q, k, v, split=split).float()
+    out = int((~torch.isclose(got, want, atol=LAYER0_ATOL, rtol=LAYER0_RTOL)).sum())
+    if split:
+        assert out == 0
+    else:
+        assert out > 0.05 * got.numel()
+
+
+def test_chunked_attention_on_the_cpu_stays_differentiable():
+    """C16: the card path has no backward and refuses grad; the CPU path
+    is the reference's loop and gives q, k and v the reference's
+    gradients."""
+    import jax
+
+    rng = np.random.default_rng(16)
+    arrs = [rng.standard_normal((1, h, 20, 16)).astype(np.float32) for h in (4, 2, 2)]
+    q, k, v = (torch.from_numpy(a).requires_grad_(True) for a in arrs)
+    (attention.chunked_attention(q, k, v, chunk=8) ** 2).sum().backward()
+
+    def loss(qa, ka, va):
+        return jnp.sum(jax_attn.chunked_attention(qa, ka, va, causal=True, chunk=8) ** 2)
+
+    want = jax.grad(loss, argnums=(0, 1, 2))(*(jnp.asarray(a) for a in arrs))
+    for t, w in zip((q, k, v), want):
+        assert t.grad is not None
+        _close(t.grad.numpy(), w, 1e-4)
+
+
+@pytest.mark.parametrize("which", ["q", "k", "v"])
+def test_wrapper_refuses_an_input_that_requires_grad_before_launching(which):
+    """C16 on a stand-in device (meta): under grad mode an input that
+    requires grad raises before anything is built or launched."""
+    args = {n: torch.empty((1, 4 if n == "q" else 2, 8, 32), device="meta") for n in "qkv"}
+    args[which].requires_grad_(True)
+    with pytest.raises(RuntimeError, match="no backward"):
+        fa.flash_attention_cuda(args["q"], args["k"], args["v"])
+
+
+@pytest.mark.cuda
+def test_card_attention_refuses_grad_and_runs_under_no_grad():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card")
+    dev = torch.device("cuda")
+    _, qkv = _qkv((1, 4, 2, 64, 32), "bfloat16")
+    qkv = [t.to(dev) for t in qkv]
+    calls = (fa.flash_attention_cuda, attention.chunked_attention)
+    for fn in calls:
+        for which in range(3):
+            args = list(qkv)
+            args[which] = args[which].clone().requires_grad_(True)
+            with pytest.raises(RuntimeError, match="no backward"):
+                fn(*args)
+            with torch.no_grad():
+                out = fn(*args)
+            torch.cuda.synchronize()
+            want = ref.mha_reference(*qkv)
+            assert not out.requires_grad
+            assert torch.allclose(out.float(), want.float(), atol=2e-2, rtol=2e-2)

@@ -245,3 +245,33 @@ def test_stored_keys_found_above_2_24():
         hidden=(), n=idx.n, num_leaves=idx.num_leaves, max_window=idx.max_window,
     )
     assert np.array_equal(got.numpy(), np.searchsorted(ks.norm, ks.norm[sample]))
+
+
+# ROADMAP queue C 15: 17 keys with 4 distinct float32 values make the
+# build fit leaf 3 with a slope of ~2.5e8 and heavy cancellation.  The
+# reference builds positions in NumPy (unfused) but looks up in XLA,
+# which a CPU contracts into one FMA, so there the reference's own
+# lookup misses 11 of the 17 stored keys; that depends on the CPU's
+# contraction, so only the port's side is asserted.
+C15_RAW = np.concatenate([[-415979315.0], np.linspace(-0.9, 0.99, 15), [833290259.0]])
+
+
+@pytest.mark.parametrize("strategy", ["binary", "biased", "quaternary", "torch_fused"])
+def test_c15_tied_float32_keys_are_all_found_at_their_lower_bound(strategy):
+    from repro_torch.index_service.delta import combine_for_device
+    from repro_torch.index_service.snapshot import build_snapshot
+
+    cfg = port_rmi.RMIConfig(num_leaves=8, stage0_hidden=(), stage0_train_steps=0)
+    ks = make_keyset(C15_RAW)
+    assert np.unique(ks.norm).size == 4
+    want = np.searchsorted(ks.norm, ks.norm)
+    q = torch.as_tensor(ks.norm)
+    if strategy == "torch_fused":
+        snap, _ = build_snapshot(C15_RAW, config=cfg, device="cpu")
+        assert np.array_equal(snap.keys.norm, ks.norm)
+        dk, dp = combine_for_device(None, None, snap.keys.normalize)
+        _, got = snap.merged_lookup_fn(strategy)(q, torch.as_tensor(dk), torch.as_tensor(dp))
+    else:
+        idx = port_rmi.build_rmi(ks, cfg, device="cpu")
+        got = port_rmi.compile_lookup(idx, ks, strategy, device="cpu")(q)
+    np.testing.assert_array_equal(got.numpy(), want)
