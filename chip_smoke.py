@@ -23,10 +23,13 @@ is non-zero:
                and 1<<20, an empty delta and one of 1<<20 entries); the
                scans at n = 50k (float32 ties between staged inserts and
                base keys, NaN / inverted / out-of-span bounds, negative
-               and wrapping page starts, unpadded power-of-two deltas);
-               the sharded lookup and scan at S in {1, 3, 4} unequal
-               shards (empty, staged and unpadded deltas, stride-0 rows,
-               page sizes 256 / 160 / 1); the §4 hash probe on Maps,
+               and wrapping page starts, unpadded power-of-two deltas, a
+               tombstone run and an insert cluster longer than the range
+               kernel's shared-memory buffers); the sharded lookup and
+               scan at S in {1, 3, 4} unequal shards (empty, staged and
+               unpadded deltas, stride-0 rows, page sizes 256 / 160 / 1,
+               and for the scan a tombstone run over half of each of
+               three shards); the §4 hash probe on Maps,
                Lognormal and Weblogs maps at 50k keys and slot ratios
                0.75 / 1.0 / 1.25 and a map with no overflow (stored,
                absent, float32-equal, NaN, infinite and out-of-span
@@ -371,15 +374,19 @@ def compare_scan_kernels(rng, device, record):
     """Both scan kernels against their plain versions on the card, bit
     for bit, at n = 50k: a Maps key set and a duplicate-heavy one,
     staged inserts that tie base keys in float32, tombstones, an empty
-    delta and unpadded power-of-two delta arrays; NaN, inverted,
-    infinite and out-of-span bounds; page starts that are negative,
-    past the end or wrap int32.  Returns the max |kernel - plain|."""
+    delta and unpadded power-of-two delta arrays, a tombstone run longer
+    than the range kernel's `live_prefix` buffer and an insert cluster
+    longer than its `ins_rank` buffer (ranges over them cross many of its
+    tiles); NaN, inverted, infinite and out-of-span bounds; page starts
+    that are negative, past the end or wrap int32.  Returns the max
+    |kernel - plain|."""
     import torch
     from repro_torch.core import make_keyset
     from repro_torch.data import gen_maps
     from repro_torch.index_service.scan import device_scan_plan, device_scan_slab
     from repro_torch.kernels import ref
-    from repro_torch.kernels.rmi_scan import rmi_scan_page_cuda, rmi_scan_range_cuda
+    from repro_torch.kernels.rmi_scan import (RANGE_INS_CAP, RANGE_PREFIX_CAP,
+                                              rmi_scan_page_cuda, rmi_scan_range_cuda)
 
     t = lambda a: torch.as_tensor(np.asarray(a), device=device)  # noqa: E731
     worst = 0.0
@@ -390,12 +397,18 @@ def compare_scan_kernels(rng, device, record):
         fresh = _absent(raw, rng.uniform(raw[0], raw[-1], 3000))
         # raw keys a hair above stored ones: distinct, same float32 key
         ties = _absent(raw, raw[rng.choice(ks.n, 500)] * (1 + 1e-13) + 1e-9)
+        # a tombstone run from a tenth of the way in, and an insert
+        # cluster between two neighbouring keys further on
+        a, c = ks.n // 10, ks.n * 7 // 10
         deltas = {
             "staged": (np.unique(np.concatenate([fresh[:1500], ties])),
                        np.sort(rng.choice(raw, 2000, replace=False))),
             "tombstones": (np.empty(0), np.sort(rng.choice(raw, 4096, replace=False))),
             "empty": (np.empty(0), np.empty(0)),
             "pow2": (np.sort(fresh[:1024]), np.sort(rng.choice(raw, 1024, replace=False))),
+            "dense": (np.unique(np.concatenate([fresh[:300], _absent(raw, raw[c] + rng.uniform(
+                0, raw[c + 1] - raw[c], 2 * RANGE_INS_CAP))])),
+                      raw[a:a + min(2 * RANGE_PREFIX_CAP, ks.n // 2)]),
         }
         for dname, (ins, dels) in deltas.items():
             ivals = rng.integers(1, 1 << 31, ins.size)
@@ -415,7 +428,8 @@ def compare_scan_kernels(rng, device, record):
             bounds = [[ks.norm[10], ks.norm[n - 10]], [ks.norm[n // 3], ks.norm[n // 3 + 700]],
                       [ks.norm[500], ks.norm[100]], [np.nan, ks.norm[77]],
                       [ks.norm[77], np.nan], [-np.inf, np.inf], [-2.0, -1.0], [1.5, 3.0],
-                      [ks.normalize(ties[:1])[0], ks.normalize(ties[-1:])[0]]]
+                      [ks.normalize(ties[:1])[0], ks.normalize(ties[-1:])[0]],
+                      [ks.norm[a - 10], ks.norm[n - a]]]
             starts = np.array([-7, 0, 1, live // 2, live - 3, live, live + 99,
                                2**31 - 9], np.int32)
             for page_size in SCAN_PAGE_SIZES:
@@ -808,7 +822,8 @@ def compare_sharded_scan_kernel(rng, device, record):
     and raw (adversarial owners, an int32-wrapping local rank): S in
     {1, 3, 4} shard slabs with staged inserts (some tying base keys in
     float32) and tombstones; NaN, inverted, infinite and out-of-span
-    bounds; page sizes 256, 160 and 1."""
+    bounds; page sizes 256, 160 and 1; and S = 3 again with a run of
+    tombstones over half of each shard."""
     import torch
     from repro_torch.data import gen_maps
     from repro_torch.index_service.scan import stack_scan_slabs
@@ -818,7 +833,8 @@ def compare_sharded_scan_kernel(rng, device, record):
     t = lambda a: torch.as_tensor(np.ascontiguousarray(a), device=device)  # noqa: E731
     raw = gen_maps(SMALL_N, seed=6)
     worst = 0.0
-    for S, sizes in SHARD_SIZES.items():
+    for S, sizes, dense in [(S, sizes, False) for S, sizes in SHARD_SIZES.items()] + [
+            (3, SHARD_SIZES[3], True)]:
         cuts = np.concatenate([[0], np.cumsum(sizes)]) * raw.size // sum(sizes)
         views = []
         for s in range(S):
@@ -826,7 +842,8 @@ def compare_sharded_scan_kernel(rng, device, record):
             fresh = _absent(part, rng.uniform(part[0], part[-1], 800))
             ties = _absent(part, part[rng.choice(part.size, 60)] * (1 + 1e-13) + 1e-9)
             ins = np.unique(np.concatenate([fresh, ties]))
-            dels = np.sort(rng.choice(part, 500, replace=False))
+            dels = (part[part.size // 4:part.size * 3 // 4] if dense
+                    else np.sort(rng.choice(part, 500, replace=False)))
             views.append(_pin_arrays(part, rng.integers(-(1 << 40), 1 << 40, part.size), ins,
                                      rng.integers(1, 1 << 31, ins.size), dels))
         p = stack_scan_slabs(views)
@@ -855,7 +872,8 @@ def compare_sharded_scan_kernel(rng, device, record):
             worst = max(worst, err)
             check(err == 0, f"raw sharded scan kernel != plain: S{S}/{page_size}")
         torch.cuda.synchronize()
-        record.append({"S": S, "live": int(live), "max_abs_err": worst})
+        record.append({"S": S, "dense_tombstones": dense, "live": int(live),
+                       "max_abs_err": worst})
     return worst
 
 
@@ -1124,8 +1142,10 @@ def run_sharded(args, base, rng, dev, card):
     ops.reset_dispatch_stats()
     windows = []
     t_main = time.perf_counter()
-    staged, ranges, summary = drive_sharded(svc, base, rng, dev, "sharded", N_WRITES, N_GET,
-                                            N_LOOKUP, windows)
+    # the --n rehearsal's cut base holds fewer keys than N_WRITES deletes
+    staged, ranges, summary = drive_sharded(svc, base, rng, dev, "sharded",
+                                            min(N_WRITES, base.size // 4), N_GET, N_LOOKUP,
+                                            windows)
     launches = {k: 0 for ks in SHARDED_PATHS.values() for k in ks}
     for path, counts in windows:
         for k in SHARDED_PATHS[path]:
@@ -2179,6 +2199,11 @@ def run_single(args, base, rng, dev, card, record, worst, scan_worst):
     for batch in (65_536, BIG_BATCH):
         q = torch.as_tensor(norm[rng.choice(ks0.n, batch)], device=dev)
         row = {"batch": batch}
+        # the snapshot's leaf record, read in place, against the plain twin
+        err = lookup_mismatch(rmi_merged_lookup_cuda(q, *arrs, dk_t, dp_t, **kw),
+                              ref.rmi_merged_lookup_reference(q, *arrs, dk_t, dp_t, **kw))
+        check(err == 0, f"phase 4: merged kernel != plain at {batch}")
+        worst = max(worst, err)
         row["merged_ms"] = time_ms(lambda: rmi_merged_lookup_cuda(q, *arrs, dk_t, dp_t, **kw))
         row["merged_plain_ms"] = time_ms(
             lambda: ref.rmi_merged_lookup_reference(q, *arrs, dk_t, dp_t, **kw), reps=5)
@@ -2332,11 +2357,19 @@ def main(argv=None) -> int:
         libs = list(pool.map(lambda m: m.build(),
                              (rmi_lookup, rmi_scan, hash_probe, flash_attention)))
     build_s = time.perf_counter() - t0
+    # the range kernel's tile and shared-memory buffers (dynamic shared
+    # memory, which ptxas does not report); the lookups take none
+    tiles = {"rmi_scan": {"range_tile": rmi_scan.RANGE_TILE,
+                          "range_ins_cap": rmi_scan.RANGE_INS_CAP,
+                          "range_prefix_cap": rmi_scan.RANGE_PREFIX_CAP,
+                          "range_dynamic_smem_bytes": 4 * (rmi_scan.RANGE_INS_CAP
+                                                           + rmi_scan.RANGE_PREFIX_CAP)}}
     for lib in libs:
         log = lib.with_suffix(".log").read_text() if lib.with_suffix(".log").exists() else ""
         emit({"phase": "build", "seconds": build_s, "library": lib.name,
               "ptxas": [ln.strip() for ln in log.splitlines()
-                        if "registers" in ln or "spill" in ln]})
+                        if "registers" in ln or "spill" in ln or "entry function" in ln],
+              "tiles": tiles.get(lib.stem.split("-")[0])})
 
     # ---- phase 2: kernels against plain versions ------------------------
     attn_record = []

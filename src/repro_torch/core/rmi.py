@@ -92,14 +92,27 @@ class RMIndex:
         return np.float32(self.num_leaves / self.n)
 
     def as_tree(self, device) -> Dict[str, torch.Tensor]:
+        """The lookups' tensors on ``device``.  The four leaf arrays are
+        the column views of one `pack_leaves` record."""
         dev = torch.device(device)
         t = {
             k: torch.as_tensor(getattr(self, k), device=dev)
-            for k in ("leaf_w", "leaf_b", "err_lo", "err_hi", "sigma",
-                      "seg_lo", "seg_hi", "is_btree")
+            for k in ("sigma", "seg_lo", "seg_hi", "is_btree")
         }
+        record = pack_leaves(*(torch.as_tensor(getattr(self, k), device=dev)
+                               for k in LEAF_FIELDS))
+        t.update(zip(LEAF_FIELDS, record.unbind(1)))
         t["s0"] = torch.as_tensor(pack_stage0(self.stage0_params), device=dev)
         return t
+
+
+LEAF_FIELDS = ("leaf_w", "leaf_b", "err_lo", "err_hi")
+
+
+def pack_leaves(leaf_w, leaf_b, err_lo, err_hi) -> torch.Tensor:
+    """The (M, 4) float32 leaf record (w, b, err_lo, err_hi) the lookup
+    kernels read with one 16-byte load a query."""
+    return torch.stack([leaf_w, leaf_b, err_lo, err_hi], dim=1)
 
 
 def leaf_and_pos(

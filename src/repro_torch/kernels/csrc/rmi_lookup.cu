@@ -24,18 +24,23 @@
 // (local base_lb, delta prefix contribution); the caller reassembles
 // global ranks from the routed row and the shard offsets.
 //
-// What bounds them on this card: dependent 4-byte gathers from device
-// memory.  Each query reads its 4-byte key, the leaf's four parameters
-// (4 sectors, one leaf index), the first probe and `steps` halving
-// probes into the base keys: about 4 + 1 + steps sectors for the base,
-// and `dsteps` more for the delta, whose few MB usually sit in L2.  The
-// probes of one query depend on each other, so the time is a chain of
-// memory latencies per thread; the design answers that with one query
-// per thread and many resident warps (no shared memory, few registers),
-// so the card keeps many chains in flight.  The sharded kernel searches
-// every query on every shard row, as the reference's grid does: S times
-// the single-shard work.  Staging the top search levels in shared
-// memory, and searching only the routed row, are later work.
+// What bounds them on this card: scattered sector reads from device
+// memory.  A query gathers a random leaf, then the first probe and the
+// halving probes in a random window of the base keys (780 MB at 195M
+// keys); each gather moves a whole sector for 4 useful bytes, and the
+// last trips fall in a sector already fetched.  The delta keys (4 MB at
+// 1<<20 entries) are read from L2.  The single-shard kernel reads a leaf
+// as one 16-byte record (w, b, err_lo, err_hi) by one vector load: one
+// sector a query where four separate arrays cost four, and less of L2
+// spent on leaves.  One query a thread and many resident warps keep the
+// chains in flight, and the merged kernel runs its delta search's trips
+// beside the base search's (the two do not depend on each other), so a
+// thread has two gathers in flight.  Staging the delta's top levels in
+// shared memory, several queries a thread and a persistent grid were
+// measured on the card and did not pay (PERF.md §6).  The sharded
+// kernel reads its four stacked leaf arrays and searches every query on
+// every shard row, as the reference's grid does: S times the
+// single-shard work.
 //
 // The window contract: a stored key is found only if this kernel picks
 // the same leaf and the same position as the build did.  The build runs
@@ -99,65 +104,80 @@ __device__ __forceinline__ float stage0(float q, const float* __restrict__ s0,
   return x[0];
 }
 
-// stage-0 -> leaf select -> clipped leaf position -> window -> first
-// probe -> `steps` halving trips: the base lower bound of one query
-// (the reference's _base_lower_bound), without the sharded clamp.
-__device__ __forceinline__ int base_lower_bound(
-    float qq, const float* __restrict__ s0, int nl, int h1, int h2,
-    const float* __restrict__ leaf_w, const float* __restrict__ leaf_b,
-    const float* __restrict__ err_lo, const float* __restrict__ err_hi, int M,
-    float ratio, const float* __restrict__ keys, int n, float nm1f,
-    int steps) {
-  // ---- stage 0 -> leaf select -> clipped leaf position ----------------
+// stage 0 -> leaf select
+__device__ __forceinline__ int select_leaf(float qq, const float* __restrict__ s0,
+                                           int nl, int h1, int h2, int M,
+                                           float ratio) {
   float p0 = stage0(qq, s0, nl, h1, h2);
-  int leaf = min(to_index(floorf(__fmul_rn(p0, ratio)), 0.0f), M - 1);
-  float pos = __fadd_rn(__fmul_rn(__ldg(leaf_w + leaf), qq), __ldg(leaf_b + leaf));
+  return min(to_index(floorf(__fmul_rn(p0, ratio)), 0.0f), M - 1);
+}
+
+// One branchless halving trip toward the lower bound of qq in [lo, hi),
+// given the value v probed at mid.
+__device__ __forceinline__ void halve(int& lo, int& hi, int mid, float v,
+                                      float qq) {
+  bool r = v < qq;
+  lo = r ? mid + 1 : lo;
+  hi = r ? hi : mid;
+}
+
+// Leaf record (w, b, err_lo, err_hi) -> clipped leaf position -> error
+// window -> first probe at the prediction (model binary search §3.4):
+// the window [lo, hi) the halving trips search.
+__device__ __forceinline__ void base_window(float qq, float4 leaf,
+                                            const float* __restrict__ keys,
+                                            int n, float nm1f, int& lo,
+                                            int& hi) {
+  float pos = __fadd_rn(__fmul_rn(leaf.x, qq), leaf.y);
   pos = clampf(pos, 0.0f, nm1f);
-
-  // ---- error window: clip(int(pos+lo), 0, n), clip(int(pos+hi)+1, 0, n)
-  int lo = min(to_index(__fadd_rn(pos, __ldg(err_lo + leaf)), 0.0f), n);
-  int hi = max(min(to_index(__fadd_rn(pos, __ldg(err_hi + leaf)), -1.0f) + 1, n), 0);
-
-  // ---- first probe at the prediction (model binary search §3.4) -------
+  // clip(int(pos+lo), 0, n), clip(int(pos+hi)+1, 0, n)
+  lo = min(to_index(__fadd_rn(pos, leaf.z), 0.0f), n);
+  hi = max(min(to_index(__fadd_rn(pos, leaf.w), -1.0f) + 1, n), 0);
   int p0i = min(to_index(pos, 0.0f), n - 1);
   bool right = __ldg(keys + p0i) < qq;
   lo = right ? max(lo, p0i + 1) : lo;
   hi = right ? hi : min(hi, p0i);
+}
 
-  // ---- fixed-trip branchless halving -----------------------------------
+// One trip of the full-range lower bound over the +inf-padded delta keys
+// (no pin: with an unpadded power-of-two delta the search can reach
+// D + 1, which the prefix gather clamps).
+__device__ __forceinline__ void delta_trip(int& lo, int& hi,
+                                           const float* __restrict__ dkeys,
+                                           int D, float qq) {
+  int mid = (lo + hi) >> 1;
+  halve(lo, hi, mid, __ldg(dkeys + min(mid, D - 1)), qq);
+}
+
+// The window, then `steps` halving trips: the base lower bound of one
+// query (the reference's _base_lower_bound), without the sharded clamp.
+__device__ __forceinline__ int base_lower_bound(float qq, float4 leaf,
+                                                const float* __restrict__ keys,
+                                                int n, float nm1f, int steps) {
+  int lo, hi;
+  base_window(qq, leaf, keys, n, nm1f, lo, hi);
   for (int s = 0; s < steps; ++s) {
     int mid = (lo + hi) >> 1;
-    bool r = __ldg(keys + min(mid, n - 1)) < qq;
-    lo = r ? mid + 1 : lo;
-    hi = r ? hi : mid;
+    halve(lo, hi, mid, __ldg(keys + min(mid, n - 1)), qq);
   }
   return lo;
 }
 
-// Full-range lower bound over the +inf-padded delta keys (no pin: with
-// an unpadded power-of-two delta it can reach D + 1, which the prefix
-// gather clamps).
 __device__ __forceinline__ int delta_lower_bound(float qq,
                                                  const float* __restrict__ dkeys,
                                                  int D, int dsteps) {
   int dlo = 0, dhi = D;
-  for (int s = 0; s < dsteps; ++s) {
-    int mid = (dlo + dhi) >> 1;
-    bool r = __ldg(dkeys + min(mid, D - 1)) < qq;
-    dlo = r ? mid + 1 : dlo;
-    dhi = r ? dhi : mid;
-  }
+  for (int s = 0; s < dsteps; ++s) delta_trip(dlo, dhi, dkeys, D, qq);
   return dlo;
 }
 
+// The delta search does not depend on the base search, so its trips
+// ride along the base trips: each thread keeps two gathers in flight.
 template <bool WITH_DELTA>
 __global__ void __launch_bounds__(256)
 rmi_lookup_kernel(const float* __restrict__ q, int B,
                   const float* __restrict__ s0, int nl, int h1, int h2,
-                  const float* __restrict__ leaf_w,
-                  const float* __restrict__ leaf_b,
-                  const float* __restrict__ err_lo,
-                  const float* __restrict__ err_hi, int M, float ratio,
+                  const float4* __restrict__ leaves, int M, float ratio,
                   const float* __restrict__ keys, int n, float nm1f, int steps,
                   const float* __restrict__ dkeys,
                   const int* __restrict__ dprefix, int D, int dsteps,
@@ -165,11 +185,18 @@ rmi_lookup_kernel(const float* __restrict__ q, int B,
   int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= B) return;
   float qq = q[i];
-  int lo = base_lower_bound(qq, s0, nl, h1, h2, leaf_w, leaf_b, err_lo,
-                            err_hi, M, ratio, keys, n, nm1f, steps);
+  int lo, hi, dlo = 0, dhi = D;
+  base_window(qq, __ldg(leaves + select_leaf(qq, s0, nl, h1, h2, M, ratio)),
+              keys, n, nm1f, lo, hi);
+  for (int s = 0; s < steps; ++s) {
+    int mid = (lo + hi) >> 1;
+    float v = __ldg(keys + min(mid, n - 1));
+    if (WITH_DELTA && s < dsteps) delta_trip(dlo, dhi, dkeys, D, qq);
+    halve(lo, hi, mid, v, qq);
+  }
   out_base[i] = lo;
   if (WITH_DELTA) {
-    int dlo = delta_lower_bound(qq, dkeys, D, dsteps);
+    for (int s = steps; s < dsteps; ++s) delta_trip(dlo, dhi, dkeys, D, qq);
     out_merged[i] = lo + __ldg(dprefix + min(dlo, D));
   }
 }
@@ -202,11 +229,14 @@ rmi_sharded_lookup_kernel(const float* __restrict__ q, int B,
   int n = __ldg(shard_n + s);
   int M = __ldg(shard_m + s);
   float qq = q[s * st.q + i];
+  int leaf = select_leaf(qq, s0 + s * st.s0, nl, h1, h2, M,
+                         __ldg(shard_ratio + s));
   int lo = base_lower_bound(
-      qq, s0 + s * st.s0, nl, h1, h2, leaf_w + s * st.leaf_w,
-      leaf_b + s * st.leaf_b, err_lo + s * st.err_lo, err_hi + s * st.err_hi,
-      M, __ldg(shard_ratio + s), keys + s * st.keys, n, __int2float_rn(n - 1),
-      steps);
+      qq, make_float4(__ldg(leaf_w + s * st.leaf_w + leaf),
+                      __ldg(leaf_b + s * st.leaf_b + leaf),
+                      __ldg(err_lo + s * st.err_lo + leaf),
+                      __ldg(err_hi + s * st.err_hi + leaf)),
+      keys + s * st.keys, n, __int2float_rn(n - 1), steps);
   int dlo = delta_lower_bound(qq, dkeys + s * st.dkeys, D, dsteps);
   out_base[s * B + i] = min(lo, n);
   out_contrib[s * B + i] = __ldg(dprefix + s * st.dprefix + min(dlo, D));
@@ -214,21 +244,21 @@ rmi_sharded_lookup_kernel(const float* __restrict__ q, int B,
 
 extern "C" int rmi_lookup_launch(
     const float* q, int B, const float* s0, int nl, int h1, int h2,
-    const float* leaf_w, const float* leaf_b, const float* err_lo,
-    const float* err_hi, int M, float ratio, const float* keys, int n,
+    const float* leaves, int M, float ratio, const float* keys, int n,
     float nm1f, int steps, const float* dkeys, const int* dprefix, int D,
     int dsteps, int* out_base, int* out_merged, void* stream) {
   const int threads = 256;
   dim3 grid((B + threads - 1) / threads);
   cudaStream_t st = (cudaStream_t)stream;
+  const float4* rec = (const float4*)leaves;
   if (dkeys != nullptr) {
     rmi_lookup_kernel<true><<<grid, threads, 0, st>>>(
-        q, B, s0, nl, h1, h2, leaf_w, leaf_b, err_lo, err_hi, M, ratio, keys,
-        n, nm1f, steps, dkeys, dprefix, D, dsteps, out_base, out_merged);
+        q, B, s0, nl, h1, h2, rec, M, ratio, keys, n, nm1f, steps, dkeys,
+        dprefix, D, dsteps, out_base, out_merged);
   } else {
     rmi_lookup_kernel<false><<<grid, threads, 0, st>>>(
-        q, B, s0, nl, h1, h2, leaf_w, leaf_b, err_lo, err_hi, M, ratio, keys,
-        n, nm1f, steps, nullptr, nullptr, 0, 0, out_base, nullptr);
+        q, B, s0, nl, h1, h2, rec, M, ratio, keys, n, nm1f, steps, nullptr,
+        nullptr, 0, 0, out_base, nullptr);
   }
   return (int)cudaGetLastError();
 }

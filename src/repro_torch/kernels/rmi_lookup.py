@@ -13,6 +13,11 @@ the delta search (a template flag):
     one prefix gather, emitting ``(base_lb, merged_rank)`` from one
     launch.  Replaces ``rmi_merged_lookup_pallas``.
 
+Both read a leaf as one (M, 4) float32 record (w, b, err_lo, err_hi):
+`core.rmi.pack_leaves` builds it, and callers that keep it pass its
+four column views (`RMIndex.as_tree` does); four separate arrays are
+packed into a fresh record on every call.
+
 For a CUDA tensor a wrapper launches the kernel (or raises); for a CPU
 tensor it runs the plain version in `kernels.ref`.  Each launch adds
 one to the wrapper's count in ``LAUNCHES``.
@@ -30,6 +35,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.models import pack_stage0, stage0_dims
+from repro_torch.core.rmi import LEAF_FIELDS, pack_leaves
 from repro_torch.core.search import _steps_for_window as _search_steps
 from repro_torch.kernels import nvcc, ref
 
@@ -53,6 +59,26 @@ def stage0_flat(params: Dict[str, np.ndarray], device) -> torch.Tensor:
     return torch.as_tensor(pack_stage0(params), device=device)
 
 
+def _leaf_record(leaf_w, leaf_b, err_lo, err_hi, dev):
+    """``(pointer, owner)`` of the (M, 4) record the kernel reads: the
+    record whose columns the four leaf arrays are (its bytes are then
+    exactly their elements; ``owner`` None), or a fresh `pack_leaves`
+    of them (``owner`` keeps it alive through the launch)."""
+    cols = (leaf_w, leaf_b, err_lo, err_hi)
+    m = leaf_w.shape[0]
+    for a, name in zip(cols, LEAF_FIELDS):
+        if a.device != dev or a.dtype != torch.float32 or a.ndim != 1 or a.shape[0] != m:
+            raise ValueError(f"{name} must be a 1-D float32 tensor on {dev} "
+                             f"of leaf_w's length {m}")
+    p = leaf_w.data_ptr()
+    if (p % 16 == 0 and leaf_b.data_ptr() == p + 4 and err_lo.data_ptr() == p + 8
+            and err_hi.data_ptr() == p + 12 and leaf_w.stride(0) == leaf_b.stride(0)
+            == err_lo.stride(0) == err_hi.stride(0) == 4):
+        return p, None
+    record = pack_leaves(*cols)
+    return record.data_ptr(), record
+
+
 def library_path():
     return nvcc.library_path(SOURCE)
 
@@ -67,7 +93,7 @@ def _declare(lib) -> None:
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.rmi_lookup_launch.argtypes = [
         p, i, p, i, i, i,           # q, B, s0, nl, h1, h2
-        p, p, p, p, i, f,           # leaf_w/b, err_lo/hi, M, ratio
+        p, i, f,                    # leaf record, M, ratio
         p, i, f, i,                 # keys, n, f32(n-1), steps
         p, p, i, i,                 # dkeys, dprefix, D, dsteps
         p, p, p,                    # out_base, out_merged, stream
@@ -102,15 +128,13 @@ def _launch(q, s0, leaf_w, leaf_b, err_lo, err_hi, sorted_keys,
     if leaf_w.shape[0] != num_leaves:
         raise ValueError("leaf arrays must hold num_leaves entries")
     f32, i32 = torch.float32, torch.int32
+    leaves, _owner = _leaf_record(leaf_w, leaf_b, err_lo, err_hi, dev)
     args = [nvcc.check_tensor(q, "q", f32, dev), q.shape[0],
             nvcc.check_tensor(s0, "stage0", f32, dev), len(hidden) + 1,
-            hidden[0] if hidden else 0, hidden[1] if len(hidden) > 1 else 0]
-    args += [nvcc.check_tensor(a, nm, f32, dev) for a, nm in (
-        (leaf_w, "leaf_w"), (leaf_b, "leaf_b"),
-        (err_lo, "err_lo"), (err_hi, "err_hi"))]
-    args += [num_leaves, float(np.float32(num_leaves / n)),
-             nvcc.check_tensor(sorted_keys, "sorted_keys", f32, dev), n,
-             float(np.float32(n - 1)), _search_steps(max_window)]
+            hidden[0] if hidden else 0, hidden[1] if len(hidden) > 1 else 0,
+            leaves, num_leaves, float(np.float32(num_leaves / n)),
+            nvcc.check_tensor(sorted_keys, "sorted_keys", f32, dev), n,
+            float(np.float32(n - 1)), _search_steps(max_window)]
     base = torch.empty(q.shape, dtype=i32, device=dev)
     if delta_keys is None:
         args += [None, None, 0, 0, base.data_ptr(), None]

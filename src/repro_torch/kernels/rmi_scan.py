@@ -3,12 +3,18 @@ PyTorch wrappers.
 
 ``rmi_scan_range_cuda`` — one launch ranks the endpoints of [lo, hi)
     and gathers every page of merged rows between them through the
-    prefix-sum page index.  Replaces the reference's
-    ``rmi_scan_range_pallas``.
-``rmi_sharded_scan_page_cuda`` — the range kernel's rank-to-row path
-    over S stacked shard slabs in one launch: each shard emits the
-    stream slots it owns, others come back masked.  Replaces
-    ``rmi_sharded_scan_page_pallas``.
+    prefix-sum page index, a tile of `RANGE_TILE` consecutive ranks a
+    block: it places each tile's first and last rank, stages the
+    spans of ``ins_rank`` and ``live_prefix`` between them in shared
+    memory (at most `RANGE_INS_CAP` and `RANGE_PREFIX_CAP` entries;
+    a longer span is searched in device memory) and finishes each
+    rank's searches there.  ``ins_rank`` and ``live_prefix`` must be
+    non-decreasing, as `device_scan_slab` builds them.  Replaces the
+    reference's ``rmi_scan_range_pallas``.
+``rmi_sharded_scan_page_cuda`` — rank to row through the prefix-sum
+    page index, lane by lane, over S stacked shard slabs in one launch:
+    each shard emits the stream slots it owns, others come back masked.
+    Replaces ``rmi_sharded_scan_page_pallas``.
 ``rmi_scan_page_cuda``  — rank-addressed pages by nested searches over
     the tombstoned base positions.  Replaces ``rmi_scan_page_pallas``.
 
@@ -30,6 +36,9 @@ from repro_torch.kernels import nvcc, ref
 
 SOURCE = nvcc.CSRC / "rmi_scan.cu"
 INT32_MAX = 2**31 - 1
+RANGE_TILE = 2048          # consecutive ranks a block resolves
+RANGE_INS_CAP = 1024       # ins_rank entries staged in shared memory
+RANGE_PREFIX_CAP = 4096    # live_prefix entries staged in shared memory
 
 # launches per wrapper; a plain integer each, bumped only where the
 # kernel is launched
@@ -53,7 +62,7 @@ def _declare(lib) -> None:
     lib.rmi_scan_range_launch.argtypes = [
         p, p, p, p, i,              # bounds, base, bvals, live_prefix, n
         p, p, p, i, i,              # ins, ivals, ins_rank, ni, lanes
-        i, i, i, i,                 # steps, isteps, psteps, msteps
+        i, i, i,                    # tile, ins_rank and live_prefix caps
         p, p, p, p,                 # out keys, vals, live, stream
     ]
     lib.rmi_scan_page_launch.argtypes = [
@@ -124,13 +133,12 @@ def rmi_scan_range_cuda(
     out = _outputs(max_pages, page_size, dev=dev)
     if lanes == 0:
         return out
-    steps, isteps, psteps, msteps = ref.trip_counts(n, ni, n + 1, ni)
     i32 = torch.int32
     err = nvcc.load(SOURCE, _declare).rmi_scan_range_launch(
         nvcc.check_tensor(bounds, "bounds", torch.float32, dev), bk, bv,
         nvcc.check_tensor(live_prefix, "live_prefix", i32, dev), n, ik, iv,
         nvcc.check_tensor(ins_rank, "ins_rank", i32, dev), ni, lanes,
-        steps, isteps, psteps, msteps, *(o.data_ptr() for o in out),
+        RANGE_TILE, RANGE_INS_CAP, RANGE_PREFIX_CAP, *(o.data_ptr() for o in out),
         torch.cuda.current_stream(dev).cuda_stream)
     nvcc.raise_on_error(err, "rmi_scan_range")
     LAUNCHES["rmi_scan_range_cuda"] += 1

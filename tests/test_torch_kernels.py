@@ -32,6 +32,7 @@ from repro.kernels.rmi_lookup import (  # noqa: E402
 from test_lookup_parity import DISTRIBUTIONS, _staged_delta  # noqa: E402
 
 from repro_torch import convert  # noqa: E402
+from repro_torch.core.rmi import pack_leaves  # noqa: E402
 from repro_torch.kernels import ref as port_ref  # noqa: E402
 from repro_torch.kernels import rmi_lookup  # noqa: E402
 
@@ -166,13 +167,16 @@ def test_cuda_kernels_match_plain_versions_on_card(hidden):
         q = _queries(pool, oor, batch, batch)
         arrs, kw = _port_args(idx, ks, q)
         darrs = tuple(a.to(dev) for a in arrs)
-        for dk, dp in deltas.values():
-            d = (torch.as_tensor(dk, device=dev), torch.as_tensor(dp, device=dev))
-            kb, km = rmi_lookup.rmi_merged_lookup_cuda(*darrs, *d, **kw)
-            pb, pm = port_ref.rmi_merged_lookup_reference(*darrs, *d, **kw)
-            assert torch.equal(kb, pb) and torch.equal(km, pm)
-        assert torch.equal(rmi_lookup.rmi_lookup_cuda(*darrs, **kw),
-                           port_ref.rmi_lookup_reference(*darrs, **kw))
+        # the leaf record read in place, as the snapshot's tree hands it out
+        rec = pack_leaves(*darrs[2:6]).unbind(1)
+        for args in (darrs, (*darrs[:2], *rec, darrs[6])):
+            for dk, dp in deltas.values():
+                d = (torch.as_tensor(dk, device=dev), torch.as_tensor(dp, device=dev))
+                kb, km = rmi_lookup.rmi_merged_lookup_cuda(*args, *d, **kw)
+                pb, pm = port_ref.rmi_merged_lookup_reference(*darrs, *d, **kw)
+                assert torch.equal(kb, pb) and torch.equal(km, pm)
+            assert torch.equal(rmi_lookup.rmi_lookup_cuda(*args, **kw),
+                               port_ref.rmi_lookup_reference(*darrs, **kw))
         torch.cuda.synchronize()
 
 

@@ -220,6 +220,48 @@ def _bounds(base, pv):
 CASES = ["empty", "tombstones", "inserts", "mixed", "pow2"]
 
 
+def _lowered(base_raw, ins_raw, dels, seed=3):
+    """One staged state lowered for the scan kernels, as `_kernel_case`
+    lowers it: ``(norm, base, bvals, (ins, ins_vals, ins_rank,
+    live_prefix), (plan ins, plan vals, del_pos), live rows)``, random
+    payloads."""
+    rng = np.random.default_rng(seed)
+    snap = types.SimpleNamespace(keys=types.SimpleNamespace(raw=base_raw),
+                                 vals=rng.integers(-(1 << 40), 1 << 40, base_raw.size))
+    buf = DeltaBuffer.from_arrays(ins_raw, rng.integers(1, 1 << 30, ins_raw.size), dels,
+                                  ins_raw.size + dels.size + 1)
+    view = port_scan.pin_view(snap, None, buf)
+    norm = _normalizer(*port_scan.fit_scan_frame([view]))
+    base = norm(view.base_keys)
+    bvals = np.clip(view.base_vals, -2**31, 2**31 - 1).astype(np.int32)
+    return (norm, base, bvals, port_scan.device_scan_slab(view, base, norm),
+            port_scan.device_scan_plan(view, norm), view.live_count)
+
+
+def _dense_card_case(case):
+    """60k base keys, sized for the range kernel's own tiles and
+    buffers: ranges that cross many tiles ("tile_crossing"), or a
+    tombstone run and an insert cluster longer than its buffers
+    ("dense_tombstones").  Returns `_lowered`'s arrays, bounds and page
+    starts."""
+    rng = np.random.default_rng(7)
+    base_raw = np.unique(rng.uniform(0, 1e6, 60_000))
+    if case == "tile_crossing":
+        ins = np.setdiff1d(np.unique(rng.uniform(0, 1e6, 3000)), base_raw)
+        dels = np.sort(rng.choice(base_raw, 3000, replace=False))
+    else:
+        ins = np.setdiff1d(np.unique(np.concatenate([
+            base_raw[5000] + rng.uniform(0, 1e-3, 3 * rmi_scan.RANGE_INS_CAP),
+            rng.uniform(0, 1e6, 500)])), base_raw)
+        dels = base_raw[10_000:10_000 + 3 * rmi_scan.RANGE_PREFIX_CAP]
+    norm, base, bvals, slab, plan, live = _lowered(base_raw, ins, dels)
+    bounds = [norm(np.array(b)) for b in (
+        (-1.0, 2e6), (base_raw[4990], base_raw[40_000]), (base_raw[10_100], 1e6),
+        (base_raw[9000], base_raw[100]), (base_raw[7], base_raw[7]))]
+    starts = np.array([-7, 0, 1, live // 2, live - 5, live, 2**31 - 9], np.int32)
+    return base, bvals, slab, plan, live, bounds, starts
+
+
 @pytest.mark.parametrize("case", CASES)
 def test_scan_range_twin_matches_reference(case):
     base, bvals, slab, _, pv = _kernel_case(case)
@@ -501,19 +543,24 @@ def test_stats_summary_and_instrumentation():
 # --------------------------------------------------------------------------
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("case", CASES)
+@pytest.mark.parametrize("case", CASES + ["tile_crossing", "dense_tombstones"])
 def test_cuda_scan_kernels_match_plain_twins_on_card(case):
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA card")
     dev = torch.device("cuda")
-    base, bvals, slab, plan, pv = _kernel_case(case)
-    bounds, starts = _bounds(base, pv)
+    if case in CASES:
+        base, bvals, slab, plan, pv = _kernel_case(case)
+        bounds, starts = _bounds(base, pv)
+        bounds, live = list(bounds.values()), pv.live_count
+    else:
+        base, bvals, slab, plan, live, bounds, starts = _dense_card_case(case)
     t = lambda a: torch.as_tensor(np.asarray(a), device=dev)  # noqa: E731
     rng_args = [t(a) for a in (base, bvals, slab[3], slab[0], slab[1], slab[2])]
-    page_args = [t(a) for a in (base, bvals, *plan, np.array([pv.live_count], np.int32))]
+    page_args = [t(a) for a in (base, bvals, *plan, np.array([live], np.int32))]
     for page_size in PAGE_SIZES:
-        for b in bounds.values():
-            kw = dict(page_size=page_size, max_pages=MAX_PAGES)
+        pages = MAX_PAGES if case in CASES else -(-live // page_size) + 2
+        for b in bounds:
+            kw = dict(page_size=page_size, max_pages=pages)
             got = rmi_scan.rmi_scan_range_cuda(t(np.asarray(b, np.float32)), *rng_args, **kw)
             want = port_ref.rmi_scan_range_reference(t(np.asarray(b, np.float32)), *rng_args, **kw)
             assert all(torch.equal(x, y) for x, y in zip(got, want))
