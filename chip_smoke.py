@@ -25,11 +25,14 @@ is non-zero:
                base keys, NaN / inverted / out-of-span bounds, negative
                and wrapping page starts, unpadded power-of-two deltas, a
                tombstone run and an insert cluster longer than the range
-               kernel's shared-memory buffers); the sharded lookup and
+               kernel's shared-memory buffers; for the page kernel also
+               pages past the live count, a page across the int32 wrap
+               and a single page); the sharded lookup and
                scan at S in {1, 3, 4} unequal shards (empty, staged and
                unpadded deltas, stride-0 rows, page sizes 256 / 160 / 1,
-               and for the scan a tombstone run over half of each of
-               three shards); the §4 hash probe on Maps,
+               and for the scan raw owners whose tiles wrap int32 or own
+               nothing, and a tombstone run over half of each of three
+               shards with an insert cluster); the §4 hash probe on Maps,
                Lognormal and Weblogs maps at 50k keys and slot ratios
                0.75 / 1.0 / 1.25 and a map with no overflow (stored,
                absent, float32-equal, NaN, infinite and out-of-span
@@ -86,6 +89,8 @@ is non-zero:
                the host build of the scan slab (`scan.pack_slab`); the
                sharded lookup at S = 4 x 1<<20 queries and the sharded
                scan at 1<<20 and 1<<22 rows, on the staged sharded index;
+               the page kernel also at a single page (G = 1), held
+               against its plain version at both shapes;
                both probes at 1<<20 and 1<<24 queries (bound: the 32-byte
                sectors their gathers touch), screened contains keys/s;
                the attention kernel's row comes from the LM phase.
@@ -378,8 +383,11 @@ def compare_scan_kernels(rng, device, record):
     than the range kernel's `live_prefix` buffer and an insert cluster
     longer than its `ins_rank` buffer (ranges over them cross many of its
     tiles); NaN, inverted, infinite and out-of-span bounds; page starts
-    that are negative, past the end or wrap int32.  Returns the max
-    |kernel - plain|."""
+    that are negative, past the end or wrap int32, consecutive pages over
+    every live rank (tiles of the page kernel inside the tombstone run
+    and the insert cluster), pages past the live count under an end
+    rank past it, a page across the int32 wrap and a single page (G = 1)
+    in the cluster.  Returns the max |kernel - plain|."""
     import torch
     from repro_torch.core import make_keyset
     from repro_torch.data import gen_maps
@@ -432,7 +440,37 @@ def compare_scan_kernels(rng, device, record):
                       [ks.norm[a - 10], ks.norm[n - a]]]
             starts = np.array([-7, 0, 1, live // 2, live - 3, live, live + 99,
                                2**31 - 9], np.int32)
+            # the page kernel's cases: (starts, end_rank).  The edge starts,
+            # then consecutive pages over every live rank (its tiles cross
+            # the dense delta's tombstone run and insert cluster); pages
+            # past the live count under an end rank past it; a page across
+            # the int32 wrap under end rank INT32_MAX; one page (G = 1)
+            # inside the insert cluster
+            cluster = int(view.rank(raw[c:c + 1])[0])
             for page_size in SCAN_PAGE_SIZES:
+                run = (page_size * np.arange(-(-live // page_size) + 2)).astype(np.int64)
+                page_cases = {
+                    "edges_and_run": (np.concatenate([starts, run]), live),
+                    "past_live": (live - 5 + page_size * np.arange(-(-3005 // page_size) + 1),
+                                  live + 3000),
+                    "int32_wrap": (np.array([2**31 - 100, -page_size // 2, 2**31 - 9]),
+                                   2**31 - 1),
+                    "one_page": (np.array([cluster - page_size // 2]), live),
+                }
+                for pname, (pstarts, end) in page_cases.items():
+                    st = t(np.asarray(pstarts).astype(np.int32))
+                    endt = t(np.array([end], np.int32))
+                    got = rmi_scan_page_cuda(st, base, bv, *plan, endt, page_size=page_size)
+                    want = ref.rmi_scan_page_reference(st, base, bv, *plan, endt,
+                                                       page_size=page_size)
+                    err = scan_mismatch(got, want)
+                    worst = max(worst, err)
+                    check(err == 0,
+                          f"scan_page kernel != plain: {label}/{dname}/{pname}/{page_size}")
+                endt = t(np.array([live], np.int32))
+                empty = rmi_scan_page_cuda(t(np.empty(0, np.int32)), base, bv, *plan, endt,
+                                           page_size=page_size)
+                check(all(tuple(e.shape) == (0, page_size) for e in empty), "G = 0 pages")
                 pages = min(-(-live // page_size) + 2, 4096)
                 for b in bounds:
                     bt = t(np.asarray(b, np.float32))
@@ -442,17 +480,6 @@ def compare_scan_kernels(rng, device, record):
                     err = scan_mismatch(got, want)
                     worst = max(worst, err)
                     check(err == 0, f"scan_range kernel != plain: {label}/{dname}/{b}/{page_size}")
-                run = np.concatenate([starts, (page_size * np.arange(pages)).astype(np.int32)])
-                endt = t(np.array([live], np.int32))
-                got = rmi_scan_page_cuda(t(run), base, bv, *plan, endt, page_size=page_size)
-                want = ref.rmi_scan_page_reference(t(run), base, bv, *plan, endt,
-                                                   page_size=page_size)
-                err = scan_mismatch(got, want)
-                worst = max(worst, err)
-                check(err == 0, f"scan_page kernel != plain: {label}/{dname}/{page_size}")
-                empty = rmi_scan_page_cuda(t(np.empty(0, np.int32)), base, bv, *plan, endt,
-                                           page_size=page_size)
-                check(all(tuple(e.shape) == (0, page_size) for e in empty), "G = 0 pages")
             torch.cuda.synchronize()
             record.append({"index": label, "delta": dname, "staged_ins": int(ins.size),
                            "tombstones": int(dels.size), "max_abs_err": worst})
@@ -822,13 +849,15 @@ def compare_sharded_scan_kernel(rng, device, record):
     and raw (adversarial owners, an int32-wrapping local rank): S in
     {1, 3, 4} shard slabs with staged inserts (some tying base keys in
     float32) and tombstones; NaN, inverted, infinite and out-of-span
-    bounds; page sizes 256, 160 and 1; and S = 3 again with a run of
-    tombstones over half of each shard."""
+    bounds; page sizes 256, 160 and 1; raw owners whose tiles wrap
+    int32, start mid-tile or own nothing; and S = 3 again with a run of
+    tombstones over half of each shard and an insert cluster longer than
+    a tile's `ins_rank` buffer."""
     import torch
     from repro_torch.data import gen_maps
     from repro_torch.index_service.scan import stack_scan_slabs
     from repro_torch.kernels import ops, ref
-    from repro_torch.kernels.rmi_scan import rmi_sharded_scan_page_cuda
+    from repro_torch.kernels.rmi_scan import RANGE_INS_CAP, rmi_sharded_scan_page_cuda
 
     t = lambda a: torch.as_tensor(np.ascontiguousarray(a), device=device)  # noqa: E731
     raw = gen_maps(SMALL_N, seed=6)
@@ -844,6 +873,10 @@ def compare_sharded_scan_kernel(rng, device, record):
             ins = np.unique(np.concatenate([fresh, ties]))
             dels = (part[part.size // 4:part.size * 3 // 4] if dense
                     else np.sort(rng.choice(part, 500, replace=False)))
+            if dense:   # and an insert cluster longer than a tile's ins_rank buffer
+                c = part.size * 7 // 8
+                ins = np.union1d(ins, _absent(part, part[c] + rng.uniform(
+                    0, part[c + 1] - part[c], 2 * RANGE_INS_CAP)))
             views.append(_pin_arrays(part, rng.integers(-(1 << 40), 1 << 40, part.size), ins,
                                      rng.integers(1, 1 << 31, ins.size), dels))
         p = stack_scan_slabs(views)
@@ -863,14 +896,22 @@ def compare_sharded_scan_kernel(rng, device, record):
                 err = scan_mismatch(got, want)
                 worst = max(worst, err)
                 check(err == 0, f"sharded scan kernel != plain: S{S}/{(lo, hi)}/{page_size}")
-            owners = [t(np.array(a, np.int32)[:S]) for a in (
-                [0, 2**31 - 5, 7, live // 2], [0, 300, 600, 900],
-                [300, 600, 900, 2**31 - 1])]
-            kw = dict(page_size=page_size, max_pages=min(pages, 64))
-            err = scan_mismatch(rmi_sharded_scan_page_cuda(*slabs, *owners, **kw),
-                                ref.rmi_sharded_scan_page_reference(*slabs, *owners, **kw))
-            worst = max(worst, err)
-            check(err == 0, f"raw sharded scan kernel != plain: S{S}/{page_size}")
+            # raw owners: local ranks that wrap int32 inside a tile (in the
+            # first tile, and from slot 3,000 on), one just above INT32_MIN
+            # (t - j + 1 would wrap), a negative first slot, an inverted
+            # span, spans owned from mid-tile
+            kw = dict(page_size=page_size, max_pages=-(-6000 // page_size))
+            for raw_owners in (([0, 2**31 - 5, 7, live // 2], [0, 300, 600, 900],
+                                [300, 600, 900, 2**31 - 1]),
+                               ([-2**31 + 2, 2**31 - 3000, 2**31 - 40, 0],
+                                [-50, 0, 200, 901], [333, 5000, 901, 5000]),
+                               ([11, 0, 5, 0], [333, 0, 2**31 - 1, 100], [200, 4000, 0, 6000])):
+                owners = [t(np.array(a, np.int32)[:S]) for a in raw_owners]
+                err = scan_mismatch(rmi_sharded_scan_page_cuda(*slabs, *owners, **kw),
+                                    ref.rmi_sharded_scan_page_reference(*slabs, *owners, **kw))
+                worst = max(worst, err)
+                check(err == 0, f"raw sharded scan kernel != plain: S{S}/{page_size}/"
+                                f"{raw_owners[0][:S]}")
         torch.cuda.synchronize()
         record.append({"S": S, "dense_tombstones": dense, "live": int(live),
                        "max_abs_err": worst})
@@ -2301,6 +2342,13 @@ def run_single(args, base, rng, dev, card, record, worst, scan_worst):
                                  reps=5, warmup=1)
         row["page_plain_ms"] = time_ms(
             lambda: ref.rmi_scan_page_reference(*pargs, page_size=page), reps=2, warmup=1)
+        one = (starts[:1], *pargs[1:])   # a single page (G = 1): the pre-pass and one tile
+        row["page_g1_ms"] = time_ms(lambda: rmi_scan_page_cuda(*one, page_size=page))
+        row["page_max_abs_err"] = max(
+            scan_mismatch(rmi_scan_page_cuda(*a, page_size=page),
+                          ref.rmi_scan_page_reference(*a, page_size=page)) for a in (pargs, one))
+        check(row["page_max_abs_err"] == 0.0,
+              f"phase 4: scan page kernel != plain version at {w} rows")
         slab_bytes = 4 * (ins_t.numel() + ivals_t.numel() + irank_t.numel()) + 8
         plan_bytes = 4 * sum(int(a.numel()) for a in plan_t) + 4 * g + 4
         row["range_bound_ms"] = scan_bound_bytes(
@@ -2321,6 +2369,7 @@ def run_single(args, base, rng, dev, card, record, worst, scan_worst):
           "pack_slab_s": pack_slab_s, "staged_inserts": int(staged["ins_n"]),
           "tombstones": int(dels.size)})
 
+    scan_worst = max([scan_worst] + [r["page_max_abs_err"] for r in scan_times])
     return {"times": times, "scan_times": scan_times, "launches": launches,
             "worst": worst, "scan_worst": scan_worst, "n": int(ks0.n),
             "snapshot_sharded": snapshot_sharded, "bloom_times": bloom_times,
@@ -2357,8 +2406,9 @@ def main(argv=None) -> int:
         libs = list(pool.map(lambda m: m.build(),
                              (rmi_lookup, rmi_scan, hash_probe, flash_attention)))
     build_s = time.perf_counter() - t0
-    # the range kernel's tile and shared-memory buffers (dynamic shared
-    # memory, which ptxas does not report); the lookups take none
+    # the scan kernels' tile and shared-memory buffers (dynamic shared
+    # memory, which ptxas does not report; the range, page and sharded
+    # kernels take the same); the lookups take none
     tiles = {"rmi_scan": {"range_tile": rmi_scan.RANGE_TILE,
                           "range_ins_cap": rmi_scan.RANGE_INS_CAP,
                           "range_prefix_cap": rmi_scan.RANGE_PREFIX_CAP,

@@ -15,42 +15,64 @@
 // rmi_sharded_scan_kernel replaces
 //   rmi_sharded_scan_page_pallas (src/repro/kernels/rmi_lookup.py:605,
 //                                 body _sharded_scan_kernel at :564)
-// One thread per (shard, output lane), the shard on blockIdx.y: a lane
-// owns global stream slot t when own_lo <= t < own_hi of its shard, and
-// resolves the shard-local rank ls0 + t - own_lo (int32, wrapping like
-// the reference) through the per-lane fixed-trip searches of
-// rows_from_index, against its own shard's slab row; other lanes emit
-// (+inf, 0, dead).  The caller reduces min/sum/max over the shards.
+// A block resolves one tile of stream slots of one shard (the shard on
+// blockIdx.y).  Shard s owns the slots own_lo <= t < own_hi and
+// resolves them at shard-local rank ls0 + t - own_lo (int32, wrapping
+// like the reference) through its own slab row, as the range kernel
+// does; other slots come back (+inf, 0, dead).  The caller reduces
+// min/sum/max over the shards.
 //
 // rmi_scan_page_kernel replaces
 //   rmi_scan_page_pallas  (src/repro/kernels/rmi_lookup.py:336,
 //                          body _scan_page_kernel at :301 and
 //                          _scan_page_body at :219)
-// It takes explicit page start ranks and resolves each lane's rank by
-// nested searches over the tombstoned base positions: the partition
-// runs isteps trips of (base lower bound + del_pos lower bound), the
-// select runs steps trips of a del_pos lower bound.
+// It takes explicit page start ranks.  The reference resolves each lane
+// by nested searches over the tombstoned base positions: a partition of
+// isteps trips, each a base lower bound and a del_pos lower bound, then
+// a select of steps trips, each a del_pos lower bound.  Both searches
+// are lower bounds in arrays that are non-decreasing, so this kernel
+// reads them from two arrays that a pre-pass (rmi_scan_page_prepass)
+// writes once per call:
+//   rank_of_ins[m] = m + bl - lb(del_pos, bl), bl = lb(base, ins[m])
+//     (the partition's predicate is rank_of_ins[mid] >= t, so its j is
+//     lb(rank_of_ins, t); pad slots see ins = +inf, as in the
+//     reference);
+//   gap[m] = del_pos[m] - m for a tombstone (< n), INT_MAX for a pad
+//     (the u-th live base position, u = t - j + 1, is
+//     u - 1 + lb(gap, u), clamped to [0, n] exactly where the
+//     reference's select saturates).
+// del_pos must hold distinct sorted positions below n, then pads of n,
+// as `device_scan_plan` builds it.
 //
-// What bounds the range kernel on this card: the bytes of the rows in
-// range (base key, value and live_prefix entry read, three outputs
-// written), once the chain of dependent searches that places the first
-// row is paid.  Lane by lane, that chain is msteps + psteps (about 48 at
-// 195M keys) dependent gathers, repeated by every warp.  The design pays
-// it once a tile of consecutive ranks, one tile a block: a
-// warp-cooperative 33-ary search (one gather a lane, a ballot, about 6
-// rounds over 195M entries) ranks the endpoints, then places the tile's
-// first and last valid rank at (j, p).  Lower bounds in a non-decreasing
-// array are unique and monotone, so every rank of the tile has its j in
-// [j_first, j_last] and its p in [p_first, p_last].  Those spans of
-// ins_rank and live_prefix are loaded into shared memory with coalesced
-// loads, each lane finishes its searches there and emits its rows
-// coalesced.  A span longer than its buffer (a tombstone-dense tile, an
-// insert-dense one) is searched in device memory, narrowed to the span.
-// ins_rank and live_prefix must be non-decreasing, as `device_scan_slab`
-// builds them.  A persistent grid (blocks looping over tiles) measured
-// the same and is not used.  The page and sharded kernels chain their
-// searches lane by lane; the page kernel is slow by design and stays as
-// the cross-check of the range kernel's rows.
+// What bounds these kernels on this card: the bytes of the rows in range
+// (base key, value and index entry read, three outputs written), once
+// the chain of dependent searches that places the first row is paid.
+// Lane by lane, that chain is msteps + psteps (about 48 at 195M keys)
+// dependent gathers for the range and sharded kernels, and about 1,650
+// for the reference's nested page searches.  The design pays it once a
+// tile, one tile a block: a warp-cooperative 33-ary search (one gather
+// a lane, a ballot, about 6 rounds over 195M entries) places the
+// tile's least and greatest rank t at (j, k) in the two index arrays.
+// Lower bounds in a non-decreasing array are monotone, so every rank
+// of the tile has its j in [j_least, j_greatest] and its k in
+// [k_least, k_greatest].  Those spans are loaded into shared memory
+// with coalesced loads (place_spans), each lane finishes its searches
+// there (finish_rank) and emits its rows coalesced.  A span longer than
+// its buffer (a tombstone-dense tile, an insert-dense one, pages whose
+// starts lie far apart) is searched in device memory, narrowed to the
+// span.  The index arrays (ins_rank and live_prefix, rank_of_ins and
+// gap) must be non-decreasing, as `device_scan_slab` builds the first
+// two and the pre-pass the other two.
+//   Range kernel: a tile is 2,048 consecutive ranks.  Sharded kernel:
+// a tile is 2,048 consecutive stream slots of one shard; a tile that
+// owns no slot writes dead rows and searches nothing, and a tile whose
+// owned local ranks (or t - j + 1) would wrap int32, which only
+// adversarial owners reach, chains its searches lane by lane
+// (rows_from_index).  Page kernel: a tile is the whole pages that hold
+// about 2,048 lanes (one page when a page holds more), its span placed
+// from the least and greatest valid rank of those pages.  A persistent
+// grid (blocks looping over tiles) measured the same for the range
+// kernel and is not used.
 //
 // Every gather index is clipped exactly where the reference clips it: a
 // load out of bounds is not clamped on the card.  int32 sums that can
@@ -60,6 +82,7 @@
 #include <cuda_runtime.h>
 #include <math_constants.h>
 #include <stdint.h>
+#include <limits.h>
 
 __device__ __forceinline__ int wadd(int a, int b) {
   return (int)((unsigned)a + (unsigned)b);
@@ -166,6 +189,66 @@ __device__ __forceinline__ int span_lower_bound(const T* arr, T q, int size) {
   return lo;
 }
 
+// Where the ranks of one tile search two non-decreasing index arrays:
+// j = lb(A, t) lies in [jf, jf + jn], k = lb(B, t - j + 1) in
+// [kf, kf + kn]; a span that fits its buffer is staged there.
+struct Spans {
+  int jf, jn, kf, kn;
+  bool a_staged, b_staged;
+};
+
+// Every thread of the block calls it, with the least and greatest rank
+// ta <= tb of the tile (t - j + 1 must not wrap int32 for a rank in
+// [ta, tb]).  Warps 0 and 1 place the two ends, all threads stage.
+__device__ __forceinline__ Spans place_spans(const int* __restrict__ A, int na,
+                                             const int* __restrict__ B, int nb,
+                                             int ta, int tb, int* a_buf,
+                                             int acap, int* b_buf, int bcap) {
+  __shared__ int edge[4];   // jf, j of tb, kf, k of tb's end
+  const int warp = threadIdx.x >> 5;
+  const int wl = threadIdx.x & 31;
+  if (warp < 2) {
+    int j = warp_lower_bound(A, warp ? tb : ta, 0, na);
+    if (wl == 0) edge[warp] = j;
+  }
+  __syncthreads();
+  if (warp < 2) {
+    int u = warp ? wadd(wsub(tb, edge[0]), 1) : wadd(wsub(ta, edge[1]), 1);
+    int k = warp_lower_bound(B, u, 0, nb);
+    if (wl == 0) edge[2 + warp] = k;
+  }
+  __syncthreads();
+  Spans s;
+  s.jf = edge[0];
+  s.jn = edge[1] - edge[0];
+  s.kf = edge[2];
+  s.kn = edge[3] - edge[2];
+  s.a_staged = s.jn <= acap;
+  s.b_staged = s.kn <= bcap;
+  if (s.a_staged)
+    for (int i = threadIdx.x; i < s.jn; i += blockDim.x)
+      a_buf[i] = __ldg(A + s.jf + i);
+  if (s.b_staged)
+    for (int i = threadIdx.x; i < s.kn; i += blockDim.x)
+      b_buf[i] = __ldg(B + s.kf + i);
+  __syncthreads();
+  return s;
+}
+
+// One rank t of the tile: j = lb(A, t), u = t - j + 1, k = lb(B, u),
+// searched inside the spans (staged, or in device memory).
+__device__ __forceinline__ void finish_rank(const Spans& s,
+                                            const int* __restrict__ A,
+                                            const int* __restrict__ B,
+                                            const int* a_buf, const int* b_buf,
+                                            int t, int& j, int& u, int& k) {
+  j = s.jf + (s.a_staged ? span_lower_bound(a_buf, t, s.jn)
+                         : span_lower_bound(A + s.jf, t, s.jn));
+  u = wadd(wsub(t, j), 1);
+  k = s.kf + (s.b_staged ? span_lower_bound(b_buf, u, s.kn)
+                         : span_lower_bound(B + s.kf, u, s.kn));
+}
+
 // Block b resolves lanes [b * tile, (b + 1) * tile) of the range, with
 // `icap` ins_rank and `pcap` live_prefix entries of shared memory.
 __global__ void __launch_bounds__(SCAN_THREADS)
@@ -179,10 +262,7 @@ rmi_scan_range_kernel(const float* __restrict__ bounds,
                       int tile, int icap, int pcap, float* __restrict__ out_k,
                       int* __restrict__ out_v, int* __restrict__ out_live) {
   extern __shared__ int span_buf[];
-  int* ins_span = span_buf;
-  int* lp_span = span_buf + icap;
   __shared__ int part[4];   // lb(base, b0), lb(ins, b0), lb(base, b1), lb(ins, b1)
-  __shared__ int edge[4];   // j_first, j_last, p_first, p_last of the tile
   const int warp = threadIdx.x >> 5;
   const int wl = threadIdx.x & 31;
 
@@ -203,38 +283,14 @@ rmi_scan_range_kernel(const float* __restrict__ bounds,
   const int l1 = (int)min((long long)lanes, l0 + tile);
   const int v1 = (int)min((long long)l1, max((long long)r1 - r0, l0));
   if (v1 > l0) {
-    // ---- the tile's first and last valid rank -> (j, p) ----------------
-    const int ta = wadd(r0, (int)l0), tb = wadd(r0, v1 - 1);
-    if (warp < 2) {
-      int j = warp_lower_bound(ins_rank, warp ? tb : ta, 0, ni);
-      if (wl == 0) edge[warp] = j;
-    }
-    __syncthreads();
-    if (warp < 2) {
-      int u = warp ? wadd(wsub(tb, edge[0]), 1) : wadd(wsub(ta, edge[1]), 1);
-      int p = warp_lower_bound(live_prefix, u, 0, n + 1);
-      if (wl == 0) edge[2 + warp] = p;
-    }
-    __syncthreads();
-    // ---- every rank's j in [jf, jf + jn], its p + 1 in [pf, pf + pn] ---
-    const int jf = edge[0], jn = edge[1] - edge[0];
-    const int pf = edge[2], pn = edge[3] - edge[2];
-    const bool ins_in_smem = jn <= icap, lp_in_smem = pn <= pcap;
-    if (ins_in_smem)
-      for (int k = threadIdx.x; k < jn; k += SCAN_THREADS)
-        ins_span[k] = __ldg(ins_rank + jf + k);
-    if (lp_in_smem)
-      for (int k = threadIdx.x; k < pn; k += SCAN_THREADS)
-        lp_span[k] = __ldg(live_prefix + pf + k);
-    __syncthreads();
+    const Spans sp = place_spans(ins_rank, ni, live_prefix, n + 1,
+                                 wadd(r0, (int)l0), wadd(r0, v1 - 1), span_buf,
+                                 icap, span_buf + icap, pcap);
     for (int lane = (int)l0 + threadIdx.x; lane < v1; lane += SCAN_THREADS) {
-      int t = wadd(r0, lane);
-      int j = jf + (ins_in_smem ? span_lower_bound(ins_span, t, jn)
-                                : span_lower_bound(ins_rank + jf, t, jn));
-      int u = wadd(wsub(t, j), 1);
-      int p = pf - 1 + (lp_in_smem ? span_lower_bound(lp_span, u, pn)
-                                   : span_lower_bound(live_prefix + pf, u, pn));
-      emit(true, p, j, base, bvals, n, ins, ivals, ni, lane, out_k, out_v,
+      int j, u, k;
+      finish_rank(sp, ins_rank, live_prefix, span_buf, span_buf + icap,
+                  wadd(r0, lane), j, u, k);
+      emit(true, k - 1, j, base, bvals, n, ins, ivals, ni, lane, out_k, out_v,
            out_live);
     }
   }
@@ -244,7 +300,8 @@ rmi_scan_range_kernel(const float* __restrict__ bounds,
 }
 
 // Slabs (S, n), (S, n + 1) and (S, ni) row-major; outputs (S, lanes).
-__global__ void __launch_bounds__(256)
+// Block (b, s) resolves stream slots [b * tile, (b + 1) * tile) of shard s.
+__global__ void __launch_bounds__(SCAN_THREADS)
 rmi_sharded_scan_kernel(const float* __restrict__ base,
                         const int* __restrict__ bvals,
                         const int* __restrict__ live_prefix, int n,
@@ -253,64 +310,144 @@ rmi_sharded_scan_kernel(const float* __restrict__ base,
                         const int* __restrict__ ins_rank, int ni,
                         const int* __restrict__ ls0,
                         const int* __restrict__ own_lo,
-                        const int* __restrict__ own_hi, int lanes, int psteps,
-                        int msteps, float* __restrict__ out_k,
-                        int* __restrict__ out_v, int* __restrict__ out_live) {
-  int lane = blockIdx.x * blockDim.x + threadIdx.x;
-  if (lane >= lanes) return;
-  long long s = blockIdx.y;
-  int lo = __ldg(own_lo + s);
-  bool owner = lane >= lo && lane < __ldg(own_hi + s);
-  int t = wadd(__ldg(ls0 + s), wsub(lane, lo));
-  long long o = s * lanes;
-  rows_from_index(t, owner, base + s * n, bvals + s * n,
-                  live_prefix + s * (n + 1), n, ins + s * ni, ivals + s * ni,
-                  ins_rank + s * ni, ni, psteps, msteps, lane, out_k + o,
-                  out_v + o, out_live + o);
+                        const int* __restrict__ own_hi, int lanes, int tile,
+                        int icap, int pcap, int psteps, int msteps,
+                        float* __restrict__ out_k, int* __restrict__ out_v,
+                        int* __restrict__ out_live) {
+  extern __shared__ int span_buf[];
+  const long long s = blockIdx.y;
+  base += s * n;
+  bvals += s * n;
+  live_prefix += s * (n + 1);
+  ins += s * ni;
+  ivals += s * ni;
+  ins_rank += s * ni;
+  out_k += s * lanes;
+  out_v += s * lanes;
+  out_live += s * lanes;
+  const int lo = __ldg(own_lo + s), hi = __ldg(own_hi + s), r = __ldg(ls0 + s);
+  const int l0 = blockIdx.x * tile;
+  const int l1 = (int)min((long long)lanes, (long long)l0 + tile);
+  // owned slots [oa, ob) of the tile, at local ranks ta + (lane - oa)
+  const int oa = max(l0, lo), ob = min(l1, hi);
+  const int ta = (int)((unsigned)r + (unsigned)oa - (unsigned)lo);
+  const long long tb = (long long)ta + (ob - 1 - oa);
+  if (oa < ob && (ta < INT_MIN + ni - 1 || tb > INT_MAX - 1)) {
+    // local ranks (or t - j + 1) wrap int32 inside the tile: chain lane by lane
+    for (int lane = l0 + threadIdx.x; lane < l1; lane += SCAN_THREADS)
+      rows_from_index((int)((unsigned)r + (unsigned)lane - (unsigned)lo),
+                      lane >= lo && lane < hi, base, bvals, live_prefix, n,
+                      ins, ivals, ins_rank, ni, psteps, msteps, lane, out_k,
+                      out_v, out_live);
+    return;
+  }
+  if (oa < ob) {
+    const Spans sp = place_spans(ins_rank, ni, live_prefix, n + 1, ta, (int)tb,
+                                 span_buf, icap, span_buf + icap, pcap);
+    for (int lane = oa + threadIdx.x; lane < ob; lane += SCAN_THREADS) {
+      int j, u, k;
+      finish_rank(sp, ins_rank, live_prefix, span_buf, span_buf + icap,
+                  ta + (lane - oa), j, u, k);
+      emit(true, k - 1, j, base, bvals, n, ins, ivals, ni, lane, out_k, out_v,
+           out_live);
+    }
+  }
+  // slots this shard does not own (the whole tile when it owns none)
+  for (int lane = l0 + threadIdx.x; lane < l1; lane += SCAN_THREADS)
+    if (lane < oa || lane >= ob)
+      emit(false, 0, 0, base, bvals, n, ins, ivals, ni, lane, out_k, out_v,
+           out_live);
 }
 
-__global__ void __launch_bounds__(256)
-rmi_scan_page_kernel(const int* __restrict__ starts, int page_size,
-                     const float* __restrict__ base,
+// One thread per insert slot and per del_pos slot: the page kernel's two
+// index arrays (see the head comment).
+__global__ void __launch_bounds__(SCAN_THREADS)
+rmi_scan_page_prepass(const float* __restrict__ base, int n,
+                      const float* __restrict__ ins, int ni,
+                      const int* __restrict__ del_pos, int nd, int steps,
+                      int dsteps, int* __restrict__ rank_of_ins,
+                      int* __restrict__ gap) {
+  const int m = blockIdx.x * blockDim.x + threadIdx.x;
+  if (m < ni) {
+    int bl = lower_bound(base, __ldg(ins + m), n, steps);
+    int dl = lower_bound(del_pos, bl, nd, dsteps);
+    rank_of_ins[m] = wadd(m, bl - dl);
+  }
+  if (m < nd) {
+    int d = __ldg(del_pos + m);
+    gap[m] = d < n ? d - m : INT_MAX;
+  }
+}
+
+// Block b resolves pages [b * ppt, (b + 1) * ppt): their lanes' ranks
+// t = starts[g] + lane, valid in [0, end_rank), through rank_of_ins
+// (`icap` entries of shared memory) and gap (`dcap`).
+__global__ void __launch_bounds__(SCAN_THREADS)
+rmi_scan_page_kernel(const int* __restrict__ starts, int pages, int page_size,
+                     int ppt, const float* __restrict__ base,
                      const int* __restrict__ bvals, int n,
                      const float* __restrict__ ins,
                      const int* __restrict__ ivals, int ni,
-                     const int* __restrict__ del_pos, int nd,
-                     const int* __restrict__ end_rank, int lanes, int steps,
-                     int isteps, int dsteps, float* __restrict__ out_k,
-                     int* __restrict__ out_v, int* __restrict__ out_live) {
-  int lane = blockIdx.x * blockDim.x + threadIdx.x;
-  if (lane >= lanes) return;
-  int t = wadd(__ldg(starts + lane / page_size), lane % page_size);
-
-  // ---- partition: staged inserts among the first t merged rows -------
-  int lo = 0, hi = ni;
-  for (int s = 0; s < isteps; ++s) {
-    int mid = (lo + hi) >> 1;
-    float ck = mid >= ni ? CUDART_INF_F : __ldg(ins + clipi(mid, 0, ni - 1));
-    int bl = lower_bound(base, ck, n, steps);
-    int dl = lower_bound(del_pos, bl, nd, dsteps);
-    bool pred = wadd(mid, bl - dl) >= t;
-    bool adv = !pred && (lo < hi);
-    lo = adv ? mid + 1 : lo;
-    hi = pred ? mid : hi;
+                     const int* __restrict__ rank_of_ins,
+                     const int* __restrict__ gap, int nd,
+                     const int* __restrict__ end_rank, int icap, int dcap,
+                     float* __restrict__ out_k, int* __restrict__ out_v,
+                     int* __restrict__ out_live) {
+  extern __shared__ int span_buf[];
+  __shared__ int least, greatest;
+  const int end = __ldg(end_rank);
+  const long long g0 = (long long)blockIdx.x * ppt;
+  const long long g1 = min((long long)pages, g0 + ppt);
+  if (threadIdx.x == 0) {
+    least = INT_MAX;
+    greatest = INT_MIN;
   }
-  int j = lo;
-  int i1 = wadd(wsub(t, j), 1);
-
-  // ---- select: the (t-j)-th live base position -------------------------
-  lo = 0;
-  hi = n;
-  for (int s = 0; s < steps; ++s) {
-    int mid = (lo + hi) >> 1;
-    int dl = lower_bound(del_pos, mid + 1, nd, dsteps);
-    bool pred = (mid + 1 - dl) >= i1;
-    bool adv = !pred && (lo < hi);
-    lo = adv ? mid + 1 : lo;
-    hi = pred ? mid : hi;
+  __syncthreads();
+  // a page's valid lanes are one run: 0 <= start + lane < end
+  int ta = INT_MAX, tb = INT_MIN;
+  for (long long g = g0 + threadIdx.x; g < g1; g += SCAN_THREADS) {
+    const long long st = __ldg(starts + g);
+    const long long va = max(0LL, -st), vb = min((long long)page_size, end - st);
+    if (va < vb) {
+      ta = min(ta, (int)(st + va));
+      tb = max(tb, (int)(st + vb - 1));
+    }
   }
-  emit(t >= 0 && t < __ldg(end_rank), lo, j, base, bvals, n, ins, ivals, ni,
-       lane, out_k, out_v, out_live);
+  for (int o = 16; o > 0; o >>= 1) {
+    ta = min(ta, __shfl_xor_sync(FULL_MASK, ta, o));
+    tb = max(tb, __shfl_xor_sync(FULL_MASK, tb, o));
+  }
+  if ((threadIdx.x & 31) == 0 && ta <= tb) {
+    atomicMin(&least, ta);
+    atomicMax(&greatest, tb);
+  }
+  __syncthreads();
+  ta = least;
+  tb = greatest;
+  // the wrapper keeps pages * page_size inside int32
+  const int l0 = (int)g0 * page_size, l1 = (int)g1 * page_size;
+  if (ta > tb) {   // no valid lane in the tile
+    for (int lane = l0 + threadIdx.x; lane < l1; lane += SCAN_THREADS)
+      emit(false, 0, 0, base, bvals, n, ins, ivals, ni, lane, out_k, out_v,
+           out_live);
+    return;
+  }
+  const Spans sp = place_spans(rank_of_ins, ni, gap, nd, ta, tb, span_buf,
+                               icap, span_buf + icap, dcap);
+  for (int lane = l0 + threadIdx.x; lane < l1; lane += SCAN_THREADS) {
+    const int g = lane / page_size;
+    const int t = wadd(__ldg(starts + g), lane - g * page_size);
+    if (t >= 0 && t < end) {
+      int j, u, k;
+      finish_rank(sp, rank_of_ins, gap, span_buf, span_buf + icap, t, j, u, k);
+      const long long p = min(max((long long)u - 1 + k, 0LL), (long long)n);
+      emit(true, (int)p, j, base, bvals, n, ins, ivals, ni, lane, out_k, out_v,
+           out_live);
+    } else {
+      emit(false, 0, 0, base, bvals, n, ins, ivals, ni, lane, out_k, out_v,
+           out_live);
+    }
+  }
 }
 
 extern "C" int rmi_scan_range_launch(
@@ -326,29 +463,41 @@ extern "C" int rmi_scan_range_launch(
   return (int)cudaGetLastError();
 }
 
+// scratch: ni + nd ints (rank_of_ins, then gap)
 extern "C" int rmi_scan_page_launch(
-    const int* starts, int page_size, const float* base, const int* bvals,
-    int n, const float* ins, const int* ivals, int ni, const int* del_pos,
-    int nd, const int* end_rank, int lanes, int steps, int isteps, int dsteps,
-    float* out_k, int* out_v, int* out_live, void* stream) {
-  const int threads = 256;
-  dim3 grid((lanes + threads - 1) / threads);
-  rmi_scan_page_kernel<<<grid, threads, 0, (cudaStream_t)stream>>>(
-      starts, page_size, base, bvals, n, ins, ivals, ni, del_pos, nd,
-      end_rank, lanes, steps, isteps, dsteps, out_k, out_v, out_live);
+    const int* starts, int pages, int page_size, int ppt, const float* base,
+    const int* bvals, int n, const float* ins, const int* ivals, int ni,
+    const int* del_pos, int nd, const int* end_rank, int steps, int dsteps,
+    int icap, int dcap, int* scratch, float* out_k, int* out_v,
+    int* out_live, void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  int* rank_of_ins = scratch;
+  int* gap = scratch + ni;
+  int slots = max(ni, nd);
+  rmi_scan_page_prepass<<<(slots + SCAN_THREADS - 1) / SCAN_THREADS,
+                          SCAN_THREADS, 0, st>>>(
+      base, n, ins, ni, del_pos, nd, steps, dsteps, rank_of_ins, gap);
+  int err = (int)cudaGetLastError();
+  if (err) return err;
+  dim3 grid((unsigned)(((long long)pages + ppt - 1) / ppt));
+  int smem = (icap + dcap) * (int)sizeof(int);
+  rmi_scan_page_kernel<<<grid, SCAN_THREADS, smem, st>>>(
+      starts, pages, page_size, ppt, base, bvals, n, ins, ivals, ni,
+      rank_of_ins, gap, nd, end_rank, icap, dcap, out_k, out_v, out_live);
   return (int)cudaGetLastError();
 }
 
 extern "C" int rmi_sharded_scan_launch(
     const float* base, const int* bvals, const int* live_prefix, int S, int n,
     const float* ins, const int* ivals, const int* ins_rank, int ni,
-    const int* ls0, const int* own_lo, const int* own_hi, int lanes,
-    int psteps, int msteps, float* out_k, int* out_v, int* out_live,
-    void* stream) {
-  const int threads = 256;
-  dim3 grid((lanes + threads - 1) / threads, S);
-  rmi_sharded_scan_kernel<<<grid, threads, 0, (cudaStream_t)stream>>>(
+    const int* ls0, const int* own_lo, const int* own_hi, int lanes, int tile,
+    int icap, int pcap, int psteps, int msteps, float* out_k, int* out_v,
+    int* out_live, void* stream) {
+  dim3 grid((unsigned)(((long long)lanes + tile - 1) / tile), S);
+  int smem = (icap + pcap) * (int)sizeof(int);
+  rmi_sharded_scan_kernel<<<grid, SCAN_THREADS, smem, (cudaStream_t)stream>>>(
       base, bvals, live_prefix, n, ins, ivals, ins_rank, ni, ls0, own_lo,
-      own_hi, lanes, psteps, msteps, out_k, out_v, out_live);
+      own_hi, lanes, tile, icap, pcap, psteps, msteps, out_k, out_v,
+      out_live);
   return (int)cudaGetLastError();
 }

@@ -11,18 +11,24 @@ PyTorch wrappers.
     rank's searches there.  ``ins_rank`` and ``live_prefix`` must be
     non-decreasing, as `device_scan_slab` builds them.  Replaces the
     reference's ``rmi_scan_range_pallas``.
-``rmi_sharded_scan_page_cuda`` — rank to row through the prefix-sum
-    page index, lane by lane, over S stacked shard slabs in one launch:
-    each shard emits the stream slots it owns, others come back masked.
-    Replaces ``rmi_sharded_scan_page_pallas``.
-``rmi_scan_page_cuda``  — rank-addressed pages by nested searches over
-    the tombstoned base positions.  Replaces ``rmi_scan_page_pallas``.
+``rmi_sharded_scan_page_cuda`` — the same tiles over S stacked shard
+    slabs in one launch, a tile of `RANGE_TILE` stream slots of one
+    shard a block: each shard resolves the slots it owns, a tile that
+    owns none writes masked rows and searches nothing.  Replaces
+    ``rmi_sharded_scan_page_pallas``.
+``rmi_scan_page_cuda``  — rank-addressed pages: a pre-pass launch
+    writes each staged insert's merged rank and each tombstone's gap
+    (position minus index), then a block resolves the whole pages
+    that hold about `RANGE_TILE` lanes from spans of those two arrays,
+    staged or searched in place as above.  ``del_pos`` must hold
+    distinct sorted positions below N, then pads of N, as
+    `device_scan_plan` builds it.  Replaces ``rmi_scan_page_pallas``.
 
 For a CUDA tensor a wrapper launches the kernel (or raises); for a CPU
-tensor it runs the plain version in `kernels.ref`.  Each launch adds
-one to the wrapper's count in ``LAUNCHES``.  Outputs are ``(keys f32,
-vals i32, live i32)``, each (pages, page_size); (S, pages, page_size)
-for the sharded kernel.
+tensor it runs the plain version in `kernels.ref`.  Each call that
+launches adds one to the wrapper's count in ``LAUNCHES``.  Outputs are
+``(keys f32, vals i32, live i32)``, each (pages, page_size);
+(S, pages, page_size) for the sharded kernel.
 """
 
 from __future__ import annotations
@@ -36,9 +42,9 @@ from repro_torch.kernels import nvcc, ref
 
 SOURCE = nvcc.CSRC / "rmi_scan.cu"
 INT32_MAX = 2**31 - 1
-RANGE_TILE = 2048          # consecutive ranks a block resolves
-RANGE_INS_CAP = 1024       # ins_rank entries staged in shared memory
-RANGE_PREFIX_CAP = 4096    # live_prefix entries staged in shared memory
+RANGE_TILE = 2048          # consecutive ranks (or slots, or page lanes) a block resolves
+RANGE_INS_CAP = 1024       # ins_rank / insert rank entries staged in shared memory
+RANGE_PREFIX_CAP = 4096    # live_prefix / tombstone gap entries staged in shared memory
 
 # launches per wrapper; a plain integer each, bumped only where the
 # kernel is launched
@@ -66,15 +72,17 @@ def _declare(lib) -> None:
         p, p, p, p,                 # out keys, vals, live, stream
     ]
     lib.rmi_scan_page_launch.argtypes = [
-        p, i, p, p, i,              # starts, page_size, base, bvals, n
-        p, p, i, p, i,              # ins, ivals, ni, del_pos, nd
-        p, i, i, i, i,              # end_rank, lanes, steps, isteps, dsteps
+        p, i, i, i,                 # starts, pages, page_size, pages per tile
+        p, p, i, p, p, i,           # base, bvals, n, ins, ivals, ni
+        p, i, p, i, i,              # del_pos, nd, end_rank, steps, dsteps
+        i, i, p,                    # insert rank and gap caps, scratch (ni + nd)
         p, p, p, p,                 # out keys, vals, live, stream
     ]
     lib.rmi_sharded_scan_launch.argtypes = [
         p, p, p, i, i,              # base, bvals, live_prefix, S, n
         p, p, p, i,                 # ins, ivals, ins_rank, ni
-        p, p, p, i, i, i,           # ls0, own_lo, own_hi, lanes, psteps, msteps
+        p, p, p, i,                 # ls0, own_lo, own_hi, lanes
+        i, i, i, i, i,              # tile, ins_rank and live_prefix caps, psteps, msteps
         p, p, p, p,                 # out keys, vals, live, stream
     ]
     lib.rmi_scan_range_launch.restype = i
@@ -178,14 +186,16 @@ def rmi_scan_page_cuda(
     lanes = g * page_size
     if lanes > INT32_MAX:
         raise ValueError(f"{lanes} lanes overflow int32")
-    steps, isteps, dsteps = ref.trip_counts(n, ni, nd)
+    steps, dsteps = ref.trip_counts(n, nd)
     i32 = torch.int32
+    scratch = torch.empty(ni + nd, dtype=i32, device=dev)
     err = nvcc.load(SOURCE, _declare).rmi_scan_page_launch(
-        nvcc.check_tensor(starts, "starts", i32, dev), page_size, bk, bv, n,
-        ik, iv, ni, nvcc.check_tensor(del_pos, "del_pos", i32, dev), nd,
-        nvcc.check_tensor(end_rank, "end_rank", i32, dev), lanes, steps,
-        isteps, dsteps, *(o.data_ptr() for o in out),
-        torch.cuda.current_stream(dev).cuda_stream)
+        nvcc.check_tensor(starts, "starts", i32, dev), g, page_size,
+        max(1, RANGE_TILE // page_size), bk, bv, n, ik, iv, ni,
+        nvcc.check_tensor(del_pos, "del_pos", i32, dev), nd,
+        nvcc.check_tensor(end_rank, "end_rank", i32, dev), steps, dsteps,
+        RANGE_INS_CAP, RANGE_PREFIX_CAP, scratch.data_ptr(),
+        *(o.data_ptr() for o in out), torch.cuda.current_stream(dev).cuda_stream)
     nvcc.raise_on_error(err, "rmi_scan_page")
     LAUNCHES["rmi_scan_page_cuda"] += 1
     return out
@@ -239,7 +249,8 @@ def rmi_sharded_scan_page_cuda(
         (ls0, "ls0", i32, 1), (own_lo, "own_lo", i32, 1), (own_hi, "own_hi", i32, 1))]
     psteps, msteps = ref.trip_counts(n + 1, ni)
     err = nvcc.load(SOURCE, _declare).rmi_sharded_scan_launch(
-        *ptrs[:3], S, n, *ptrs[3:6], ni, *ptrs[6:], lanes, psteps, msteps,
+        *ptrs[:3], S, n, *ptrs[3:6], ni, *ptrs[6:], lanes, RANGE_TILE, RANGE_INS_CAP,
+        RANGE_PREFIX_CAP, psteps, msteps,
         *(o.data_ptr() for o in out), torch.cuda.current_stream(dev).cuda_stream)
     nvcc.raise_on_error(err, "rmi_sharded_scan")
     LAUNCHES["rmi_sharded_scan_page_cuda"] += 1

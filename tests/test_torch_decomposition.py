@@ -15,17 +15,28 @@ plain twins and the reference:
   each tile's first and last valid rank placed by the warp's 33-ary
   search, the spans of ``ins_rank`` and ``live_prefix`` between them
   staged, or searched in place when longer than their buffers, and
-  each rank's search finished inside the span.
+  each rank's search finished inside the span;
+* the page scan (B6): the pre-pass (each insert slot's merged rank, each
+  tombstone's gap), whose lower bounds are the reference's fixed-trip
+  partition and select; tiles of whole pages placed from their least
+  and greatest valid rank, then B3's spans over the two arrays;
+* the sharded scan (B5): B3's tiles over one shard's slab row, dead
+  tiles that search nothing, and tiles whose local ranks wrap int32
+  chained lane by lane.
 
+Buffer sizes are parameters, small enough here to reach every path.
 The kernels themselves meet these cases in the `cuda`-marked tests of
-`test_torch_kernels.py` and `test_torch_scan.py`.
+`test_torch_kernels.py`, `test_torch_scan.py` and `test_torch_sharded.py`.
 """
+
+import types
 
 import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
 
+import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
 from repro.core import RMIConfig, build_rmi, make_keyset  # noqa: E402
@@ -35,14 +46,26 @@ from repro.kernels import ref as jax_ref  # noqa: E402
 from repro.kernels.rmi_lookup import (  # noqa: E402
     rmi_lookup_pallas,
     rmi_merged_lookup_pallas,
+    rmi_scan_page_pallas,
+    rmi_sharded_scan_page_pallas,
 )
 from test_torch_kernels import _case, _jax_args, _port_args, _queries  # noqa: E402
-from test_torch_scan import CASES, _bounds, _kernel_case, _lowered, _xla_range  # noqa: E402
+from test_torch_scan import (  # noqa: E402
+    CASES,
+    _bounds,
+    _kernel_case,
+    _lowered,
+    _xla_page,
+    _xla_range,
+)
+from test_torch_sharded import _scan_bounds, _scan_slabs  # noqa: E402
 
 from repro_torch.core import search as search_lib  # noqa: E402
+from repro_torch.index_service import scan as port_scan  # noqa: E402
+from repro_torch.index_service.delta import DeltaBuffer  # noqa: E402
 from repro_torch.core.rmi import LEAF_FIELDS, pack_leaves  # noqa: E402
 from repro_torch.kernels import ref as port_ref  # noqa: E402
-from repro_torch.kernels import rmi_lookup, rmi_scan  # noqa: E402
+from repro_torch.kernels import ops, rmi_lookup, rmi_scan  # noqa: E402
 
 # ---------------------------------------------------------------------------
 # B1/B2: the packed leaf record
@@ -145,23 +168,55 @@ def test_tree_leaf_arrays_are_views_of_one_record():
 # ---------------------------------------------------------------------------
 
 
+INT32_MIN, INT32_MAX = -2**31, 2**31 - 1
+
+
+def wrap32(x):
+    """``x`` as the card's int32 arithmetic leaves it."""
+    return (x - INT32_MIN) % 2**32 + INT32_MIN
+
+
 def warp_lower_bound(arr, q, lo, hi):
     """The kernel's 33-ary warp search: ``lo + #{arr[lo:hi] < q}``."""
-    def below(p):
-        return bool(arr[p] < q)
-
     while hi - lo > 32:
         span = hi - lo
-        c = sum(below(lo + span * (i + 1) // 33) for i in range(32))
+        c = int((arr[lo + span * torch.arange(1, 33) // 33] < q).sum())
         lo, hi = (lo if c == 0 else lo + span * c // 33 + 1,
                   hi if c == 32 else lo + span * (c + 1) // 33)
-    return lo + sum(below(p) for p in range(lo, hi))
+    return lo + int((arr[lo:hi] < q).sum())
 
 
 def span_lower_bound(span, q, size):
     """The kernel's in-span search: pinned fixed trips, one per bit of
     the span's size."""
     return port_ref.array_lower_bound(span, q, size, size.bit_length())
+
+
+def place_spans(a, na, b, nb, ta, tb, acap, bcap, stats, names=("ins", "lp")):
+    """The kernels' `place_spans`: the least and greatest rank of a tile
+    placed in the index arrays ``a`` (j = lb(a, t)) and ``b`` (k = lb(b,
+    t - j + 1)); each span is staged (a copy in the block's buffer) when
+    it fits its buffer, else read in place.  ``stats`` counts both."""
+    jf, jl = warp_lower_bound(a, ta, 0, na), warp_lower_bound(a, tb, 0, na)
+    kf = warp_lower_bound(b, wrap32(ta - jl + 1), 0, nb)
+    kl = warp_lower_bound(b, wrap32(tb - jf + 1), 0, nb)
+    spans = []
+    for name, arr, first, last, cap in ((names[0], a, jf, jl, acap),
+                                        (names[1], b, kf, kl, bcap)):
+        staged = last - first <= cap
+        spans.append((first, arr[first:last].clone() if staged else arr[first:last]))
+        k = f"{name}_{'staged' if staged else 'in_place'}"
+        stats[k] = stats.get(k, 0) + 1
+    return spans
+
+
+def finish_ranks(spans, t):
+    """The kernels' `finish_rank` on int32 ranks ``t`` of the tile:
+    ``(j, u, k)`` searched inside the spans."""
+    (jf, aspan), (kf, bspan) = spans
+    j = jf + span_lower_bound(aspan, t, aspan.numel())
+    u = t - j + 1
+    return j, u, kf + span_lower_bound(bspan, u, bspan.numel())
 
 
 def emulate_scan_range(bounds, base, bvals, lp, ins, ivals, ins_rank, *, page_size,
@@ -185,24 +240,14 @@ def emulate_scan_range(bounds, base, bvals, lp, ins, ivals, ins_rank, *, page_si
         if v1 <= l0:
             continue
         ta, tb = r0 + l0, r0 + v1 - 1
-        jf, jl = warp_lower_bound(ins_rank, ta, 0, ni), warp_lower_bound(ins_rank, tb, 0, ni)
-        pf = warp_lower_bound(lp, ta - jl + 1, 0, n + 1)
-        pl = warp_lower_bound(lp, tb - jf + 1, 0, n + 1)
-        jn, pn = jl - jf, pl - pf
-        # staged: a copy in the block's buffer; else read in place
-        ispan = ins_rank[jf:jl].clone() if jn <= icap else ins_rank[jf:jl]
-        pspan = lp[pf:pl].clone() if pn <= pcap else lp[pf:pl]
-        for key, staged in (("ins", jn <= icap), ("lp", pn <= pcap)):
-            k = f"{key}_{'staged' if staged else 'in_place'}"
-            stats[k] = stats.get(k, 0) + 1
+        spans = place_spans(ins_rank, ni, lp, n + 1, ta, tb, icap, pcap, stats)
         stats["starts_on_insert"] = stats.get("starts_on_insert", 0) + int(
             bool((ins_rank[:ni] == ta).any()))
         t = torch.arange(r0 + l0, r0 + v1, dtype=i32)
-        j = jf + span_lower_bound(ispan, t, jn)
-        p = pf - 1 + span_lower_bound(pspan, t - j + 1, pn)
-        k, v, lv = port_ref._emit(torch.ones_like(t, dtype=torch.bool), p, j, base, bvals,
-                                  ins, ivals)
-        keys[l0:v1], vals[l0:v1], live[l0:v1] = k, v, lv
+        j, _, k = finish_ranks(spans, t)
+        key, v, lv = port_ref._emit(torch.ones_like(t, dtype=torch.bool), k - 1, j, base,
+                                    bvals, ins, ivals)
+        keys[l0:v1], vals[l0:v1], live[l0:v1] = key, v, lv
     shape = (max_pages, page_size)
     return keys.reshape(shape), vals.reshape(shape), live.reshape(shape)
 
@@ -306,3 +351,334 @@ def test_warp_search_counts_like_the_fixed_trip_search():
         lo, hi = size // 4, size - size // 5
         mid = [warp_lower_bound(at, torch.tensor(q), lo, hi) for q in qs]
         assert mid == [min(max(w, lo), hi) for w in want], size
+
+
+# ---------------------------------------------------------------------------
+# B6: rank-addressed pages through the pre-pass arrays
+# ---------------------------------------------------------------------------
+
+def page_prepass(base, ins, del_pos):
+    """The page kernel's pre-pass: each insert slot's merged rank
+    ``m + bl - lb(del_pos, bl)`` with ``bl = lb(base, ins[m])``, and each
+    tombstone's gap ``del_pos[m] - m`` (INT32_MAX on a pad of n)."""
+    n, ni, nd = base.shape[0], ins.shape[0], del_pos.shape[0]
+    steps, dsteps = port_ref.trip_counts(n, nd)
+    bl = port_ref.array_lower_bound(base, ins, n, steps)
+    dl = port_ref.array_lower_bound(del_pos, bl, nd, dsteps)
+    rank_of_ins = torch.arange(ni, dtype=torch.int32) + (bl - dl)
+    gap = torch.where(del_pos < n, del_pos - torch.arange(nd, dtype=torch.int32),
+                      torch.full_like(del_pos, INT32_MAX))
+    return rank_of_ins, gap
+
+
+def emulate_scan_page(starts, base, bvals, ins, ivals, del_pos, end_rank, *, page_size,
+                      tile, icap, dcap, stats=None):
+    """The page kernel's rows: the pre-pass, then tiles of the whole
+    pages that hold about ``tile`` lanes, each placed from the least and
+    greatest valid rank of its pages; ``stats`` counts the pre-passes,
+    the tiles with no valid lane and the staged and in-place spans."""
+    stats = {} if stats is None else stats
+    n, ni, nd = base.shape[0], ins.shape[0], del_pos.shape[0]
+    rank_of_ins, gap = page_prepass(base, ins, del_pos)
+    stats["prepass"] = stats.get("prepass", 0) + 1
+    pages, end = starts.shape[0], int(end_rank[0])
+    keys = torch.full((pages * page_size,), float("inf"))
+    vals = torch.zeros(pages * page_size, dtype=torch.int32)
+    live = torch.zeros(pages * page_size, dtype=torch.int32)
+    ppt = max(1, tile // page_size)
+    for g0 in range(0, pages, ppt):
+        g1 = min(pages, g0 + ppt)
+        st = starts[g0:g1].long()
+        va, vb = torch.clamp(-st, min=0), torch.clamp(end - st, max=page_size)
+        runs = va < vb                  # a page's valid lanes are one run
+        if not runs.any():
+            stats["dead"] = stats.get("dead", 0) + 1
+            continue
+        ta, tb = int((st + va)[runs].min()), int((st + vb - 1)[runs].max())
+        spans = place_spans(rank_of_ins, ni, gap, nd, ta, tb, icap, dcap, stats,
+                            names=("rank", "gap"))
+        lane = torch.arange(g0 * page_size, g1 * page_size)
+        t = starts[lane // page_size] + (lane % page_size).to(torch.int32)
+        valid = (t >= 0) & (t < end)
+        j, u, k = finish_ranks(spans, t[valid])
+        p = torch.clamp(u.long() - 1 + k, 0, n).to(torch.int32)
+        key, v, lv = port_ref._emit(torch.ones_like(j, dtype=torch.bool), p, j, base, bvals,
+                                    ins, ivals)
+        at = lane[valid]
+        keys[at], vals[at], live[at] = key, v, lv
+    shape = (pages, page_size)
+    return keys.reshape(shape), vals.reshape(shape), live.reshape(shape)
+
+
+def _partition_and_select(t, base, ins, del_pos):
+    """The plain twin's fixed-trip partition and select
+    (`ref.scan_page_body`), step for step, without the emit: ``(j, p)``."""
+    n, ni, nd = base.shape[0], ins.shape[0], del_pos.shape[0]
+    steps, isteps, dsteps = port_ref.trip_counts(n, ni, nd)
+    lo, hi = torch.zeros_like(t), torch.full_like(t, ni)
+    for _ in range(isteps):
+        mid = (lo + hi) >> 1
+        ck = torch.where(mid >= ni, torch.tensor(float("inf")),
+                         ins[torch.clamp(mid, 0, ni - 1)])
+        bl = port_ref.array_lower_bound(base, ck, n, steps)
+        dl = port_ref.array_lower_bound(del_pos, bl, nd, dsteps)
+        pred = mid + (bl - dl) >= t
+        lo, hi = torch.where(~pred & (lo < hi), mid + 1, lo), torch.where(pred, mid, hi)
+    j, i1 = lo, t - lo + 1
+    lo, hi = torch.zeros_like(t), torch.full_like(t, n)
+    for _ in range(steps):
+        mid = (lo + hi) >> 1
+        pred = (mid + 1 - port_ref.array_lower_bound(del_pos, mid + 1, nd, dsteps)) >= i1
+        lo, hi = torch.where(~pred & (lo < hi), mid + 1, lo), torch.where(pred, mid, hi)
+    return j, lo
+
+
+def _plan_tensors(plan):
+    return [torch.as_tensor(a) for a in plan]
+
+
+def _page_starts(live, page_size, extra=()):
+    """The reference's edge starts (negative, past the end, wrapping
+    int32), then consecutive pages over every live rank and one past."""
+    run = page_size * np.arange(-(-(live + 1) // page_size) + 1)
+    return np.concatenate([np.asarray(extra, np.int64), run]).astype(np.int32)
+
+
+@pytest.mark.parametrize("case", CASES)
+def test_page_prepass_is_the_partition_and_the_gap_the_select(case):
+    """``lb(rank_of_ins, t)`` is the fixed-trip partition and
+    ``clamp(u - 1 + lb(gap, u), 0, n)`` the fixed-trip select, for every
+    rank from below 0 to past the live count and at the int32 ends."""
+    base, _, _, plan, pv = _kernel_case(case)
+    ins, _, dpos = _plan_tensors(plan)
+    bt = torch.as_tensor(base)
+    live = pv.live_count
+    t = torch.as_tensor(np.concatenate([np.arange(-3, live + 300), [INT32_MAX - 1, INT32_MAX,
+                                                                    INT32_MIN]]).astype(np.int32))
+    j_fixed, p_fixed = _partition_and_select(t, bt, ins, dpos)
+    rank_of_ins, gap = page_prepass(bt, ins, dpos)
+    assert bool((rank_of_ins[1:] >= rank_of_ins[:-1]).all()) and bool((gap[1:] >= gap[:-1]).all())
+    j = port_ref.array_lower_bound(rank_of_ins, t, ins.numel(), 40)
+    assert torch.equal(j, j_fixed), case
+    u = t - j + 1
+    k = port_ref.array_lower_bound(gap, u, dpos.numel(), 40)
+    assert torch.equal(torch.clamp(u.long() - 1 + k, 0, base.size).int(), p_fixed), case
+
+
+PAGE_TILINGS = ((16, 4, 8), (64, 16, 32), (rmi_scan.RANGE_TILE, rmi_scan.RANGE_INS_CAP,
+                                           rmi_scan.RANGE_PREFIX_CAP))
+
+
+@pytest.mark.parametrize("case", CASES)
+def test_page_decomposition_matches_plain_twin_and_reference(case):
+    """Every lane bit for bit against the plain twin and the reference's
+    XLA twin (and its Pallas kernel in interpret mode at one page size):
+    the reference's edge starts, consecutive pages, page sizes that are
+    not multiples of a warp, and an end rank past the live count."""
+    base, bvals, _, plan, pv = _kernel_case(case)
+    _, edge_starts = _bounds(base, pv)
+    live = pv.live_count
+    tt = [torch.as_tensor(a) for a in (base, bvals)] + _plan_tensors(plan)
+    for page_size in (1, 16, 160, 256):
+        starts = _page_starts(live, page_size, edge_starts)
+        for end in (live, live + 37):
+            et = torch.as_tensor(np.array([end], np.int32))
+            st = torch.as_tensor(starts)
+            plain = port_ref.rmi_scan_page_reference(st, *tt, et, page_size=page_size)
+            xla = _xla_page(jnp.asarray(starts), base, bvals, *plan, np.array([end], np.int32),
+                            page_size=page_size)
+            assert _same(plain, xla), (case, page_size, end)
+            for tile, icap, dcap in PAGE_TILINGS:
+                got = emulate_scan_page(st, *tt, et, page_size=page_size, tile=tile, icap=icap,
+                                        dcap=dcap)
+                assert _same(got, plain), (case, page_size, end, tile)
+    starts = _page_starts(live, 160, edge_starts)[:12]
+    end = np.array([live], np.int32)
+    pallas = rmi_scan_page_pallas(jnp.asarray(starts), base, bvals, *plan, jnp.asarray(end),
+                                  page_size=160, interpret=True)
+    got = emulate_scan_page(torch.as_tensor(starts), *tt, torch.as_tensor(end), page_size=160,
+                            tile=64, icap=16, dcap=32)
+    assert _same(got, pallas), case
+
+
+@pytest.mark.parametrize("tiling", [(16, 4, 8), (64, 16, 32), (256, 64, 128)])
+def test_page_decomposition_reaches_every_path_on_dense_pages(tiling):
+    """Pages inside a tombstone run and an insert cluster longer than
+    their buffers, across the float32 duplicate run and the ties (C6),
+    pages that start mid-page on rank 0, past the live count, across the
+    int32 wrap, tiles with no valid lane, and an end rank past the live
+    count: every path against the plain twin and the reference."""
+    tile, icap, dcap = tiling
+    base_raw, ins_raw, dels = _dense_state()
+    _, base, bvals, _, plan, live = _lowered(base_raw, ins_raw, dels)
+    tt = [torch.as_tensor(a) for a in (base, bvals)] + _plan_tensors(plan)
+    stats = {}
+    for page_size in (1, 7, 160):
+        edges = [-7, -page_size, live - 3, live + 500, INT32_MAX - 100, 2**31 - 9]
+        starts = _page_starts(live, page_size, edges)
+        for end in (live, live + 400, INT32_MAX, 0):
+            et = torch.as_tensor(np.array([end], np.int32))
+            st = torch.as_tensor(starts)
+            plain = port_ref.rmi_scan_page_reference(st, *tt, et, page_size=page_size)
+            xla = _xla_page(jnp.asarray(starts), base, bvals, *plan, np.array([end], np.int32),
+                            page_size=page_size)
+            got = emulate_scan_page(st, *tt, et, page_size=page_size, tile=tile, icap=icap,
+                                    dcap=dcap, stats=stats)
+            assert _same(got, plain) and _same(got, xla), (page_size, end)
+    for k in ("rank_staged", "rank_in_place", "gap_staged", "gap_in_place", "dead",
+              "prepass"):
+        assert stats.get(k, 0) > 0, k
+
+
+# ---------------------------------------------------------------------------
+# B5: sharded tiles of stream slots
+# ---------------------------------------------------------------------------
+
+def emulate_sharded_scan(base, bvals, lp, ins, ivals, ins_rank, ls0, own_lo, own_hi, *,
+                         page_size, max_pages, tile, icap, pcap, stats=None):
+    """The sharded kernel's rows, tile by tile of each shard: a tile
+    that owns no slot stays dead, one whose local ranks (or t - j + 1)
+    would wrap int32 chains lane by lane (`ref.scan_rows_from_index`),
+    the rest place their owned ranks' spans as the range kernel does;
+    ``stats`` counts each path and the staged and in-place spans."""
+    stats = {} if stats is None else stats
+    S, n = base.shape
+    ni = ins.shape[1]
+    psteps, msteps = port_ref.trip_counts(n + 1, ni)
+    lanes = max_pages * page_size
+    keys = torch.full((S, lanes), float("inf"))
+    vals = torch.zeros((S, lanes), dtype=torch.int32)
+    live = torch.zeros((S, lanes), dtype=torch.int32)
+    for s in range(S):
+        lo, hi, r = int(own_lo[s]), int(own_hi[s]), int(ls0[s])
+        for l0 in range(0, lanes, tile):
+            l1 = min(lanes, l0 + tile)
+            oa, ob = max(l0, lo), min(l1, hi)
+            if oa >= ob:
+                stats["dead"] = stats.get("dead", 0) + 1
+                continue
+            ta = wrap32(r + oa - lo)
+            tb = ta + (ob - 1 - oa)
+            row = (base[s], bvals[s])
+            if ta < INT32_MIN + ni - 1 or tb > INT32_MAX - 1:
+                stats["wrap"] = stats.get("wrap", 0) + 1
+                lane = torch.arange(l0, l1)
+                t = torch.as_tensor(wrap32(r + lane.numpy() - lo).astype(np.int32))
+                out = port_ref.scan_rows_from_index(
+                    t, (lane >= lo) & (lane < hi), *row, lp[s], ins[s], ivals[s], ins_rank[s],
+                    psteps=psteps, msteps=msteps)
+                keys[s, l0:l1], vals[s, l0:l1], live[s, l0:l1] = out
+                continue
+            stats["owned"] = stats.get("owned", 0) + 1
+            spans = place_spans(ins_rank[s], ni, lp[s], n + 1, ta, tb, icap, pcap, stats)
+            j, _, k = finish_ranks(spans, torch.arange(ta, tb + 1, dtype=torch.int32))
+            out = port_ref._emit(torch.ones_like(j, dtype=torch.bool), k - 1, j, *row, ins[s],
+                                 ivals[s])
+            keys[s, oa:ob], vals[s, oa:ob], live[s, oa:ob] = out
+    shape = (S, max_pages, page_size)
+    return keys.reshape(shape), vals.reshape(shape), live.reshape(shape)
+
+
+_xla_sharded = jax.jit(jax_ref.rmi_sharded_scan_page_reference,
+                       static_argnames=("page_size", "max_pages"))
+_SLAB_KEYS = ("base", "bvals", "live_prefix", "ins", "ivals", "ins_rank")
+
+# adversarial owners: a local rank that wraps int32 inside a tile, one
+# that starts just above INT32_MIN (t - j + 1 would wrap), a negative
+# first slot, an inverted (empty) span and a tile owned from mid-tile
+_OWNERS = {
+    1: ([7], [5], [2**31 - 1]),
+    3: ([0, 2**31 - 5, 7], [0, 300, 600], [300, 600, 2**31 - 1]),
+    4: ([INT32_MIN + 2, 11, 2**31 - 40, 0], [-50, 333, 200, 901], [333, 200, 901, 5000]),
+}
+
+
+def _sharded_case(slabs, owners, kw, tiling, stats):
+    ts = [torch.as_tensor(a) for a in slabs]
+    own = [torch.as_tensor(np.array(a, np.int32)) for a in owners]
+    plain = port_ref.rmi_sharded_scan_page_reference(*ts, *own, **kw)
+    xla = _xla_sharded(*(jnp.asarray(a) for a in slabs),
+                       *(jnp.asarray(o.numpy()) for o in own), **kw)
+    tile, icap, pcap = tiling
+    got = emulate_sharded_scan(*ts, *own, tile=tile, icap=icap, pcap=pcap, stats=stats, **kw)
+    return got, plain, xla
+
+
+@pytest.mark.parametrize("num,page_size", [(1, 256), (3, 160), (3, 1)])
+def test_sharded_decomposition_matches_plain_twin_and_reference(num, page_size):
+    """Owners from the op's rank pre-pass over NaN, inverted, infinite
+    and out-of-span bounds, and adversarial raw owners (wrapping local
+    ranks, an inverted span): every slot of every shard bit for bit
+    against the plain twin and the reference's XLA twin, and its Pallas
+    kernel in interpret mode on the adversarial owners."""
+    p = _scan_slabs(num)
+    slabs = [p[k] for k in _SLAB_KEYS]
+    t = torch.as_tensor
+    kw = dict(page_size=page_size, max_pages=40 if page_size == 1 else 6)
+    stats = {}
+    for lo, hi in _scan_bounds(p):
+        owners = ops.sharded_scan_owners(t(np.array([lo, hi], np.float32)), t(p["base"]),
+                                         t(p["live_prefix"]), t(p["ins"]))
+        for tiling in ((64, 16, 32), (rmi_scan.RANGE_TILE, rmi_scan.RANGE_INS_CAP,
+                                      rmi_scan.RANGE_PREFIX_CAP)):
+            got, plain, xla = _sharded_case(slabs, [o.numpy() for o in owners], kw, tiling,
+                                            stats)
+            assert _same(got, plain) and _same(got, xla), (lo, hi, tiling)
+    owners = [a[:num] for a in _OWNERS[3]]
+    for pages in (-(-700 // page_size), 4):     # past the wrap; the Pallas kernel's size
+        got, plain, xla = _sharded_case(slabs, owners, dict(page_size=page_size,
+                                                            max_pages=pages), (64, 16, 32), stats)
+        assert _same(got, plain) and _same(got, xla), pages
+    pallas = rmi_sharded_scan_page_pallas(*(jnp.asarray(a) for a in slabs),
+                                          *(jnp.asarray(np.array(o, np.int32)) for o in owners),
+                                          page_size=page_size, max_pages=4, interpret=True)
+    assert _same(got, pallas)
+    assert stats["dead"] > 0 and stats["owned"] > 0
+    assert (num == 1) or stats["wrap"] > 0
+
+
+def _dense_shards(num):
+    """``num`` shards cut from `_dense_state`'s keys (the tombstone run,
+    the insert cluster with its float32 ties and the duplicate run fall
+    in one shard), stacked by `stack_scan_slabs`."""
+    base_raw, ins_raw, dels = _dense_state()
+    cuts = np.linspace(0, base_raw.size, num + 1).astype(int)
+    rng = np.random.default_rng(num)
+    views = []
+    for s in range(num):
+        part = base_raw[cuts[s]:cuts[s + 1]]
+        top = base_raw[cuts[s + 1]] if s + 1 < num else np.inf
+        ins = ins_raw[(ins_raw >= part[0]) & (ins_raw < top)]
+        snap = types.SimpleNamespace(keys=types.SimpleNamespace(raw=part),
+                                     vals=rng.integers(-(1 << 40), 1 << 40, part.size))
+        buf = DeltaBuffer.from_arrays(ins, rng.integers(1, 1 << 30, ins.size),
+                                      dels[np.isin(dels, part)], ins.size + dels.size + 1)
+        views.append(port_scan.pin_view(snap, None, buf))
+    return port_scan.stack_scan_slabs(views), views
+
+
+@pytest.mark.parametrize("num,tiling", [(1, (16, 4, 8)), (2, (32, 8, 16)), (3, (64, 16, 48))])
+def test_sharded_decomposition_reaches_every_path_on_dense_tiles(num, tiling):
+    """Tiles inside a tombstone run and an insert cluster longer than
+    their buffers, tiles owned from mid-tile, dead tiles and wrapping
+    tiles, at page sizes 1, 7 and 160 (S = 1 included): every path
+    against the plain twin and the reference."""
+    p, views = _dense_shards(num)
+    slabs = [p[k] for k in _SLAB_KEYS]
+    t = torch.as_tensor
+    live = sum(v.live_count for v in views)
+    stats = {}
+    for page_size in (1, 7, 160):
+        kw = dict(page_size=page_size, max_pages=-(-(live + 40) // page_size))
+        for lo, hi in ((-1.0, 2.0), (0.3, 0.8), (0.81, 0.805), (np.nan, 0.5)):
+            owners = ops.sharded_scan_owners(t(np.array([lo, hi], np.float32)),
+                                             t(p["base"]), t(p["live_prefix"]), t(p["ins"]))
+            got, plain, xla = _sharded_case(slabs, [o.numpy() for o in owners], kw, tiling,
+                                            stats)
+            assert _same(got, plain) and _same(got, xla), (page_size, lo, hi)
+        owners = [a[:num] for a in _OWNERS[4]]
+        got, plain, xla = _sharded_case(slabs, owners, kw, tiling, stats)
+        assert _same(got, plain) and _same(got, xla), page_size
+    for k in ("ins_staged", "ins_in_place", "lp_staged", "lp_in_place", "dead", "wrap",
+              "owned"):
+        assert stats.get(k, 0) > 0, k

@@ -568,3 +568,28 @@ def test_cuda_scan_kernels_match_plain_twins_on_card(case):
         want = port_ref.rmi_scan_page_reference(t(starts), *page_args, page_size=page_size)
         assert all(torch.equal(x, y) for x, y in zip(got, want))
     torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("page_size", PAGE_SIZES)
+def test_cuda_page_kernel_reaches_every_path_on_card(page_size):
+    """The page kernel's tiles on the dense card case: pages inside the
+    tombstone run and the insert cluster (spans longer than their
+    buffers), pages past the live count under an end rank past it, a
+    page across the int32 wrap under end rank INT32_MAX, one page
+    (G = 1), against the plain twin bit for bit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card")
+    dev = torch.device("cuda")
+    base, bvals, _, plan, live, _, starts = _dense_card_case("dense_tombstones")
+    t = lambda a: torch.as_tensor(np.asarray(a), device=dev)  # noqa: E731
+    args = [t(a) for a in (base, bvals, *plan)]
+    run = page_size * np.arange(-(-live // page_size) + 2)
+    cases = [(np.concatenate([starts, run]), live), (live - 5 + run[:40], live + 3000),
+             ([2**31 - 100, -page_size // 2], 2**31 - 1), (run[len(run) // 3:][:1], live)]
+    for st, end in cases:
+        st, end = t(np.asarray(st).astype(np.int32)), t(np.array([end], np.int32))
+        got = rmi_scan.rmi_scan_page_cuda(st, *args, end, page_size=page_size)
+        want = port_ref.rmi_scan_page_reference(st, *args, end, page_size=page_size)
+        assert all(torch.equal(x, y) for x, y in zip(got, want)), (page_size, int(end))
+    torch.cuda.synchronize()

@@ -616,3 +616,29 @@ def test_sharded_scan_kernel_matches_twin_on_card(num, page_size):
         for g, w in zip(got, want):
             assert torch.equal(g, w)
     assert rmi_scan.LAUNCHES["rmi_sharded_scan_page_cuda"] > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("num", [1, 3])
+def test_sharded_scan_kernel_wrapping_and_dead_tiles_on_card(num):
+    """Raw owners whose tiles wrap int32 (inside the first tile and from
+    slot 3,000 on), start just above INT32_MIN, start mid-tile, own
+    nothing or hold an inverted span, at page sizes 256, 160 and 1:
+    the kernel against its plain twin bit for bit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card")
+    dev = torch.device("cuda")
+    p = _scan_slabs(num)
+    slabs = [torch.as_tensor(p[k], device=dev) for k in
+             ("base", "bvals", "live_prefix", "ins", "ivals", "ins_rank")]
+    owner_sets = (([0, 2**31 - 5, 7], [0, 300, 600], [300, 600, 2**31 - 1]),
+                  ([-2**31 + 2, 2**31 - 3000, 0], [-50, 0, 901], [333, 5000, 5000]),
+                  ([11, 0, 5], [333, 0, 2**31 - 1], [200, 4000, 0]))
+    for page_size in (256, 160, 1):
+        kw = dict(page_size=page_size, max_pages=-(-6000 // page_size))
+        for owners in owner_sets:
+            own = [torch.as_tensor(np.array(a[:num], np.int32), device=dev) for a in owners]
+            got = rmi_scan.rmi_sharded_scan_page_cuda(*slabs, *own, **kw)
+            want = ref.rmi_sharded_scan_page_reference(*slabs, *own, **kw)
+            assert all(torch.equal(g, w) for g, w in zip(got, want)), (page_size, owners)
+    torch.cuda.synchronize()
