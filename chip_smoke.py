@@ -105,6 +105,7 @@ import argparse
 import gc
 import json
 import pathlib
+import re
 import subprocess
 import sys
 import time
@@ -706,6 +707,31 @@ def sharded_bound_bytes(batch, shards, steps, dsteps, d, s0_bytes):
             + (shards - 1) * batch * 12)
 
 
+def ptxas_resources(module, kernels):
+    """Registers, spill stores and loads and stack bytes of each named
+    kernel, from the ``-Xptxas -v`` report `kernels.nvcc` writes beside
+    ``module``'s library."""
+    from repro_torch.kernels import nvcc
+    log = nvcc.library_path(module.SOURCE).with_suffix(".log")
+    out, cur = {}, None
+    for ln in (log.read_text().splitlines() if log.exists() else []):
+        m = re.search(r"Compiling entry function '(\w+)'", ln)
+        if m:   # Itanium mangling: the name's length, then the name
+            cur = next((k for k in kernels if f"{len(k)}{k}" in m.group(1)), None)
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads",
+                      ln)
+        if m:
+            out.setdefault(cur, {}).update(stack_bytes=int(m[1]), spill_stores=int(m[2]),
+                                           spill_loads=int(m[3]))
+        m = re.search(r"Used (\d+) registers", ln)
+        if m:
+            out.setdefault(cur, {})["registers"] = int(m[1])
+    return out
+
+
 def lookup_mismatch(got, want):
     """0 when both (base, merged) pairs are bit-identical, else the
     largest |difference|."""
@@ -742,7 +768,10 @@ def host_profile(fn, reps, top=12):
 # ---------------------------------------------------------------------------
 
 SHARD_SIZES = {1: (50_000,), 3: (9_000, 26_000, 15_000), 4: (9_000, 21_000, 14_000, 6_000)}
-SHARD_LEAF_DIV = (48, 64, 30, 100)
+# the lookup's cases add five and eight shard rows
+LOOKUP_SHARD_SIZES = {**SHARD_SIZES, 5: (9_000, 4_000, 17_000, 12_000, 8_000),
+                      8: (7_000, 3_000, 9_000, 5_000, 11_000, 4_000, 6_000, 5_000)}
+SHARD_LEAF_DIV = (48, 64, 30, 100, 40, 56, 72, 20)
 
 
 def _stacked_delta_rows(rows):
@@ -761,23 +790,25 @@ def _stacked_delta_rows(rows):
 
 def compare_sharded_lookup_kernel(rng, device, record):
     """`rmi_sharded_merged_lookup_cuda` against its plain version on the
-    card, bit for bit: S in {1, 3, 4} shards of unequal sizes and leaf
-    counts (Maps keys and a duplicate-heavy key set), an empty, a staged
-    and an unpadded power-of-two delta, stored / absent / duplicate-run
-    queries and queries above and below every key, batches of 777 and
-    1<<20, and query and delta rows broadcast with stride 0."""
+    card, bit for bit: S in {1, 3, 4, 5, 8} shards of unequal sizes and
+    leaf counts (Maps keys and a duplicate-heavy key set), an empty, a
+    staged and an unpadded power-of-two delta, stored / absent / duplicate-run queries
+    and queries above and below every key, batches of 777 and 1<<20,
+    query and delta rows broadcast with stride 0, and the leaf record's
+    column views `stack_rows` hands out (read in place) against four
+    separate arrays (packed per call)."""
     import torch
     from repro_torch.core import RMIConfig, build_rmi, make_keyset
     from repro_torch.data import gen_maps
     from repro_torch.index_service.delta import DeltaBuffer, combine_for_device
-    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import ops, ref, rmi_lookup
     from repro_torch.kernels.rmi_lookup import rmi_sharded_merged_lookup_cuda
 
     t = lambda a: torch.as_tensor(np.ascontiguousarray(a), device=device)  # noqa: E731
     worst = 0
     for label, raw in (("maps", gen_maps(SMALL_N, seed=5)),
                        ("dup", np.unique(_dup_heavy(rng, SMALL_N)))):
-        for S, sizes in SHARD_SIZES.items():
+        for S, sizes in LOOKUP_SHARD_SIZES.items():
             cuts = np.concatenate([[0], np.cumsum(sizes)]) * raw.size // sum(sizes)
             shards = []
             for s in range(S):
@@ -807,19 +838,24 @@ def compare_sharded_lookup_kernel(rng, device, record):
             qraw["batch_777"] = rng.choice(pool, 777)
             qraw["batch_1M"] = rng.choice(pool, BIG_BATCH)
             sizes_t = (st["shard_n"], st["shard_m"], st["shard_ratio"])
-            stacked = (st["stage0"], st["leaf_w"], st["leaf_b"], st["err_lo"], st["err_hi"],
-                       st["keys"])
+            leaves = {"record": tuple(st[k] for k in ("leaf_w", "leaf_b", "err_lo", "err_hi"))}
+            check(rmi_lookup._stacked_leaf_record(*leaves["record"])[0] is leaves["record"][0],
+                  f"sharded lookup: S{S} leaf tensors are not one record")
+            leaves["separate"] = tuple(a.contiguous() for a in leaves["record"])
             kw = dict(hidden=st["hidden"], max_window=st["max_window"])
             for dname, rows in deltas.items():
                 dks, dps = _stacked_delta_rows(rows)
                 dkt, dpt = t(dks), t(dps)
                 for qname, q in qraw.items():
                     qs = t(np.stack([k.normalize(q) for k, _ in shards]))
-                    views = [(qs, dkt, dpt)]
+                    views = [(qs, dkt, dpt, "record")]
+                    if qname in ("edges", "batch_1M"):  # four arrays, packed per call
+                        views.append((qs, dkt, dpt, "separate"))
                     if qname == "batch_777":  # broadcast rows, read in place
                         views.append((qs[:1].expand(S, -1), dkt[:1].expand(S, -1),
-                                      dpt[:1].expand(S, -1)))
-                    for vq, vdk, vdp in views:
+                                      dpt[:1].expand(S, -1), "record"))
+                    for vq, vdk, vdp, layout in views:
+                        stacked = (st["stage0"], *leaves[layout], st["keys"])
                         kb, kc = rmi_sharded_merged_lookup_cuda(vq, *stacked, vdk, vdp,
                                                                 *sizes_t, **kw)
                         pb, pc = ref.rmi_sharded_merged_lookup_reference(
@@ -828,8 +864,8 @@ def compare_sharded_lookup_kernel(rng, device, record):
                         err = max(int((kb - pb).abs().max()), int((kc - pc).abs().max()))
                         worst = max(worst, err)
                         record.append({"keys": label, "S": S, "delta": dname, "queries": qname,
-                                       "broadcast": vq.stride(0) == 0, "batch": int(vq.shape[1]),
-                                       "max_abs_err": err})
+                                       "broadcast": vq.stride(0) == 0, "leaves": layout,
+                                       "batch": int(vq.shape[1]), "max_abs_err": err})
                         check(err == 0, f"sharded lookup kernel != plain: {label}/S{S}/"
                                         f"{dname}/{qname}")
                     # stored keys at each shard's own float32 lower bound
@@ -1082,6 +1118,15 @@ SHARDED_PATHS = {"sharded_lookup": ("rmi_sharded_merged_lookup_cuda",),
                  "sharded_scan": ("rmi_sharded_scan_page_cuda",)}
 
 
+def write_set(base, rng, n_writes):
+    """``n_writes`` absent keys in ``base``'s span to insert, sorted, with
+    values 1..n_writes, and ``n_writes`` stored keys to delete, sorted."""
+    ins = _absent(base, rng.uniform(base[0], base[-1], n_writes * 11 // 10))
+    ins = np.sort(rng.choice(ins, n_writes, replace=False))
+    dels = np.sort(rng.choice(base, n_writes, replace=False))
+    return ins, 1 + np.arange(ins.size, dtype=np.int64), dels
+
+
 def drive_sharded(svc, base, rng, device, tag, n_writes, n_get, n_lookup, windows,
                   rebalance_to=None):
     """Writes, reads and scans on a sharded service over ``base`` (zero
@@ -1091,10 +1136,7 @@ def drive_sharded(svc, base, rng, device, tag, n_writes, n_get, n_lookup, window
     ``rebalance_to`` shards; a flush; and all the checks again.  Each
     path's launch counts go to ``windows``.  Returns the staged plan
     and plane (for the times), the oracle state and a summary."""
-    ins = _absent(base, rng.uniform(base[0], base[-1], n_writes * 11 // 10))
-    ins = np.sort(rng.choice(ins, n_writes, replace=False))
-    dels = np.sort(rng.choice(base, n_writes, replace=False))
-    ins_vals = 1 + np.arange(ins.size, dtype=np.int64)
+    ins, ins_vals, dels = write_set(base, rng, n_writes)
     t0 = time.perf_counter()
     check(svc.insert(ins, ins_vals) == ins.size, f"{tag}: insert applied count")
     check(svc.delete(dels) == dels.size, f"{tag}: delete applied count")
@@ -1279,7 +1321,8 @@ def run_sharded(args, base, rng, dev, card):
         row["scan_batch_rows_per_s"] = int(out[2].sum()) * 5 / (time.perf_counter() - t1)
         scans.append(row)
     emit({"phase": "sharded_times", "card": card, "n": int(base.size), "lookup": look,
-          "scans": scans})
+          "scans": scans,
+          "ptxas": ptxas_resources(rmi_lookup, ("rmi_sharded_lookup_kernel",))})
     return {"launches": launches, "lookup": look, "scans": scans,
             "scan_max_abs_err": max([summary["scan_max_abs_err"]]
                                     + [r["max_abs_err"] for r in scans])}
@@ -1375,13 +1418,17 @@ def hash_kwargs(hm, idx):
 
 def compare_hash_kernel(label, hm, idx, ks, rng, device, record):
     """`hash_probe_cuda` against its plain twin on the card, bit for bit,
-    over every query set and batches of 1, 777 and BIG_BATCH; the host
-    twin gives the card's answers too.  Returns the mismatch count."""
+    over every query set and batches of 1, 777 and BIG_BATCH on the
+    record views `ops.hash_probe_tensors` hands out (read in place), and
+    on the stored, edge and largest sets also on separate arrays (packed
+    per call); the host twin gives the card's answers too.  Returns the
+    mismatch count."""
     import torch
     from repro_torch.kernels import ops, ref
     from repro_torch.kernels.hash_probe import hash_probe_cuda
 
     tabs = ops.hash_probe_tensors(hm, idx, ks, device)
+    layouts = {"record": tabs, "separate": tuple(a.contiguous() for a in tabs)}
     kw = hash_kwargs(hm, idx)
     sets = hash_query_pool(ks.raw, ks, rng, 20_000)
     pool = np.concatenate(list(sets.values()))
@@ -1390,16 +1437,19 @@ def compare_hash_kernel(label, hm, idx, ks, rng, device, record):
     worst = 0
     for name, qs in sets.items():
         q = torch.as_tensor(ks.normalize(qs), device=device)
-        got = hash_probe_cuda(q, *tabs, **kw)
-        err = int((got != ref.hash_probe_reference(q, *tabs, **kw)).sum())
-        worst = max(worst, err)
-        record.append({"map": label, "queries": name, "batch": int(q.numel()),
-                       "mismatches": err, "found": int(got.sum())})
-        check(err == 0, f"hash kernel != plain: {label}/{name}")
-        if name in ("stored", "f32_equal"):
-            check(bool(got.all()), f"{label}: a {name} key not found")
-        if name == "absent":
-            check(not bool(got.any()), f"{label}: an absent key found")
+        for layout, lt in layouts.items():
+            if layout != "record" and name not in ("stored", "edges", f"batch_{BIG_BATCH}"):
+                continue
+            got = hash_probe_cuda(q, *lt, **kw)
+            err = int((got != ref.hash_probe_reference(q, *lt, **kw)).sum())
+            worst = max(worst, err)
+            record.append({"map": label, "queries": name, "tables": layout,
+                           "batch": int(q.numel()), "mismatches": err, "found": int(got.sum())})
+            check(err == 0, f"hash kernel != plain: {label}/{name}/{layout}")
+            if name in ("stored", "f32_equal"):
+                check(bool(got.all()), f"{label}: a {name} key not found")
+            if name == "absent":
+                check(not bool(got.any()), f"{label}: an absent key found")
     q = ks.normalize(sets["batch_777"])
     host = ref.hash_probe_reference(torch.as_tensor(q), *(a.cpu() for a in tabs), **kw)
     check(torch.equal(hash_probe_cuda(torch.as_tensor(q, device=device), *tabs, **kw).cpu(),
@@ -1497,11 +1547,10 @@ def distinct_sectors(ix, elems=8):
     return int(torch.unique(ix.to(torch.int64) // elems).numel())
 
 
-def hash_sectors(idx, tabs, q, kw):
-    """Distinct 32-byte sectors the hash probe of ``q`` must read: those
-    of the leaf parameters and the slot keys and links it gathers, and
-    of the overflow nodes it walks until the key is found or its chain
-    ends (each array's sectors counted once)."""
+def hash_gathers(idx, tabs, q, kw):
+    """The leaf, slot and overflow-node indices the hash probe of ``q``
+    gathers: its leaf and slot, and the nodes it walks until the key is
+    found or its chain ends."""
     import torch
     from repro_torch.core.learned_hash import model_slots
     from repro_torch.core.rmi import leaf_and_pos
@@ -1517,8 +1566,22 @@ def hash_sectors(idx, tabs, q, kw):
         walked.append(safe[active])
         found = found | (active & (ovf_key[safe] == q))
         nxt = torch.where(active, ovf_next[safe], torch.full_like(nxt, -1))
-    nodes = torch.cat(walked) if walked else slot[:0]
-    return 2 * (distinct_sectors(leaf) + distinct_sectors(slot) + distinct_sectors(nodes))
+    return leaf, slot, torch.cat(walked) if walked else slot[:0]
+
+
+def hash_sectors(gathers):
+    """Distinct 32-byte sectors the hash probe must read in the layout
+    the main path hands it: one 8-byte record a leaf (w, b), slot (key,
+    link) or overflow node it gathers or walks, four to a sector (each
+    table's sectors counted once).  The bound's yardstick."""
+    return sum(distinct_sectors(ix, elems=4) for ix in gathers)
+
+
+def hash_separate_sectors(gathers):
+    """The same gathers' distinct sectors as separate arrays lay them
+    out, two sectors a pair: the yardstick of the rows before the
+    records, kept beside the bound so those rows stay comparable."""
+    return 2 * sum(distinct_sectors(ix) for ix in gathers)
 
 
 def bloom_sectors(q, words, num_bits, k):
@@ -1659,7 +1722,7 @@ def run_hash_index(args, base, rng, dev, card):
     import torch
     from repro_torch.core import build_model_hashmap, build_random_hashmap, compile_hash_lookup
     from repro_torch.core.learned_hash import random_hash_u64
-    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import hash_probe, ops, ref
     from repro_torch.kernels.hash_probe import hash_probe_cuda
 
     t0 = time.perf_counter()
@@ -1694,12 +1757,15 @@ def run_hash_index(args, base, rng, dev, card):
     times = []
     for batch in PROBE_BATCHES:
         qt = torch.as_tensor(ks.norm[rng.choice(n, batch)], device=dev)
+        gathers = hash_gathers(idx, tabs, qt, kw)
         row = {"batch": batch,
                "ms": time_ms(lambda: hash_probe_cuda(qt, *tabs, **kw)),
                "plain_ms": time_ms(lambda: ref.hash_probe_reference(qt, *tabs, **kw),
                                    reps=3, warmup=1),
-               "sectors": hash_sectors(idx, tabs, qt, kw)}
+               "sectors": hash_sectors(gathers),
+               "separate_arrays_sectors": hash_separate_sectors(gathers)}
         row["bound_ms"] = probe_bound_ms(batch, row["sectors"])
+        row["separate_arrays_bound_ms"] = probe_bound_ms(batch, row["separate_arrays_sectors"])
         row["max_abs_err"] = int((hash_probe_cuda(qt, *tabs, **kw)
                                   != ref.hash_probe_reference(qt, *tabs, **kw)).sum())
         check(row["max_abs_err"] == 0, f"hash index: kernel != plain at {batch} stored keys")
@@ -1730,7 +1796,8 @@ def run_hash_index(args, base, rng, dev, card):
            "launches": launches, "main_path_s": main_s, "stored_found": found,
            "f32_absent": int(absent.size), "f32_absent_found": absent_found,
            "mismatches": max([mism] + [r["max_abs_err"] for r in times]),
-           "model": model_stats, "random": random_stats, "times": times}
+           "model": model_stats, "random": random_stats, "times": times,
+           "ptxas": ptxas_resources(hash_probe, ("hash_probe_kernel",))}
     emit({"phase": "hash_index", "card": card, **out})
     return out
 
@@ -2552,6 +2619,7 @@ def main(argv=None) -> int:
          "replaces": "src/repro/kernels/hash_probe.py:51", "launches": hashed["launches"],
          "max_abs_err": hash_worst, "bit_identical": hash_worst == 0,
          "ms": hbig["ms"], "plain_ms": hbig["plain_ms"], "bound_ms": hbig["bound_ms"],
+         "separate_arrays_bound_ms": hbig["separate_arrays_bound_ms"],
          "bound_by": "bytes", "library_ms": None},
         {"name": "bloom_probe_cuda", "route": "cuda", "source": probe_src,
          "replaces": "src/repro/kernels/bloom_probe.py:45",

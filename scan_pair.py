@@ -59,10 +59,12 @@ def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
 
 
-def load_parent(source: pathlib.Path):
+def load_parent(source: pathlib.Path, declare=PARENT_ARGTYPES):
+    """``source`` built with this tree's flags, its launchers declared
+    by ``declare`` (name: argtypes)."""
     from repro_torch.kernels import nvcc
     lib = ctypes.CDLL(str(nvcc.build(source)))
-    for name, argtypes in PARENT_ARGTYPES.items():
+    for name, argtypes in declare.items():
         getattr(lib, name).argtypes = argtypes
         getattr(lib, name).restype = _I
     return lib
@@ -99,24 +101,15 @@ def parent_sharded(lib, base, bvals, lp, ins, ivals, ins_rank, ls0, own_lo, own_
     return out
 
 
-def in_turns(parent, change, plain):
-    """Both kernels bit for bit against the plain twin, then timed
-    parent, change, change, parent."""
+def in_turns(parent, change, plain, mismatch=cs.scan_mismatch):
+    """Both kernels bit for bit against the plain twin (``mismatch`` 0),
+    then timed parent, change, change, parent."""
     want = plain()
-    errs = [cs.scan_mismatch(f(), want) for f in (parent, change)]
-    cs.check(errs == [0.0, 0.0], f"kernel != plain twin: parent, change = {errs}")
+    errs = [mismatch(f(), want) for f in (parent, change)]
+    cs.check(errs == [0, 0], f"kernel != plain twin: parent, change = {errs}")
     ms = [cs.time_ms(f) for f in (parent, change, change, parent)]
     return {"parent_ms": [ms[0], ms[3]], "change_ms": [ms[1], ms[2]],
             "ratio": (ms[1] + ms[2]) / (ms[0] + ms[3])}
-
-
-def writes(raw, rng, count):
-    """``count`` absent raw keys to insert (with values 1..count) and
-    ``count`` stored ones to delete, as the main path draws them."""
-    ins = cs._absent(raw, rng.uniform(raw[0], raw[-1], count * 11 // 10))
-    ins = np.sort(rng.choice(ins, count, replace=False))
-    dels = np.sort(raw[rng.choice(raw.size, count, replace=False)])
-    return ins, 1 + np.arange(ins.size, dtype=np.int64), dels
 
 
 def run_page(lib, raw, rng, dev):
@@ -127,7 +120,7 @@ def run_page(lib, raw, rng, dev):
     from repro_torch.kernels.rmi_scan import rmi_scan_page_cuda
     t = lambda a: torch.as_tensor(np.ascontiguousarray(a), device=dev)  # noqa: E731
     ks = make_keyset(raw)
-    ins, ivals, dels = writes(ks.raw, rng, min(cs.N_WRITES, ks.n // 4))
+    ins, ivals, dels = cs.write_set(ks.raw, rng, min(cs.N_WRITES, ks.n // 4))
     view = cs._pin_arrays(ks.raw, np.zeros(ks.n, np.int64), ins, ivals, dels)
     plan = [t(a) for a in device_scan_plan(view, ks.normalize)]
     base, bv = t(ks.norm), t(np.zeros(ks.n, np.int32))
@@ -157,7 +150,7 @@ def run_sharded(lib, raw, rng, dev):
     from repro_torch.kernels.rmi_scan import rmi_sharded_scan_page_cuda
     t = lambda a: torch.as_tensor(np.ascontiguousarray(a), device=dev)  # noqa: E731
     sub = raw[::cs.SHARDED_STRIDE]
-    ins, ivals, dels = writes(sub, rng, min(cs.N_WRITES, sub.size // 4))
+    ins, ivals, dels = cs.write_set(sub, rng, min(cs.N_WRITES, sub.size // 4))
     cuts = np.linspace(0, sub.size, SHARDS + 1).astype(np.int64)
     views = []
     for s in range(SHARDS):

@@ -24,19 +24,29 @@
 // patterns of an int32 tensor.  The probe stops at the first clear bit,
 // which gives the same answer as testing all k.
 //
-// What bounds them on this card: random 4-byte gathers from device
-// memory, each touching one 32-byte sector.  A hash query reads its key
-// (coalesced), two leaf parameters and a slot's key and next pointer
-// (four sectors, two pairs at one index each) and two sectors per
-// overflow node it walks; a Bloom query reads its key and one sector
-// per probe until the first clear bit (k for a stored key).  The
-// gathers of one query depend on each other only along the hash chain,
-// so the time is a few memory latencies per thread; one query per
-// thread and many resident warps (no shared memory, few registers) keep
-// many in flight.  Left for later: interleaving the slot key and next
-// pointer (and the two leaf parameters) so each pair is one sector,
-// a blocked Bloom layout that puts all k probes of a key in one sector,
-// and several queries per thread.
+// What bounds them on this card: random gathers from device memory,
+// each moving one 32-byte sector for a few useful bytes.  A hash query
+// reads its key (coalesced), its leaf's (w, b), its slot's key and next
+// pointer, and each overflow node's key and next pointer along its
+// chain; a Bloom query reads its key and one sector per probe until the
+// first clear bit (k for a stored key).  The gathers of one query depend
+// on each other (leaf -> slot -> first node -> next node), so a thread
+// holds one in flight; one query a thread and many resident warps (no
+// shared memory, few registers) keep many in flight, and the time is
+// set by how many distinct sectors the card must fetch.
+//
+// The hash probe reads every pair it needs by one 8-byte load: the leaf
+// as a (w, b) record, and the slot and each overflow node as a (key
+// bits, next) int32 record, the key column viewed as float32
+// (`ops.hash_probe_tensors` packs them on the card; the wrapper packs
+// separate arrays per call).  Each pair then costs one sector where two
+// arrays cost two.  `build_hashmap` lays each slot's overflow nodes out
+// contiguously in chain order, so after the first node the walk mostly
+// reads lines already fetched; it still follows `next` for any map.
+// Loading the record after the current node with it (the next node of a
+// contiguous chain) was measured on the card and did not pay.  Left for
+// later: a blocked Bloom layout that puts all k probes of a key in one
+// sector.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -52,30 +62,31 @@ __device__ __forceinline__ int to_index(float x) {
   return (int)clampf(x, 0.0f, INDEX_CLAMP);  // truncation toward zero
 }
 
+// One query a thread.  A leaf record is float2 (w, b); slot and
+// overflow records are int2 (key bits, next).
 __global__ void __launch_bounds__(256)
 hash_probe_kernel(const float* __restrict__ q, int B,
                   const float* __restrict__ s0,
-                  const float* __restrict__ leaf_w,
-                  const float* __restrict__ leaf_b, int M, float leaf_ratio,
-                  float nm1f, const float* __restrict__ slot_key,
-                  const int* __restrict__ slot_next, int S, float slot_ratio,
-                  const float* __restrict__ ovf_key,
-                  const int* __restrict__ ovf_next, int O, int trips,
-                  bool* __restrict__ out) {
+                  const float2* __restrict__ leaves, int M, float leaf_ratio,
+                  float nm1f, const int2* __restrict__ slots,
+                  int S, float slot_ratio, const int2* __restrict__ ovf, int O,
+                  int trips, bool* __restrict__ out) {
   int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= B) return;
   float qq = q[i];
   float p0 = __fadd_rn(__fmul_rn(qq, __ldg(s0)), __ldg(s0 + 1));
   int leaf = min(to_index(floorf(__fmul_rn(p0, leaf_ratio))), M - 1);
-  float pos = __fadd_rn(__fmul_rn(__ldg(leaf_w + leaf), qq), __ldg(leaf_b + leaf));
+  float2 lf = __ldg(leaves + leaf);
+  float pos = __fadd_rn(__fmul_rn(lf.x, qq), lf.y);
   pos = clampf(pos, 0.0f, nm1f);
   int slot = min(to_index(__fmul_rn(pos, slot_ratio)), S - 1);
-  bool found = __ldg(slot_key + slot) == qq;
-  int nxt = __ldg(slot_next + slot);
+  int2 rec = __ldg(slots + slot);
+  bool found = __int_as_float(rec.x) == qq;
+  int nxt = rec.y;
   for (int t = 0; t < trips && !found && nxt >= 0; ++t) {
-    int safe = min(nxt, O - 1);
-    found = __ldg(ovf_key + safe) == qq;
-    nxt = __ldg(ovf_next + safe);
+    rec = __ldg(ovf + min(nxt, O - 1));
+    found = __int_as_float(rec.x) == qq;
+    nxt = rec.y;
   }
   out[i] = found;
 }
@@ -108,16 +119,14 @@ bloom_probe_kernel(const uint32_t* __restrict__ q, int B,
 }
 
 extern "C" int hash_probe_launch(
-    const float* q, int B, const float* s0, const float* leaf_w,
-    const float* leaf_b, int M, float leaf_ratio, float nm1f,
-    const float* slot_key, const int* slot_next, int S, float slot_ratio,
-    const float* ovf_key, const int* ovf_next, int O, int trips, bool* out,
-    void* stream) {
+    const float* q, int B, const float* s0, const float* leaves, int M,
+    float leaf_ratio, float nm1f, const int* slots, int S, float slot_ratio,
+    const int* ovf, int O, int trips, bool* out, void* stream) {
   const int threads = 256;
   hash_probe_kernel<<<(B + threads - 1) / threads, threads, 0,
                       (cudaStream_t)stream>>>(
-      q, B, s0, leaf_w, leaf_b, M, leaf_ratio, nm1f, slot_key, slot_next, S,
-      slot_ratio, ovf_key, ovf_next, O, trips, out);
+      q, B, s0, (const float2*)leaves, M, leaf_ratio, nm1f,
+      (const int2*)slots, S, slot_ratio, (const int2*)ovf, O, trips, out);
   return (int)cudaGetLastError();
 }
 

@@ -14,33 +14,53 @@
 // rmi_sharded_lookup_kernel replaces
 //   rmi_sharded_merged_lookup_pallas (src/repro/kernels/rmi_lookup.py:895,
 //                                     body _sharded_shard_body at :668)
-// One thread per (shard, query), the shard on blockIdx.y: the same
-// per-query body with each shard's n, leaf count and f32(m/n) read as
-// runtime values, `steps` the maximum over the shards, and the final
-// lower bound clamped to the shard's n (extra trips past a smaller
-// shard's window overshoot only there).  Every stacked array is
-// addressed by its own row stride, so a row broadcast with
-// `expand` (stride 0) is read in place.  It emits per-shard
-// (local base_lb, delta prefix contribution); the caller reassembles
-// global ranks from the routed row and the shard offsets.
+// It emits, for every query on every shard row as the reference's grid
+// does, the per-shard (local base_lb, delta prefix contribution); the
+// caller reassembles global ranks from the routed row and the shard
+// offsets.  Each row runs the single-shard body with its shard's n, leaf
+// count and f32(m/n) as runtime values, `steps` the maximum over the
+// shards, and the lower bound clamped to the shard's n (extra trips past
+// a smaller shard's window overshoot only there).  Every stacked input
+// is addressed by its own row stride, so a row broadcast with `expand`
+// (stride 0) is read in place.
 //
-// What bounds them on this card: scattered sector reads from device
-// memory.  A query gathers a random leaf, then the first probe and the
-// halving probes in a random window of the base keys (780 MB at 195M
-// keys); each gather moves a whole sector for 4 useful bytes, and the
-// last trips fall in a sector already fetched.  The delta keys (4 MB at
-// 1<<20 entries) are read from L2.  The single-shard kernel reads a leaf
-// as one 16-byte record (w, b, err_lo, err_hi) by one vector load: one
-// sector a query where four separate arrays cost four, and less of L2
-// spent on leaves.  One query a thread and many resident warps keep the
-// chains in flight, and the merged kernel runs its delta search's trips
-// beside the base search's (the two do not depend on each other), so a
-// thread has two gathers in flight.  Staging the delta's top levels in
-// shared memory, several queries a thread and a persistent grid were
-// measured on the card and did not pay (PERF.md §6).  The sharded
-// kernel reads its four stacked leaf arrays and searches every query on
-// every shard row, as the reference's grid does: S times the
-// single-shard work.
+// What bounds the lookups on this card: chains of dependent sector reads
+// from device memory.  A query gathers a random leaf, then the first
+// probe and the halving probes in a random window of the base keys (780
+// MB at 195M keys); each gather moves a whole sector for 4 useful bytes,
+// and the last trips fall in a sector already fetched.  The delta keys
+// (4 MB at 1<<20 entries) are read from L2.  A leaf is one 16-byte
+// record (w, b, err_lo, err_hi) read by one vector load: one sector a
+// query where four separate arrays cost four.  One query a thread and
+// many resident warps keep the chains in flight, and the delta search's
+// trips ride beside the base search's (the two do not depend on each
+// other), so a thread has two gathers in flight.  Staging the delta's
+// top levels in shared memory, several queries a thread and a persistent
+// grid were measured on the card and did not pay for the single-shard
+// kernel (PERF.md §6).
+//
+// The sharded lookup searches every query on every row, so S times the
+// single-shard work, and only the owning row's search reaches device
+// memory: on every other row the query lies outside [0, 1] in that
+// shard's frame, its leaf and position clamp to the first or last ones,
+// and all such lanes probe the same few lines.  Measured on the card,
+// what bounds it is then not the chain of gathers but the work of all
+// S x B lanes: the instructions they issue, the distinct lines each
+// warp-wide gather touches, and the owned lanes' misses, with the delta
+// search (20 trips over 4 MB in L2 at 1<<20 entries) near half the time.
+// So each lane's trip is made as cheap as it can be: one thread per
+// (shard, query) with the shard on blockIdx.y, the leaf one 16-byte load
+// from the (S, M, 4) record `ops.stack_rows` builds, each row's base
+// address kept in a register (otherwise the compiler rebuilds
+// row * stride + index in 64 bits at every probe), the delta trips
+// beside the base trips, and the base trips stopped once every search
+// of the warp sits at a fixed point, which no later trip moves, so the
+// answer is the fixed-trip one (`settling_trip`).  The alternative, one
+// thread per query searching the rows in chunks in lockstep (2 gathers
+// a row in flight a trip, B/32 warps), was slower on the card at every
+// chunk width: its lanes do the same work with fewer warps and more
+// registers (PERF.md §6).  Staging the per-shard scalars and stage-0
+// rows in shared memory was slower too.
 //
 // The window contract: a stored key is found only if this kernel picks
 // the same leaf and the same position as the build did.  The build runs
@@ -149,28 +169,6 @@ __device__ __forceinline__ void delta_trip(int& lo, int& hi,
   halve(lo, hi, mid, __ldg(dkeys + min(mid, D - 1)), qq);
 }
 
-// The window, then `steps` halving trips: the base lower bound of one
-// query (the reference's _base_lower_bound), without the sharded clamp.
-__device__ __forceinline__ int base_lower_bound(float qq, float4 leaf,
-                                                const float* __restrict__ keys,
-                                                int n, float nm1f, int steps) {
-  int lo, hi;
-  base_window(qq, leaf, keys, n, nm1f, lo, hi);
-  for (int s = 0; s < steps; ++s) {
-    int mid = (lo + hi) >> 1;
-    halve(lo, hi, mid, __ldg(keys + min(mid, n - 1)), qq);
-  }
-  return lo;
-}
-
-__device__ __forceinline__ int delta_lower_bound(float qq,
-                                                 const float* __restrict__ dkeys,
-                                                 int D, int dsteps) {
-  int dlo = 0, dhi = D;
-  for (int s = 0; s < dsteps; ++s) delta_trip(dlo, dhi, dkeys, D, qq);
-  return dlo;
-}
-
 // The delta search does not depend on the base search, so its trips
 // ride along the base trips: each thread keeps two gathers in flight.
 template <bool WITH_DELTA>
@@ -201,45 +199,98 @@ rmi_lookup_kernel(const float* __restrict__ q, int B,
   }
 }
 
-// Row strides (in elements) of the stacked inputs; 0 reads one row for
-// every shard.
+// Row strides of the stacked inputs, in elements (`leaf` in 16-byte
+// records); 0 reads one row for every shard.
 struct ShardStrides {
-  long long q, s0, leaf_w, leaf_b, err_lo, err_hi, keys, dkeys, dprefix;
+  long long q, s0, leaf, keys, dkeys, dprefix;
 };
 
-__global__ void __launch_bounds__(256)
-rmi_sharded_lookup_kernel(const float* __restrict__ q, int B,
-                          const float* __restrict__ s0, int nl, int h1, int h2,
-                          const float* __restrict__ leaf_w,
-                          const float* __restrict__ leaf_b,
-                          const float* __restrict__ err_lo,
-                          const float* __restrict__ err_hi,
-                          const float* __restrict__ keys,
-                          const float* __restrict__ dkeys,
-                          const int* __restrict__ dprefix, int D,
-                          const int* __restrict__ shard_n,
-                          const int* __restrict__ shard_m,
-                          const float* __restrict__ shard_ratio, int steps,
-                          int dsteps, ShardStrides st,
-                          int* __restrict__ out_base,
-                          int* __restrict__ out_contrib) {
+struct ShardArgs {
+  const float* q;
+  int S, B;
+  const float* s0;
+  int nl, h1, h2;
+  const float4* leaves;
+  const float* keys;
+  const float* dkeys;
+  const int* dprefix;
+  int D, steps, dsteps;
+  ShardStrides st;
+  const int* shard_n;
+  const int* shard_m;
+  const float* shard_ratio;
+  int* out_base;
+  int* out_contrib;
+};
+
+// One base trip that also reports whether the search now sits at a
+// fixed point, which no later trip moves: (x + 1, x), or (x, x) just
+// after a probe at x that was not below qq.  From [lo, hi) with
+// lo <= hi a trip keeps lo <= hi + 1, and (x, x) steps at most once, to
+// (x + 1, x), so a search that reached one ends there.
+__device__ __forceinline__ bool settling_trip(int& lo, int& hi, float v, int mid,
+                                              float qq) {
+  bool r = v < qq;
+  lo = r ? mid + 1 : lo;
+  hi = r ? hi : mid;
+  return (lo == hi + 1) | ((lo == hi) & !r);
+}
+
+// A row's base address, kept in a register: without the barrier the
+// compiler folds row * stride back into every probe's address.
+__device__ __forceinline__ const float* row_pointer(const float* base, long long offset) {
+  const float* p = base + offset;
+  asm("" : "+l"(p));
+  return p;
+}
+
+// Query i on shard row s: its leaf and window, then the base and delta
+// searches trip by trip, both probes issued before either is compared.
+// The base trips stop once every search of the warp (`warp`: its lanes
+// in the launch) sits at a fixed point, which gives the fixed-trip
+// answer; the delta search, full-range, runs all its trips.
+__device__ __forceinline__ void lookup_row(const ShardArgs& a, int i, long long s,
+                                           unsigned warp) {
+  int n = __ldg(a.shard_n + s);
+  int nm1 = n - 1;
+  float qq = a.q[s * a.st.q + i];
+  int leaf = select_leaf(qq, a.s0 + s * a.st.s0, a.nl, a.h1, a.h2,
+                         __ldg(a.shard_m + s), __ldg(a.shard_ratio + s));
+  const float* kr = row_pointer(a.keys, s * a.st.keys);
+  const float* dr = row_pointer(a.dkeys, s * a.st.dkeys);
+  int lo, hi, dlo = 0, dhi = a.D;
+  base_window(qq, __ldg(a.leaves + s * a.st.leaf + leaf), kr, n,
+              __int2float_rn(nm1), lo, hi);
+  bool fixed = lo == hi + 1;
+  // both searches side by side while both run, then the longer alone
+  int t = 0;
+  for (; t < a.steps && t < a.dsteps && !__all_sync(warp, fixed); ++t) {
+    int mid = (lo + hi) >> 1;
+    int dmid = (dlo + dhi) >> 1;
+    float v = __ldg(kr + min(mid, nm1));
+    float dv = __ldg(dr + min(dmid, a.D - 1));
+    fixed = settling_trip(lo, hi, v, mid, qq);
+    halve(dlo, dhi, dmid, dv, qq);
+  }
+  for (int dt = t; dt < a.dsteps; ++dt) {
+    int dmid = (dlo + dhi) >> 1;
+    halve(dlo, dhi, dmid, __ldg(dr + min(dmid, a.D - 1)), qq);
+  }
+  for (; t < a.steps && !__all_sync(warp, fixed); ++t) {
+    int mid = (lo + hi) >> 1;
+    fixed = settling_trip(lo, hi, __ldg(kr + min(mid, nm1)), mid, qq);
+  }
+  a.out_base[s * a.B + i] = min(lo, n);
+  a.out_contrib[s * a.B + i] = __ldg(a.dprefix + s * a.st.dprefix + min(dlo, a.D));
+}
+
+// One thread per (shard, query), the shard on blockIdx.y.  The warp's
+// lanes in the launch are fixed by a ballot before any lane leaves.
+__global__ void __launch_bounds__(256) rmi_sharded_lookup_kernel(ShardArgs a) {
   int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= B) return;
-  long long s = blockIdx.y;
-  int n = __ldg(shard_n + s);
-  int M = __ldg(shard_m + s);
-  float qq = q[s * st.q + i];
-  int leaf = select_leaf(qq, s0 + s * st.s0, nl, h1, h2, M,
-                         __ldg(shard_ratio + s));
-  int lo = base_lower_bound(
-      qq, make_float4(__ldg(leaf_w + s * st.leaf_w + leaf),
-                      __ldg(leaf_b + s * st.leaf_b + leaf),
-                      __ldg(err_lo + s * st.err_lo + leaf),
-                      __ldg(err_hi + s * st.err_hi + leaf)),
-      keys + s * st.keys, n, __int2float_rn(n - 1), steps);
-  int dlo = delta_lower_bound(qq, dkeys + s * st.dkeys, D, dsteps);
-  out_base[s * B + i] = min(lo, n);
-  out_contrib[s * B + i] = __ldg(dprefix + s * st.dprefix + min(dlo, D));
+  unsigned warp = __ballot_sync(0xffffffffu, i < a.B);
+  if (i >= a.B) return;
+  lookup_row(a, i, blockIdx.y, warp);
 }
 
 extern "C" int rmi_lookup_launch(
@@ -265,18 +316,18 @@ extern "C" int rmi_lookup_launch(
 
 extern "C" int rmi_sharded_lookup_launch(
     const float* q, int S, int B, const float* s0, int nl, int h1, int h2,
-    const float* leaf_w, const float* leaf_b, const float* err_lo,
-    const float* err_hi, const float* keys, const float* dkeys,
+    const float* leaves, const float* keys, const float* dkeys,
     const int* dprefix, int D, const int* shard_n, const int* shard_m,
     const float* shard_ratio, int steps, int dsteps, const long long* strides,
     int* out_base, int* out_contrib, void* stream) {
   const int threads = 256;
+  ShardArgs a = {q, S, B, s0, nl, h1, h2, (const float4*)leaves, keys, dkeys,
+                 dprefix, D, steps, dsteps,
+                 {strides[0], strides[1], strides[2], strides[3], strides[4],
+                  strides[5]},
+                 shard_n, shard_m, shard_ratio, out_base, out_contrib};
+  cudaStream_t st = (cudaStream_t)stream;
   dim3 grid((B + threads - 1) / threads, S);
-  ShardStrides st = {strides[0], strides[1], strides[2], strides[3], strides[4],
-                     strides[5], strides[6], strides[7], strides[8]};
-  rmi_sharded_lookup_kernel<<<grid, threads, 0, (cudaStream_t)stream>>>(
-      q, B, s0, nl, h1, h2, leaf_w, leaf_b, err_lo, err_hi, keys, dkeys,
-      dprefix, D, shard_n, shard_m, shard_ratio, steps, dsteps, st, out_base,
-      out_contrib);
+  rmi_sharded_lookup_kernel<<<grid, threads, 0, st>>>(a);
   return (int)cudaGetLastError();
 }

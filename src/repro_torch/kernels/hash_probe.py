@@ -5,6 +5,13 @@ the PyTorch wrapper.
     f32(S/n))``, primary slot compare and the overflow chain walk, one
     launch -> (B,) bool.  Replaces the reference's ``hash_probe_pallas``.
 
+The kernel reads each pair it needs by one 8-byte load: the leaf as a
+(w, b) float32 record, the slot and each overflow node as a (key bits,
+next) int32 record whose key column is viewed as float32.
+`ops.hash_probe_tensors` builds those records on the card and hands out
+their column views, which the wrapper reads in place; other arrays are
+packed into fresh records on every call.
+
 The source also holds the §5 Bloom probe (`kernels.bloom_probe`); both
 wrappers load one library, declared here.  For a CUDA tensor a wrapper
 launches the kernel (or raises); for a CPU tensor it runs the plain
@@ -44,14 +51,26 @@ def declare(lib) -> None:
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.hash_probe_launch.argtypes = [
         p, i, p,                    # q, B, s0
-        p, p, i, f, f,              # leaf_w/b, M, f32(M/n), f32(n-1)
-        p, p, i, f,                 # slot_key, slot_next, S, f32(S/n)
-        p, p, i, i,                 # ovf_key, ovf_next, O, trips
+        p, i, f, f,                 # leaf record, M, f32(M/n), f32(n-1)
+        p, i, f,                    # slot record, S, f32(S/n)
+        p, i, i,                    # overflow record, O, trips
         p, p,                       # out, stream
     ]
     lib.hash_probe_launch.restype = i
     lib.bloom_probe_launch.argtypes = [p, i, p, ctypes.c_uint32, i, p, p]
     lib.bloom_probe_launch.restype = i
+
+
+def _pair_record(first, second) -> torch.Tensor:
+    """Where the kernel reads the 8-byte pairs ``(first[j], second[j])``:
+    the two 1-D columns of one (N, 2) record (adjacent, 8-byte aligned,
+    as `ops.hash_probe_tensors` hands them out) are read in place; other
+    arrays are packed into a fresh (N, 2) record of their bits."""
+    p = first.data_ptr()
+    if (p % 8 == 0 and second.data_ptr() == p + 4
+            and first.stride(0) == second.stride(0) == 2):
+        return first
+    return torch.stack([first.view(torch.int32), second.view(torch.int32)], dim=1)
 
 
 def hash_probe_cuda(
@@ -91,18 +110,23 @@ def hash_probe_cuda(
         raise ValueError("trips must be >= 0")
     f32, i32 = torch.float32, torch.int32
     ptrs = [nvcc.check_tensor(a, nm, dt, dev) for a, nm, dt in (
-        (q, "q", f32), (s0, "stage0", f32), (leaf_w, "leaf_w", f32),
-        (leaf_b, "leaf_b", f32), (slot_key, "slot_key", f32),
-        (slot_next, "slot_next", i32), (ovf_key, "ovf_key", f32),
-        (ovf_next, "ovf_next", i32))]
+        (q, "q", f32), (s0, "stage0", f32))]
+    for a, nm, dt in ((leaf_w, "leaf_w", f32), (leaf_b, "leaf_b", f32),
+                      (slot_key, "slot_key", f32), (slot_next, "slot_next", i32),
+                      (ovf_key, "ovf_key", f32), (ovf_next, "ovf_next", i32)):
+        if a.device != dev or a.dtype != dt or a.ndim != 1:
+            raise ValueError(f"{nm} must be a 1-D {dt} tensor on {dev}")
+    leaves = _pair_record(leaf_w, leaf_b)
+    slots = _pair_record(slot_key, slot_next)
+    ovf = _pair_record(ovf_key, ovf_next)
     out = torch.empty(q.shape, dtype=torch.bool, device=dev)
     if q.shape[0] == 0:
         return out
     err = nvcc.load(SOURCE, declare).hash_probe_launch(
-        ptrs[0], q.shape[0], ptrs[1], ptrs[2], ptrs[3], num_leaves,
+        ptrs[0], q.shape[0], ptrs[1], leaves.data_ptr(), num_leaves,
         float(np.float32(num_leaves / n)), float(np.float32(n - 1)),
-        ptrs[4], ptrs[5], num_slots, float(np.float32(num_slots / n)),
-        ptrs[6], ptrs[7], o, trips, out.data_ptr(),
+        slots.data_ptr(), num_slots, float(np.float32(num_slots / n)),
+        ovf.data_ptr(), o, trips, out.data_ptr(),
         torch.cuda.current_stream(dev).cuda_stream)
     nvcc.raise_on_error(err, "hash_probe")
     LAUNCHES["hash_probe_cuda"] += 1

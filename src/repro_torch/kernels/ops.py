@@ -18,6 +18,7 @@ import torch
 
 from repro_torch.core.bloom import words_tensor
 from repro_torch.core.models import pack_stage0
+from repro_torch.core.rmi import LEAF_FIELDS
 from repro_torch.device import resolve_device
 from repro_torch.kernels import ref
 from repro_torch.kernels.bloom_probe import as_u32_bits, bloom_probe_cuda
@@ -307,7 +308,9 @@ def stack_rows(rows, device) -> dict:
     """Stack `pad_shard_row` rows into the (S, ...) tensors
     `sharded_routed_lookup` takes, on ``device`` (fresh copies:
     nothing aliases the rows), plus the shared ``hidden`` and the
-    maximum ``max_window``."""
+    maximum ``max_window``.  The four leaf tensors are the column views
+    of one (S, M, 4) float32 record (w, b, err_lo, err_hi), which the
+    sharded lookup kernel reads with one 16-byte load a leaf."""
     hiddens = {r["hidden"] for r in rows}
     if len(hiddens) != 1:
         raise ValueError("shards disagree on stage-0 architecture")
@@ -316,7 +319,10 @@ def stack_rows(rows, device) -> dict:
         return torch.from_numpy(np.stack(
             [np.asarray(r[key], dtype) for r in rows])).to(device)
 
-    out = {k: up(k) for k in ("stage0", "leaf_w", "leaf_b", "err_lo", "err_hi", "keys")}
+    out = {k: up(k) for k in ("stage0", "keys")}
+    record = torch.from_numpy(np.stack(
+        [np.stack([r[f] for f in LEAF_FIELDS], axis=1) for r in rows])).to(device)
+    out.update(zip(LEAF_FIELDS, record.unbind(2)))
     out["shard_n"] = up("n", np.int32)
     out["shard_m"] = up("m", np.int32)
     out["shard_ratio"] = up("ratio", np.float32)
@@ -468,14 +474,23 @@ def bloom_probe_op(bf, queries_u32, *, device=None) -> torch.Tensor:
 def hash_probe_tensors(hm, index, keys, device) -> tuple:
     """The probe's tables on ``device``: the linear stage-0, the leaf
     parameters, and the slot and overflow keys normalized into the key
-    set's float32 frame (NaN stays NaN) with int32 links."""
+    set's float32 frame (NaN stays NaN) with int32 links.  Each pair the
+    kernel reads together is one 8-byte record, packed on ``device``
+    after the upload (one `torch.stack` each): ``leaf_w`` and ``leaf_b``
+    are the columns of an (M, 2) float32 record, and each key and link
+    the columns of an (N, 2) int32 record (key bits, next), the key
+    column viewed as float32."""
     dev = torch.device(device)
     t = lambda a: torch.as_tensor(a, device=dev)  # noqa: E731
-    return (
-        t(pack_stage0(index.stage0_params)), t(index.leaf_w), t(index.leaf_b),
-        t(keys.normalize(hm.slot_key)), t(hm.slot_next.astype(np.int32)),
-        t(keys.normalize(hm.ovf_key)), t(hm.ovf_next.astype(np.int32)),
-    )
+
+    def pairs(key, nxt):
+        rec = torch.stack([t(keys.normalize(key)).view(torch.int32),
+                           t(nxt.astype(np.int32))], dim=1)
+        return rec.view(torch.float32)[:, 0], rec[:, 1]
+
+    leaves = torch.stack([t(index.leaf_w), t(index.leaf_b)], dim=1)
+    return (t(pack_stage0(index.stage0_params)), leaves[:, 0], leaves[:, 1],
+            *pairs(hm.slot_key, hm.slot_next), *pairs(hm.ovf_key, hm.ovf_next))
 
 
 def hash_probe_op(hm, index, keys, q_raw, *, device=None) -> torch.Tensor:

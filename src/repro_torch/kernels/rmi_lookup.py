@@ -1,8 +1,8 @@
 """The fused RMI lookup kernel (``csrc/rmi_lookup.cu``): build, load
 and the PyTorch wrappers.
 
-Two wrappers share one CUDA source, compiled once with and once without
-the delta search (a template flag):
+Three wrappers share one CUDA source; the first two are one kernel,
+compiled once with and once without the delta search (a template flag):
 
 ``rmi_lookup_cuda``        — the read-only §3 lookup: stage-0 MLP, leaf
     select, leaf position and error window, a first probe at the
@@ -13,10 +13,15 @@ the delta search (a template flag):
     one prefix gather, emitting ``(base_lb, merged_rank)`` from one
     launch.  Replaces ``rmi_merged_lookup_pallas``.
 
-Both read a leaf as one (M, 4) float32 record (w, b, err_lo, err_hi):
-`core.rmi.pack_leaves` builds it, and callers that keep it pass its
-four column views (`RMIndex.as_tree` does); four separate arrays are
-packed into a fresh record on every call.
+``rmi_sharded_merged_lookup_cuda`` — the same merged lookup of every
+    query on every row of stacked shards, one thread a (shard, query).
+    Replaces ``rmi_sharded_merged_lookup_pallas``.
+
+All three read a leaf as one 16-byte float32 record (w, b, err_lo,
+err_hi): `core.rmi.pack_leaves` builds an (M, 4) one and
+`ops.stack_rows` an (S, M, 4) one, and callers that keep it pass its
+four column views (`RMIndex.as_tree` and `ops.stack_rows` do); four
+separate arrays are packed into a fresh record on every call.
 
 For a CUDA tensor a wrapper launches the kernel (or raises); for a CPU
 tensor it runs the plain version in `kernels.ref`.  Each launch adds
@@ -101,8 +106,7 @@ def _declare(lib) -> None:
     lib.rmi_lookup_launch.restype = i
     lib.rmi_sharded_lookup_launch.argtypes = [
         p, i, i, p, i, i, i,        # q, S, B, s0, nl, h1, h2
-        p, p, p, p, p,              # leaf_w/b, err_lo/hi, keys
-        p, p, i,                    # dkeys, dprefix, D
+        p, p, p, p, i,              # leaf record, keys, dkeys, dprefix, D
         p, p, p, i, i,              # shard_n/m/ratio, steps, dsteps
         p, p, p, p,                 # row strides, out_base, out_contrib, stream
     ]
@@ -215,17 +219,39 @@ def rmi_merged_lookup_cuda(
     )
 
 
-def _row_stride(t: torch.Tensor, name: str, dtype, dev, rows: int) -> int:
+def _row_stride(t: torch.Tensor, name: str, dtype, dev, rows: int,
+                elem_stride: int = 1) -> int:
     """Check one stacked (S, W) input: on ``dev``, of ``dtype``, ``rows``
-    rows, each contiguous; returns its row stride (0 for a row
-    broadcast with ``expand``)."""
+    rows whose elements lie ``elem_stride`` apart (1: contiguous rows; 4:
+    a column of an (S, M, 4) leaf record); returns its row stride (0 for
+    a row broadcast with ``expand``)."""
     if t.device != dev:
         raise ValueError(f"{name} is on {t.device}, expected {dev}")
     if t.dtype != dtype:
         raise TypeError(f"{name} has dtype {t.dtype}, expected {dtype}")
-    if t.ndim != 2 or t.shape[0] != rows or (t.shape[1] > 1 and t.stride(1) != 1):
-        raise ValueError(f"{name} must be ({rows}, W) with contiguous rows")
+    if (t.ndim != 2 or t.shape[0] != rows
+            or (t.shape[1] > 1 and t.stride(1) not in (1, elem_stride))):
+        raise ValueError(f"{name} must be ({rows}, W) with contiguous rows"
+                         + (" or a column of an (S, M, 4) record" if elem_stride > 1 else ""))
     return t.stride(0)
+
+
+def _stacked_leaf_record(leaf_w, leaf_b, err_lo, err_hi):
+    """``(record, row_stride)`` of the (S, M, 4) leaf record the kernel
+    reads, the row stride in records: the record whose columns the four
+    (S, M) leaf tensors are (`ops.stack_rows` hands them out so; a row
+    may be broadcast with stride 0), or a fresh pack of them."""
+    p = leaf_w.data_ptr()
+    m = leaf_w.shape[1]
+    if (p % 16 == 0 and leaf_b.data_ptr() == p + 4 and err_lo.data_ptr() == p + 8
+            and err_hi.data_ptr() == p + 12
+            and (m == 1 or leaf_w.stride(1) == leaf_b.stride(1) == err_lo.stride(1)
+                 == err_hi.stride(1) == 4)
+            and leaf_w.stride(0) == leaf_b.stride(0) == err_lo.stride(0)
+            == err_hi.stride(0) and leaf_w.stride(0) % 4 == 0
+            and all(t.shape == leaf_w.shape for t in (leaf_b, err_lo, err_hi))):
+        return leaf_w, leaf_w.stride(0) // 4
+    return torch.stack([leaf_w, leaf_b, err_lo, err_hi], dim=2), m
 
 
 def rmi_sharded_merged_lookup_cuda(
@@ -248,8 +274,11 @@ def rmi_sharded_merged_lookup_cuda(
     """Sharded merged lookup: every query on every shard row, one
     launch.  Returns the per-shard ``(local_base, delta_contrib)``, both
     int32 (S, B); `ops.sharded_reassemble` turns them into global
-    ranks.  Rows may be broadcast views (stride 0).  The caller keeps
-    each shard's n below its padded width and its leaf count below M."""
+    ranks.  Rows may be broadcast views (stride 0).  The four leaf
+    tensors are read in place when they are the column views of one
+    (S, M, 4) record (`ops.stack_rows`), else packed into one per call.
+    The caller keeps each shard's n below its padded width and its leaf
+    count below M."""
     if q.device.type == "cpu":
         return ref.rmi_sharded_merged_lookup_reference(
             q, s0, leaf_w, leaf_b, err_lo, err_hi, sorted_keys, delta_keys,
@@ -261,9 +290,16 @@ def rmi_sharded_merged_lookup_cuda(
     if q.ndim != 2:
         raise ValueError("q must be (S, B)")
     S, B = q.shape
+    for t, nm in ((leaf_w, "leaf_w"), (leaf_b, "leaf_b"), (err_lo, "err_lo"),
+                  (err_hi, "err_hi")):
+        _row_stride(t, nm, f32, dev, S, elem_stride=4)
+        if t.shape != leaf_w.shape:
+            raise ValueError(f"{nm} must have leaf_w's shape {tuple(leaf_w.shape)}")
+    record, leaf_stride = _stacked_leaf_record(leaf_w, leaf_b, err_lo, err_hi)
     strides = [_row_stride(t, nm, dt, dev, S) for t, nm, dt in (
-        (q, "q", f32), (s0, "stage0", f32), (leaf_w, "leaf_w", f32),
-        (leaf_b, "leaf_b", f32), (err_lo, "err_lo", f32), (err_hi, "err_hi", f32),
+        (q, "q", f32), (s0, "stage0", f32))]
+    strides.append(leaf_stride)
+    strides += [_row_stride(t, nm, dt, dev, S) for t, nm, dt in (
         (sorted_keys, "sorted_keys", f32), (delta_keys, "delta_keys", f32),
         (delta_prefix, "delta_prefix", i32))]
     d = delta_keys.shape[1]
@@ -287,8 +323,7 @@ def rmi_sharded_merged_lookup_cuda(
     err = nvcc.load(SOURCE, _declare).rmi_sharded_lookup_launch(
         q.data_ptr(), S, B, s0.data_ptr(), len(hidden) + 1,
         hidden[0] if hidden else 0, hidden[1] if len(hidden) > 1 else 0,
-        leaf_w.data_ptr(), leaf_b.data_ptr(), err_lo.data_ptr(),
-        err_hi.data_ptr(), sorted_keys.data_ptr(), delta_keys.data_ptr(),
+        record.data_ptr(), sorted_keys.data_ptr(), delta_keys.data_ptr(),
         delta_prefix.data_ptr(), d, *ptrs, _search_steps(max_window),
         _search_steps(d), ctypes.addressof(stride_buf), base.data_ptr(),
         contrib.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)

@@ -1,8 +1,9 @@
-"""The decompositions of the redesigned lookup and range-scan kernels,
-emulated in plain PyTorch on the host.
+"""The decompositions of the redesigned lookup, range-scan and hash-probe
+kernels, emulated in plain PyTorch on the host.
 
-The CUDA kernels of `csrc/rmi_lookup.cu` and `csrc/rmi_scan.cu` reach
-their plain twins' answers by another route, and the card is not here.
+The CUDA kernels of `csrc/rmi_lookup.cu`, `csrc/rmi_scan.cu` and
+`csrc/probe.cu` reach their plain twins' answers by another route, and
+the card is not here.
 So each route is written out below step for step, with its sizes as
 parameters small enough for the CPU, and held bit for bit against the
 plain twins and the reference:
@@ -22,11 +23,20 @@ plain twins and the reference:
   and greatest valid rank, then B3's spans over the two arrays;
 * the sharded scan (B5): B3's tiles over one shard's slab row, dead
   tiles that search nothing, and tiles whose local ranks wrap int32
-  chained lane by lane.
+  chained lane by lane;
+* the sharded lookup (B4): the (S, M, 4) leaf record `stack_rows` hands
+  out (or a fresh pack of four arrays), one lane a (shard, query), base
+  and delta trips side by side, and a warp's base trips stopped once
+  every lane sits at a fixed point;
+* the §4 hash probe (B7): the 8-byte (w, b), (key bits, next) records
+  `hash_probe_tensors` builds (or fresh packs), read one pair a gather,
+  and the chain walk that stops at a hit, at the chain's end or after
+  ``trips`` hops.
 
 Buffer sizes are parameters, small enough here to reach every path.
 The kernels themselves meet these cases in the `cuda`-marked tests of
-`test_torch_kernels.py`, `test_torch_scan.py` and `test_torch_sharded.py`.
+`test_torch_kernels.py`, `test_torch_scan.py`, `test_torch_sharded.py`
+and `test_torch_probe.py`.
 """
 
 import types
@@ -43,10 +53,12 @@ from repro.core import RMIConfig, build_rmi, make_keyset  # noqa: E402
 from repro.index_service.delta import DeltaBuffer as RefDelta  # noqa: E402
 from repro.index_service.delta import combine_for_device  # noqa: E402
 from repro.kernels import ref as jax_ref  # noqa: E402
+from repro.kernels.hash_probe import hash_probe_pallas  # noqa: E402
 from repro.kernels.rmi_lookup import (  # noqa: E402
     rmi_lookup_pallas,
     rmi_merged_lookup_pallas,
     rmi_scan_page_pallas,
+    rmi_sharded_merged_lookup_pallas,
     rmi_sharded_scan_page_pallas,
 )
 from test_torch_kernels import _case, _jax_args, _port_args, _queries  # noqa: E402
@@ -58,14 +70,18 @@ from test_torch_scan import (  # noqa: E402
     _xla_page,
     _xla_range,
 )
-from test_torch_sharded import _scan_bounds, _scan_slabs  # noqa: E402
+from test_torch_probe import _f32_twins, _fma_decides, _maps, _probe_queries  # noqa: E402
+from test_torch_sharded import _lookup_case, _scan_bounds, _scan_slabs  # noqa: E402
 
+from repro_torch.core import learned_hash  # noqa: E402
 from repro_torch.core import search as search_lib  # noqa: E402
+from repro_torch.core.models import stage0_apply  # noqa: E402
+from repro_torch.data import gen_maps  # noqa: E402
 from repro_torch.index_service import scan as port_scan  # noqa: E402
 from repro_torch.index_service.delta import DeltaBuffer  # noqa: E402
 from repro_torch.core.rmi import LEAF_FIELDS, pack_leaves  # noqa: E402
 from repro_torch.kernels import ref as port_ref  # noqa: E402
-from repro_torch.kernels import ops, rmi_lookup, rmi_scan  # noqa: E402
+from repro_torch.kernels import hash_probe, ops, rmi_lookup, rmi_scan  # noqa: E402
 
 # ---------------------------------------------------------------------------
 # B1/B2: the packed leaf record
@@ -682,3 +698,284 @@ def test_sharded_decomposition_reaches_every_path_on_dense_tiles(num, tiling):
     for k in ("ins_staged", "ins_in_place", "lp_staged", "lp_in_place", "dead", "wrap",
               "owned"):
         assert stats.get(k, 0) > 0, k
+
+
+# ---------------------------------------------------------------------------
+# B4: one lane a (shard, query), base and delta trips side by side
+# ---------------------------------------------------------------------------
+
+def _warp_all(flags):
+    """Each lane's warp-wide AND of ``flags`` (B,): lanes 32 apart in
+    query order share a warp; the last warp may be partial."""
+    b = flags.shape[0]
+    pad = torch.ones(-(-b // 32) * 32, dtype=torch.bool)
+    pad[:b] = flags
+    return pad.view(-1, 32).all(1).repeat_interleave(32)[:b]
+
+
+def emulate_sharded_lookup(q, s0, leaf_w, leaf_b, err_lo, err_hi, keys, dkeys, dprefix,
+                           shard_n, shard_m, shard_ratio, *, hidden, max_window, stats):
+    """B4's route, step for step: the leaf record the wrapper hands the
+    kernel (the views' own, or a fresh pack), one lane a (shard, query)
+    with the warps of a row 32 queries wide, each lane's window, then
+    trip by trip its base and delta probes together.  A warp's base
+    trips stop once every search of its lanes sits at a fixed point
+    ((x + 1, x), or (x, x) after a probe at x not below the query);
+    stopped lanes are not moved again, so only the fixed-point argument
+    makes the answers the plain twin's."""
+    S, B = q.shape
+    D = dkeys.shape[1]
+    steps, dsteps = search_lib._steps_for_window(max_window), search_lib._steps_for_window(D)
+    record, rstride = rmi_lookup._stacked_leaf_record(leaf_w, leaf_b, err_lo, err_hi)
+    rec4 = torch.as_strided(record, (S, leaf_w.shape[1], 4), (4 * rstride, 4, 1),
+                            record.storage_offset())
+    stats["record_in_place"] = stats.get("record_in_place", 0) + (record is leaf_w)
+    stats["broadcast"] = stats.get("broadcast", 0) + any(
+        t.stride(0) == 0 for t in (q, dkeys, dprefix, leaf_w))
+    base = torch.empty((S, B), dtype=torch.int32)
+    contrib = torch.empty((S, B), dtype=torch.int32)
+    for s in range(S):
+        n, m = int(shard_n[s]), int(shard_m[s])
+        qq = q[s]
+        p0 = stage0_apply(s0[s], hidden, qq)
+        leaf = torch.clamp(search_lib.to_index(torch.floor(p0 * shard_ratio[s])), max=m - 1)
+        rec = rec4[s][leaf.long()]
+        pos = search_lib.clampf(rec[:, 0] * qq + rec[:, 1], 0.0, float(np.float32(n - 1)))
+        lo = torch.clamp(search_lib.to_index(pos + rec[:, 2]), max=n)
+        hi = torch.clamp(torch.clamp(search_lib.to_index(pos + rec[:, 3], -1.0) + 1, max=n),
+                         min=0)
+        p0i = torch.clamp(search_lib.to_index(pos), max=n - 1)
+        right = keys[s][p0i.long()] < qq
+        lo = torch.where(right, torch.maximum(lo, p0i + 1), lo)
+        hi = torch.where(right, hi, torch.minimum(hi, p0i))
+        fixed = lo == hi + 1
+        dlo, dhi = torch.zeros_like(lo), torch.full_like(lo, D)
+        running = torch.ones(B, dtype=torch.bool)
+        for t in range(max(steps, dsteps)):
+            if t < steps:
+                running &= ~_warp_all(fixed)
+                stats["stopped_early"] = stats.get("stopped_early", 0) + int((~running).sum())
+                mid = (lo + hi) >> 1
+                v = keys[s][torch.clamp(mid, max=n - 1).long()]
+            if t < dsteps:
+                dmid = (dlo + dhi) >> 1
+                dv = dkeys[s][torch.clamp(dmid, max=D - 1).long()]
+            if t < steps:
+                r = (v < qq) & running
+                stay = ~running
+                lo = torch.where(r, mid + 1, lo)
+                hi = torch.where(r | stay, hi, mid)
+                fixed = (lo == hi + 1) | ((lo == hi) & ~(v < qq)) | stay
+            if t < dsteps:
+                r = dv < qq
+                dlo, dhi = torch.where(r, dmid + 1, dlo), torch.where(r, dhi, dmid)
+        base[s] = torch.clamp(lo, max=n)
+        contrib[s] = dprefix[s][torch.clamp(dlo, max=D).long()]
+    return base, contrib
+
+
+def _nan_position(args, hidden):
+    """(S, B) lanes whose leaf position is 0 * inf = NaN for a query that
+    is not NaN: an infinite query on a leaf of slope 0 (queue C 17,
+    where the two packages part)."""
+    q, s0, leaf_w, leaf_b = args[:4]
+    out = []
+    for s in range(q.shape[0]):
+        p0 = stage0_apply(s0[s], hidden, q[s])
+        leaf = torch.clamp(search_lib.to_index(torch.floor(p0 * args[11][s])),
+                           max=int(args[10][s]) - 1).long()
+        out.append(torch.isnan(leaf_w[s][leaf] * q[s] + leaf_b[s][leaf]) & ~torch.isnan(q[s]))
+    return torch.stack(out).numpy()
+
+
+def _lookup_args(port, qs, dks, dps):
+    t = torch.as_tensor
+    return [t(qs), port["stage0"], port["leaf_w"], port["leaf_b"], port["err_lo"],
+            port["err_hi"], port["keys"], t(dks), t(dps), port["shard_n"], port["shard_m"],
+            port["shard_ratio"]]
+
+
+@pytest.mark.parametrize("num,dist,delta", [
+    (1, "maps", "empty"), (3, "dup", "pow2"), (5, "maps", "staged"), (8, "maps", "pow2"),
+    (8, "dup", "staged"), (5, "dup", "empty"),
+])
+def test_sharded_lookup_decomposition_matches_plain_twin_and_reference(num, dist, delta):
+    """The kernel's route over the record views `stack_rows` hands out
+    (and over four separate arrays, packed afresh), on stored, absent, duplicate-run, edge, NaN and infinite
+    queries: bit for bit against the plain twin, and against the
+    reference's Pallas kernel (interpret mode) wherever the reference
+    reads inside the delta row (C9) and no infinite query meets a flat
+    leaf (C17)."""
+    raw, shards, st, port, qs, dks, dps = _lookup_case(num, dist, delta, num + 11, b=300)
+    qs = np.concatenate([qs, np.tile(np.array([np.nan, np.inf, -np.inf, 2.0, -1.0],
+                                              np.float32), (num, 1))], axis=1)
+    args = _lookup_args(port, qs, dks, dps)
+    kw = dict(hidden=port["hidden"], max_window=port["max_window"])
+    plain = port_ref.rmi_sharded_merged_lookup_reference(*args, **kw)
+    separate = [*args[:2], *(a.contiguous() for a in args[2:6]), *args[6:]]
+    assert not separate[2].data_ptr() + 4 == separate[3].data_ptr()
+    stats = {}
+    for a in (args, separate):
+        got = emulate_sharded_lookup(*a, stats=stats, **kw)
+        assert all(torch.equal(g, p) for g, p in zip(got, plain))
+    assert stats["stopped_early"] > 0
+    jargs = (jnp.asarray(qs), st["stage0"], st["leaf_w"], st["leaf_b"], st["err_lo"],
+             st["err_hi"], st["keys"], jnp.asarray(dks), jnp.asarray(dps),
+             st["shard_n"], st["shard_m"], st["shard_ratio"])
+    kb, kc = rmi_sharded_merged_lookup_pallas(*jargs, hidden=st["hidden"],
+                                              max_window=st["max_window"], interpret=True)
+    flat = _nan_position(args, port["hidden"])
+    assert np.array_equal(got[0].numpy()[~flat], np.asarray(kb)[~flat])
+    past = flat | (np.isfinite(dks[:, -1:]) & (qs > dks[:, -1:]))
+    assert np.array_equal(got[1].numpy()[~past], np.asarray(kc)[~past])
+    assert stats["record_in_place"] == 1
+
+
+def test_sharded_lookup_decomposition_reads_broadcast_rows():
+    """Query and delta rows broadcast with stride 0, and a leaf record
+    whose rows are all one shard's (the record's own row stride 0): read
+    in place, equal to the plain twin on the materialised rows, at five
+    and eight rows."""
+    stats = {}
+    for num in (5, 8):
+        raw, shards, st, port, qs, dks, dps = _lookup_case(num, "maps", "staged", 3, b=200)
+        args = _lookup_args(port, qs, dks, dps)
+        kw = dict(hidden=port["hidden"], max_window=port["max_window"])
+        args[0] = args[0][1:2].expand(num, -1)
+        args[7], args[8] = args[7][:1].expand(num, -1), args[8][:1].expand(num, -1)
+        rec = torch.stack([args[k][0] for k in range(2, 6)], dim=1)[None].expand(num, -1, -1)
+        cols = list(rec.unbind(2))
+        assert rmi_lookup._stacked_leaf_record(*cols)[1] == 0
+        for leaves in (args[2:6], cols):
+            a = [*args[:2], *leaves, *args[6:]]
+            dense = [x.contiguous() for x in a]
+            want = port_ref.rmi_sharded_merged_lookup_reference(*dense, **kw)
+            got = emulate_sharded_lookup(*a, stats=stats, **kw)
+            assert all(torch.equal(g, w) for g, w in zip(got, want)), num
+            assert all(torch.equal(g, w) for g, w in zip(
+                port_ref.rmi_sharded_merged_lookup_reference(*a, **kw), want))
+    assert stats["broadcast"] == 4 and stats["record_in_place"] == 4
+
+
+# ---------------------------------------------------------------------------
+# B7: the hash probe through 8-byte records
+# ---------------------------------------------------------------------------
+
+def emulate_hash_probe(q, s0, leaf_w, leaf_b, slot_key, slot_next, ovf_key, ovf_next, *,
+                       n, num_leaves, num_slots, trips, stats):
+    """B7's route, step for step: the three records the wrapper hands
+    the kernel (the views' own, or fresh packs), read one 8-byte pair a
+    gather — the leaf's (w, b), the slot's (key bits, next), then each
+    overflow node's — and the walk that stops at a hit, at the chain's
+    end or after ``trips`` hops."""
+    leaves = hash_probe._pair_record(leaf_w, leaf_b)
+    slots = hash_probe._pair_record(slot_key, slot_next)
+    ovf = hash_probe._pair_record(ovf_key, ovf_next)
+    stats["in_place"] = stats.get("in_place", 0) + sum(
+        r is c for r, c in ((leaves, leaf_w), (slots, slot_key), (ovf, ovf_key)))
+
+    def bits(rec, rows):
+        pairs = torch.as_strided(rec, (rows, 2), (2, 1), rec.storage_offset())
+        return pairs if pairs.dtype == torch.int32 else pairs.view(torch.int32)
+
+    lf = bits(leaves, num_leaves).view(torch.float32)
+    sl, ov = bits(slots, num_slots), bits(ovf, ovf_key.shape[0])
+    f32 = np.float32
+    p0 = q * s0[0] + s0[1]
+    leaf = torch.clamp(search_lib.to_index(torch.floor(p0 * torch.tensor(
+        f32(num_leaves / n)))), max=num_leaves - 1).long()
+    pos = search_lib.clampf(lf[leaf, 0] * q + lf[leaf, 1], 0.0, float(f32(n - 1)))
+    slot = torch.clamp(search_lib.to_index(pos * torch.tensor(f32(num_slots / n))),
+                       max=num_slots - 1).long()
+    rec = sl[slot]
+    found = rec[:, 0].view(torch.float32) == q
+    nxt = rec[:, 1]
+    live = ~found & (nxt >= 0)
+    for _ in range(trips):
+        if not live.any():
+            break
+        rec = ov[torch.clamp(nxt, max=ov.shape[0] - 1).long()]
+        hit = rec[:, 0].view(torch.float32) == q
+        stats["hops"] = stats.get("hops", 0) + int(live.sum())
+        stats["chain_hit"] = stats.get("chain_hit", 0) + int((live & hit).sum())
+        stats["chain_end"] = stats.get("chain_end", 0) + int((live & ~hit & (rec[:, 1] < 0))
+                                                            .sum())
+        found = torch.where(live, hit, found)
+        nxt = torch.where(live, rec[:, 1], nxt)
+        live = live & ~found & (nxt >= 0)
+    stats["cut"] = stats.get("cut", 0) + int(live.sum())
+    return found
+
+
+def _hash_layouts(tabs, idx):
+    """The tables as `hash_probe_tensors` hands them out (record views),
+    as separate contiguous arrays, and with the leaf pair taken from the
+    (M, 4) lookup record `RMIndex.as_tree` hands out (strided columns,
+    packed afresh)."""
+    separate = tuple(t.contiguous() for t in tabs)
+    tree = idx.as_tree("cpu")
+    return {"records": tabs, "separate": separate,
+            "lookup_record": (tabs[0], tree["leaf_w"], tree["leaf_b"], *tabs[3:])}
+
+
+@pytest.mark.parametrize("dist,ratio", [("gen_maps", 0.75), ("gen_lognormal", 1.0),
+                                        ("gen_weblogs", 1.25)])
+def test_hash_probe_decomposition_matches_plain_twin_and_reference(dist, ratio):
+    """Stored, absent, float32-equal, NaN, infinite and out-of-span
+    queries through every layout, with the map's own trips and with
+    fewer (walks cut short): bit for bit against the plain twin, and
+    against the reference's Pallas kernel (interpret mode) wherever
+    fused and unfused rounding pick the same slot (C2)."""
+    raw, s, (hm, idx, ks), _ = _maps(dist, ratio)
+    stored, absent, edges = _probe_queries(raw, np.random.default_rng(12))
+    q = ks.normalize(np.concatenate([stored, absent, _f32_twins(raw, ks)[:50], edges]))
+    qt = torch.as_tensor(q)
+    tabs = ops.hash_probe_tensors(hm, idx, ks, "cpu")
+    kw = dict(n=idx.n, num_leaves=idx.num_leaves, num_slots=s)
+    trips = max(0, hm.max_chain - 1)
+    stats = {}
+    for name, layout in _hash_layouts(tabs, idx).items():
+        for tr in (trips, 1, 0):
+            got = emulate_hash_probe(qt, *layout, trips=tr, stats=stats, **kw)
+            assert torch.equal(got, port_ref.hash_probe_reference(qt, *layout, trips=tr, **kw)), \
+                (name, tr)
+    got = emulate_hash_probe(qt, *tabs, trips=trips, stats=stats, **kw).numpy()
+    s0 = tabs[0].numpy()
+    want = np.asarray(hash_probe_pallas(
+        jnp.asarray(q), jnp.asarray(s0[:1].reshape(1, 1)), jnp.asarray(s0[1:]),
+        *(jnp.asarray(a.numpy()) for a in tabs[1:]), trips=trips, **kw))
+    fma = _fma_decides(idx, q, s)
+    assert np.array_equal(got[~fma], want[~fma])
+    assert got[:stored.size].all() and not got[stored.size:stored.size + absent.size].any()
+    # the record views are read in place; other arrays are packed
+    assert stats["in_place"] == 3 * 3 + 2 * 3 + 3
+    for k in ("chain_hit", "chain_end", "cut"):
+        assert stats.get(k, 0) > 0, k
+
+
+def test_hash_probe_decomposition_without_overflow_and_zero_trips():
+    """A map so sparse that no slot overflows: its overflow record is one
+    (NaN, -1) node, ``trips`` is 0, and every answer comes from the slot
+    compare, in every layout, equal to the twin, and to the reference's
+    Pallas kernel wherever fused and unfused rounding pick the same slot
+    (C2)."""
+    raw = gen_maps(400, seed=3)
+    s = 1 << 20
+    hm, idx, ks = learned_hash.build_model_hashmap(raw, s, device="cpu")
+    assert hm.max_chain == 1 and hm.ovf_next.tolist() == [-1]
+    q = ks.normalize(np.concatenate([raw, raw + 1e-3, [np.nan, np.inf, -np.inf]]))
+    qt = torch.as_tensor(q)
+    tabs = ops.hash_probe_tensors(hm, idx, ks, "cpu")
+    kw = dict(n=idx.n, num_leaves=idx.num_leaves, num_slots=s, trips=0)
+    stats = {}
+    for layout in _hash_layouts(tabs, idx).values():
+        got = emulate_hash_probe(qt, *layout, stats=stats, **kw)
+        assert torch.equal(got, port_ref.hash_probe_reference(qt, *layout, **kw))
+        assert got[:raw.size].all() and not got[raw.size:].any()
+    s0 = tabs[0].numpy()
+    want = np.asarray(hash_probe_pallas(
+        jnp.asarray(q), jnp.asarray(s0[:1].reshape(1, 1)), jnp.asarray(s0[1:]),
+        *(jnp.asarray(a.numpy()) for a in tabs[1:]), **kw))
+    fma = _fma_decides(idx, q, s)
+    assert np.array_equal(got.numpy()[~fma], want[~fma])
+    assert stats.get("hops", 0) == 0

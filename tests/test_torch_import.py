@@ -58,6 +58,35 @@ def test_port_imports_no_jax_and_no_reference():
         assert name in out[2:], name
 
 
+_SCRIPT_PROBE = r"""
+import sys
+sys.argv = [sys.argv[0]]
+import {name}
+bad = sorted(k for k in sys.modules
+             if k == "jax" or k.startswith("jax.") or k == "repro"
+             or k.startswith("repro."))
+print(bad)
+"""
+
+
+@pytest.mark.parametrize("script,argv", [
+    ("chip_smoke", []), ("scan_pair", ["--parent", "."]), ("lookup_pair", ["--parent", "."]),
+])
+def test_card_scripts_import_no_jax_and_refuse_without_a_card(script, argv):
+    """The scripts run on the card import neither JAX nor the reference
+    package, and without a card exit non-zero before printing a
+    result."""
+    root = SRC.parent
+    env = dict(os.environ, PYTHONPATH=str(SRC), CUDA_VISIBLE_DEVICES="")
+    out = subprocess.run([sys.executable, "-c", _SCRIPT_PROBE.format(name=script)],
+                         capture_output=True, text=True, env=env, cwd=root, check=True,
+                         timeout=120).stdout.split()
+    assert out == ["[]"]
+    run = subprocess.run([sys.executable, f"{script}.py", *argv], capture_output=True,
+                         text=True, env=env, cwd=root, timeout=120)
+    assert run.returncode != 0 and '"ok": true' not in run.stdout
+
+
 def _keys(n=300):
     return np.unique(np.random.default_rng(0).uniform(0.0, 1e6, n))
 

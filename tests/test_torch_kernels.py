@@ -155,6 +155,30 @@ def test_query_above_every_key_steps_past_n_like_the_reference():
     assert pb.tolist() == [ks.n + 1, ks.n + 1]
 
 
+def test_c17_infinite_query_on_a_flat_leaf_lands_at_position_zero():
+    """Open fault in both packages (ROADMAP queue C 17): a leaf whose
+    keys share one float32 value has slope 0, and an infinite query makes
+    its position 0 * inf = NaN.  The port clamps NaN to position 0 (the
+    select every clamp shares), so +inf is searched from the first key's
+    window; the reference clips NaN and casts it to an integer, which
+    gives another wrong rank.  The true lower bound is n."""
+    raw = np.concatenate([np.arange(8.0), 100.0 + np.arange(8) * 1e-9])
+    ks = make_keyset(raw)
+    idx = build_rmi(ks, RMIConfig(num_leaves=2, stage0_hidden=(), stage0_train_steps=0))
+    assert idx.leaf_w[1] == 0.0 and (ks.norm[8:] == 1.0).all()
+    q = np.array([np.inf, 1e30, 1.0], np.float32)
+    arrs, kw = _port_args(idx, ks, q)
+    port = port_ref.rmi_lookup_reference(*arrs, **kw).tolist()
+    # from position 0: the window [0 + err_lo, 0 + err_hi] of leaf 1
+    # holds the first keys, all below +inf, and the trips end at 6
+    assert port == [6, ks.n + 1, 8]
+    ref_kernel = np.asarray(rmi_lookup_pallas(
+        *_jax_args(idx, ks, q), hidden=(), n=idx.n, num_leaves=idx.num_leaves,
+        max_window=idx.max_window, interpret=True))
+    assert ref_kernel[0] not in (port[0], ks.n, ks.n + 1)
+    assert ref_kernel[1:].tolist() == port[1:]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("hidden", [(), (16, 16)])
 def test_cuda_kernels_match_plain_versions_on_card(hidden):

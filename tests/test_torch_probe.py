@@ -324,6 +324,42 @@ def test_hash_probe_with_no_overflow_and_zero_trips():
     assert np.array_equal(got, want)
 
 
+def test_hash_probe_tensors_are_views_of_records():
+    """`hash_probe_tensors` packs each pair the kernel reads together
+    into one 8-byte record after the upload: the leaf pair into an
+    (M, 2) float32 record, the slot and overflow keys and links into
+    (N, 2) int32 records (key bits, next), the key column viewed as
+    float32.  The values are still the reference-built map's, carried
+    across; the wrapper reads those records in place and packs other
+    arrays afresh."""
+    raw, s, _, (rhm, ridx, rks) = _maps("gen_lognormal", 1.0)
+    hm, idx, ks = (convert.hashmap_from_reference(rhm), convert.index_from_reference(ridx),
+                   convert.keyset_from_reference(rks))
+    tabs = ops.hash_probe_tensors(hm, idx, ks, "cpu")
+    s0, leaf_w, leaf_b, slot_key, slot_next, ovf_key, ovf_next = tabs
+    want = (ridx.leaf_w, ridx.leaf_b, rks.normalize(rhm.slot_key),
+            rhm.slot_next.astype(np.int32), rks.normalize(rhm.ovf_key),
+            rhm.ovf_next.astype(np.int32))
+    for got, w in zip(tabs[1:], want):
+        assert got.dtype == {np.dtype(np.float32): torch.float32,
+                             np.dtype(np.int32): torch.int32}[np.asarray(w).dtype]
+        assert np.array_equal(got.numpy(), np.asarray(w), equal_nan=True)
+    for a, b, dt in ((leaf_w, leaf_b, torch.float32), (slot_key, slot_next, torch.int32),
+                     (ovf_key, ovf_next, torch.int32)):
+        assert a.untyped_storage().data_ptr() == b.untyped_storage().data_ptr()
+        assert b.data_ptr() == a.data_ptr() + 4 and a.stride() == b.stride() == (2,)
+        assert hash_probe._pair_record(a, b) is a
+        packed = hash_probe._pair_record(a.contiguous(), b.contiguous())
+        assert packed.shape == (a.shape[0], 2) and packed.dtype == torch.int32
+        assert torch.equal(packed[:, 0], a.view(torch.int32))
+        assert torch.equal(packed[:, 1], b.view(torch.int32))
+    assert torch.equal(slot_key.view(torch.int32), torch.as_tensor(want[2]).view(torch.int32))
+    # the (M, 4) lookup record's columns lie 16 bytes apart: packed afresh
+    tree = idx.as_tree("cpu")
+    packed = hash_probe._pair_record(tree["leaf_w"], tree["leaf_b"])
+    assert torch.equal(packed.view(torch.float32), torch.stack([leaf_w, leaf_b], dim=1))
+
+
 def test_compile_hash_lookup_walks_chains_in_the_float64_frame():
     raw, s, (hm, idx, ks), (rhm, _, _) = _maps("gen_lognormal", 0.75)
     rnd = learned_hash.build_random_hashmap(raw, s)
@@ -375,10 +411,20 @@ def test_probe_kernels_match_twins_on_card(dist):
     tabs = ops.hash_probe_tensors(hm, idx, ks, dev)
     kw = dict(n=idx.n, num_leaves=idx.num_leaves, num_slots=s, trips=max(0, hm.max_chain - 1))
     qt = torch.as_tensor(ks.normalize(q), device=dev)
-    before = hash_probe.LAUNCHES["hash_probe_cuda"]
+    tree = idx.as_tree(dev)
+    # the record views (read in place), separate arrays and the strided
+    # leaf columns of the (M, 4) lookup record (packed per call), and
+    # walks cut short by fewer trips
+    layouts = (tabs, tuple(t.contiguous() for t in tabs),
+               (tabs[0], tree["leaf_w"], tree["leaf_b"], *tabs[3:]))
+    for layout in layouts:
+        for trips in (kw["trips"], 1, 0):
+            kwt = dict(kw, trips=trips)
+            before = hash_probe.LAUNCHES["hash_probe_cuda"]
+            got = hash_probe.hash_probe_cuda(qt, *layout, **kwt)
+            assert hash_probe.LAUNCHES["hash_probe_cuda"] == before + 1
+            assert torch.equal(got, ref.hash_probe_reference(qt, *layout, **kwt))
     got = hash_probe.hash_probe_cuda(qt, *tabs, **kw)
-    assert hash_probe.LAUNCHES["hash_probe_cuda"] == before + 1
-    assert torch.equal(got, ref.hash_probe_reference(qt, *tabs, **kw))
     assert torch.equal(got.cpu(), ops.hash_probe_op(hm, idx, ks, q, device="cpu"))
     for num_bits, k in BLOOM_CASES:
         words, bq, _ = _bloom_case(num_bits, k)

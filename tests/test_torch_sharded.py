@@ -49,8 +49,8 @@ from repro_torch.index_service.scan import pin_view, stack_scan_slabs  # noqa: E
 from repro_torch.kernels import ops, ref  # noqa: E402
 from repro_torch.kernels import rmi_lookup, rmi_scan  # noqa: E402
 
-SIZES = (900, 2_500, 1_400)       # heterogeneous shards
-LEAVES = (16, 61, 24)             # and leaf counts
+SIZES = (900, 2_500, 1_400, 700, 1_100, 600, 1_300, 800)   # heterogeneous shards
+LEAVES = (16, 61, 24, 9, 30, 12, 40, 20)                   # and leaf counts
 
 
 # --------------------------------------------------------------------------
@@ -163,6 +163,60 @@ def test_stacked_layout_matches_reference(num):
         assert np.array_equal(row["stage0"], np.concatenate(
             [np.asarray(p).reshape(-1) for p in rrow["stage0"]]))
         assert row["max_window"] == rrow["max_window"] and row["hidden"] == rrow["hidden"]
+
+
+def _record_of(cols):
+    """The (S, M, 4) record whose columns ``cols`` are, or None."""
+    w = cols[0]
+    if not (all(c.untyped_storage().data_ptr() == w.untyped_storage().data_ptr()
+                for c in cols)
+            and [c.data_ptr() - w.data_ptr() for c in cols] == [0, 4, 8, 12]
+            and all(c.stride() == w.stride() for c in cols) and w.stride(1) == 4):
+        return None
+    return torch.as_strided(w, (w.shape[0], w.shape[1], 4), (w.stride(0), 4, 1))
+
+
+@pytest.mark.parametrize("num", [1, 3, 5, 8])
+def test_stacked_leaf_tensors_are_views_of_one_record(num):
+    """`stack_rows` (through `stack_shard_arrays`, and through the sharded
+    service's plan) hands out the four leaf tensors as the columns of one
+    (S, M, 4) record, whose values stay the reference's stacked arrays;
+    the kernel's wrapper reads it in place and packs separate arrays
+    afresh, and `_row_stride` takes a record column where it asks for
+    one and nothing else."""
+    _, shards = _shards(num, "maps")
+    ref_idx = [idx for _, idx in shards]
+    keys = [ks.norm for ks, _ in shards]
+    got = ops.stack_shard_arrays([convert.index_from_reference(i) for i in ref_idx], keys,
+                                 "cpu")
+    want = ref_ops.stack_shard_arrays(ref_idx, keys)
+    cols = [got[k] for k in ("leaf_w", "leaf_b", "err_lo", "err_hi")]
+    record = _record_of(cols)
+    assert record is not None and record.shape == (num, cols[0].shape[1], 4)
+    assert record.is_contiguous()
+    for j, k in enumerate(("leaf_w", "leaf_b", "err_lo", "err_hi")):
+        assert np.array_equal(record[:, :, j].numpy(), np.asarray(want[k])), k
+    rec, stride = rmi_lookup._stacked_leaf_record(*cols)
+    assert rec is cols[0] and stride == cols[0].shape[1]
+    separate = [c.contiguous() for c in cols]
+    rec, stride = rmi_lookup._stacked_leaf_record(*separate)
+    assert torch.equal(rec, record) and stride == cols[0].shape[1]
+    dev = torch.device("cpu")
+    m = cols[0].shape[1]
+    assert rmi_lookup._row_stride(cols[1], "leaf_b", torch.float32, dev, num,
+                                  elem_stride=4) == 4 * m
+    assert rmi_lookup._row_stride(separate[1], "leaf_b", torch.float32, dev, num,
+                                  elem_stride=4) == m
+    with pytest.raises(ValueError, match="contiguous rows"):
+        rmi_lookup._row_stride(cols[0], "sorted_keys", torch.float32, dev, num)
+    with pytest.raises(ValueError, match="record"):
+        rmi_lookup._row_stride(torch.stack([separate[0]] * 2, dim=2)[:, :, 0], "leaf_w",
+                               torch.float32, dev, num, elem_stride=4)
+    # the sharded service's plan holds the same record
+    base, _, port = _pair(num)
+    port.lookup_batch(base[:8])
+    plan = port._plan
+    assert _record_of([plan.leaf_w, plan.leaf_b, plan.err_lo, plan.err_hi]) is not None
 
 
 def _lookup_case(num, dist, delta, seed, b=400):
@@ -575,28 +629,45 @@ def test_uploads_never_alias_the_host_mirrors():
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("num,dist,delta", [(1, "maps", "empty"), (3, "maps", "staged"),
-                                            (3, "dup", "pow2")])
+                                            (3, "dup", "pow2"), (5, "maps", "staged"),
+                                            (8, "dup", "pow2"), (8, "maps", "empty")])
 def test_sharded_lookup_kernel_matches_twin_on_card(num, dist, delta):
+    """The kernel on the record views `stack_rows` hands out (read in
+    place) and on four separate arrays (packed per call), at one to
+    eight shard rows, with NaN and infinite queries, and on broadcast
+    rows: bit for bit against the plain twin on the card and on the
+    host."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA card")
     dev = torch.device("cuda")
     raw, shards, st, port, qs, dks, dps = _lookup_case(num, dist, delta, num, b=5_000)
+    qs = np.concatenate([qs, np.tile(np.array([np.nan, np.inf, -np.inf], np.float32),
+                                     (num, 1))], axis=1)
     args = [torch.as_tensor(qs), port["stage0"], port["leaf_w"], port["leaf_b"],
             port["err_lo"], port["err_hi"], port["keys"], torch.as_tensor(dks),
             torch.as_tensor(dps), port["shard_n"], port["shard_m"], port["shard_ratio"]]
     kw = dict(hidden=port["hidden"], max_window=port["max_window"])
     d = [a.to(dev) for a in args]
-    kb, kc = rmi_lookup.rmi_sharded_merged_lookup_cuda(*d, **kw)
-    pb, pc = ref.rmi_sharded_merged_lookup_reference(*d, **kw)
-    assert torch.equal(kb, pb) and torch.equal(kc, pc)
+    # .to(dev) copies each column alone; rebuild the record on the card
+    rec = torch.stack(d[2:6], dim=2)
+    d[2:6] = rec.unbind(2)
+    assert rmi_lookup._stacked_leaf_record(*d[2:6])[0] is d[2]
+    separate = [*d[:2], *(a.contiguous() for a in d[2:6]), *d[6:]]
     hb, hc = ref.rmi_sharded_merged_lookup_reference(*args, **kw)
-    assert torch.equal(kb.cpu(), hb) and torch.equal(kc.cpu(), hc)
+    for a in (d, separate):
+        before = rmi_lookup.LAUNCHES["rmi_sharded_merged_lookup_cuda"]
+        kb, kc = rmi_lookup.rmi_sharded_merged_lookup_cuda(*a, **kw)
+        assert rmi_lookup.LAUNCHES["rmi_sharded_merged_lookup_cuda"] == before + 1
+        pb, pc = ref.rmi_sharded_merged_lookup_reference(*a, **kw)
+        assert torch.equal(kb, pb) and torch.equal(kc, pc)
+        assert torch.equal(kb.cpu(), hb) and torch.equal(kc.cpu(), hc)
     # broadcast rows read in place
     d[0] = d[0][:1].expand(num, -1)
     d[7], d[8] = d[7][:1].expand(num, -1), d[8][:1].expand(num, -1)
     kb, kc = rmi_lookup.rmi_sharded_merged_lookup_cuda(*d, **kw)
     pb, pc = ref.rmi_sharded_merged_lookup_reference(*d, **kw)
     assert torch.equal(kb, pb) and torch.equal(kc, pc)
+    torch.cuda.synchronize()
 
 
 @pytest.mark.cuda
