@@ -38,7 +38,9 @@ is non-zero:
                absent, float32-equal, NaN, infinite and out-of-span
                queries); the §5 Bloom probe on oracle filters of
                (num_bits, k) = (2^14, 3), (2^16, 7), (2^18, 10) and
-               num_bits above 2^31;
+               num_bits above 2^31 (ragged and unaligned batches too);
+               and ROADMAP queue C 17: +inf on a leaf of slope 0
+               through both lookups and the sharded one (n + 1, n);
   LM phase   — yi-6b at full width and depth (bf16, random weights from a
                seeded generator on the card): `prefill` of 2 x 4,096
                tokens, each call launching the attention kernel once a
@@ -264,6 +266,59 @@ def compare_kernels(label, ks, index, rng, big_batch, device, record, sorted_key
     check(bool((kb.cpu() == cpu[0]).all() and (km.cpu() == cpu[1]).all()),
           f"card != host plain version: {label}")
     return worst
+
+
+def compare_flat_leaf_kernels(device, record):
+    """ROADMAP queue C 17 on the card: the 16-key index whose last eight
+    keys share one float32 value (leaf 1 of slope 0), and a K = 2 stack
+    of it.  B1, B2 and B4 bit for bit against their plain twins on
+    +inf, huge, in-range, -inf and NaN queries; +inf ranks past every
+    key, n + 1 single-shard and n sharded.  Returns the max |kernel -
+    plain| of the single-shard lookups and of the sharded one."""
+    import torch
+    from repro_torch.core import RMIConfig, build_rmi, make_keyset
+    from repro_torch.core.rmi import LEAF_FIELDS
+    from repro_torch.index_service.delta import combine_for_device
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.rmi_lookup import (
+        rmi_lookup_cuda, rmi_merged_lookup_cuda, rmi_sharded_merged_lookup_cuda)
+
+    ks = make_keyset(np.concatenate([np.arange(8.0), 100.0 + np.arange(8) * 1e-9]))
+    idx = build_rmi(ks, RMIConfig(num_leaves=2, stage0_hidden=(), stage0_train_steps=0),
+                    device=device)
+    check(idx.leaf_w[1] == 0.0, "flat leaf: leaf 1 has a slope")
+    n = ks.n
+    q = torch.tensor([np.inf, 1e30, 1.0, -np.inf, np.nan, 0.5], dtype=torch.float32,
+                     device=device)
+    tree = idx.as_tree(device)
+    args = (q, tree["s0"], *(tree[k] for k in LEAF_FIELDS),
+            torch.as_tensor(ks.norm, device=device))
+    kw = dict(hidden=(), n=n, num_leaves=2, max_window=idx.max_window)
+    dk, dp = (torch.as_tensor(a, device=device)
+              for a in combine_for_device(None, None, ks.normalize))
+    st = ops.stack_shard_arrays([idx, idx], [ks.norm, ks.norm], device)
+    sargs = (torch.stack([q, q]), st["stage0"], *(st[k] for k in LEAF_FIELDS), st["keys"],
+             torch.stack([dk, dk]), torch.stack([dp, dp]), st["shard_n"], st["shard_m"],
+             st["shard_ratio"])
+    skw = dict(hidden=(), max_window=st["max_window"])
+    worst = {}
+    for name, got, want, inf_rank in (
+            ("rmi_lookup_cuda", (rmi_lookup_cuda(*args, **kw),),
+             (ref.rmi_lookup_reference(*args, **kw),), n + 1),
+            ("rmi_merged_lookup_cuda", rmi_merged_lookup_cuda(*args, dk, dp, **kw),
+             ref.rmi_merged_lookup_reference(*args, dk, dp, **kw), n + 1),
+            ("rmi_sharded_merged_lookup_cuda", rmi_sharded_merged_lookup_cuda(*sargs, **skw),
+             ref.rmi_sharded_merged_lookup_reference(*sargs, **skw), n)):
+        err = max(int((g.long() - w.long()).abs().max()) for g, w in zip(got, want))
+        worst[name] = err
+        inf_ok = bool((got[0][..., 0] == inf_rank).all())
+        record.append({"index": "flat_leaf16", "kernel": name, "max_abs_err": err,
+                       "inf_rank": got[0][..., 0].tolist(), "n": n})
+        check(err == 0, f"flat leaf: {name} != plain")
+        check(inf_ok, f"flat leaf: {name} gives +inf {got[0][..., 0].tolist()}, "
+                      f"not {inf_rank}")
+    return (max(worst["rmi_lookup_cuda"], worst["rmi_merged_lookup_cuda"]),
+            worst["rmi_sharded_merged_lookup_cuda"])
 
 
 # ---------------------------------------------------------------------------
@@ -1489,8 +1544,10 @@ def u32_tensor(a, device):
 def compare_bloom_kernel(rng, device, record):
     """`bloom_probe_cuda` against its plain twin on the card, bit for
     bit, on an oracle filter of each shape: members, random uint32 keys,
-    0 and 0xFFFFFFFF, batches of 1, 777 and BIG_BATCH.  Every member
-    must be found.  Returns the mismatch count."""
+    0 and 0xFFFFFFFF, batches of 1, 3, 5, 777, BIG_BATCH and BIG_BATCH +
+    3 (the kernel takes four queries a thread: ragged tails), and a view
+    one element in (not 16-byte aligned: keys and answers one by one).
+    Every member must be found.  Returns the mismatch count."""
     from repro_torch.kernels import ref
     from repro_torch.kernels.bloom_probe import bloom_probe_cuda
 
@@ -1502,10 +1559,15 @@ def compare_bloom_kernel(rng, device, record):
         pool = np.concatenate([members, rng.integers(0, 1 << 32, 20_000, dtype=np.uint32),
                                edge])
         sets = {"members": members, "edges": edge, "batch_1": pool[:1],
+                "batch_3": rng.choice(pool, 3), "batch_5": rng.choice(pool, 5),
                 "batch_777": rng.choice(pool, 777),
-                f"batch_{BIG_BATCH}": rng.choice(pool, BIG_BATCH)}
+                f"batch_{BIG_BATCH}": rng.choice(pool, BIG_BATCH),
+                f"batch_{BIG_BATCH + 3}": rng.choice(pool, BIG_BATCH + 3),
+                "unaligned_777": rng.choice(pool, 778)}
         for name, qs in sets.items():
             q = u32_tensor(qs, device)
+            if name.startswith("unaligned"):
+                q = q[1:]
             got = bloom_probe_cuda(q, words, num_bits=num_bits, k=k)
             err = int((got != ref.bloom_probe_reference(q, words, num_bits=num_bits,
                                                         k=k)).sum())
@@ -2520,11 +2582,14 @@ def main(argv=None) -> int:
         check(bool((found == np.searchsorted(ks.norm, ks.norm)).all()),
               f"{label}: stored keys off their lower bound")
         worst = max(worst, compare_kernels(label, ks, idx, rng, BIG_BATCH, dev, record))
+    flat_worst, flat_sharded_worst = compare_flat_leaf_kernels(dev, record)
+    worst = max(worst, flat_worst)
     scan_record = []
     scan_worst = compare_scan_kernels(rng, dev, scan_record)
     emit({"phase": "scan_kernels_vs_plain", "max_abs_err": scan_worst, "rows": scan_record})
     sharded_record = []
-    sharded_lookup_worst = compare_sharded_lookup_kernel(rng, dev, sharded_record)
+    sharded_lookup_worst = max(compare_sharded_lookup_kernel(rng, dev, sharded_record),
+                               flat_sharded_worst)
     sharded_scan_worst = compare_sharded_scan_kernel(rng, dev, sharded_record)
     emit({"phase": "sharded_kernels_vs_plain", "lookup_max_abs_err": sharded_lookup_worst,
           "scan_max_abs_err": sharded_scan_worst, "rows": sharded_record})

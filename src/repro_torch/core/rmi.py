@@ -115,6 +115,18 @@ def pack_leaves(leaf_w, leaf_b, err_lo, err_hi) -> torch.Tensor:
     return torch.stack([leaf_w, leaf_b, err_lo, err_hi], dim=1)
 
 
+def leaf_position(w: torch.Tensor, b: torch.Tensor, q: torch.Tensor,
+                  n: int) -> torch.Tensor:
+    """The leaf position ``w * q + b`` clipped to [0, f32(n - 1)], with
+    +inf taking f32(n - 1), the end of the key range, whatever the
+    slope: on a leaf of slope 0 (keys that share one float32 value)
+    ``0 * inf`` is NaN, which the clamp would send to 0 (ROADMAP queue
+    C 17).  -inf and NaN clamp to 0."""
+    nm1 = float(np.float32(n - 1))
+    pos = torch.where(q == torch.inf, nm1, w * q + b)
+    return search_lib.clampf(pos, 0.0, nm1)
+
+
 def leaf_and_pos(
     s0: torch.Tensor, hidden: tuple, leaf_w: torch.Tensor,
     leaf_b: torch.Tensor, q: torch.Tensor, *, n: int, num_leaves: int,
@@ -126,9 +138,7 @@ def leaf_and_pos(
     leaf = torch.clamp(
         search_lib.to_index(torch.floor(p0 * ratio)), max=num_leaves - 1
     )
-    pos = leaf_w[leaf] * q + leaf_b[leaf]
-    pos = search_lib.clampf(pos, 0.0, float(np.float32(n - 1)))
-    return leaf, pos
+    return leaf, leaf_position(leaf_w[leaf], leaf_b[leaf], q, n)
 
 
 def rmi_predict(
@@ -143,8 +153,10 @@ def rmi_predict(
     )
     lo_m = pos + tree["err_lo"][leaf]
     hi_m = pos + tree["err_hi"][leaf]
-    # hybrid leaves (Algorithm 1): window = the leaf's full key range
-    bt = tree["is_btree"][leaf]
+    # hybrid leaves (Algorithm 1): window = the leaf's full key range,
+    # except for +inf, whose window stays the model's around f32(n - 1)
+    # (from the last probe the search ends past every key on any leaf)
+    bt = tree["is_btree"][leaf] & (q != torch.inf)
     lo = torch.where(bt, tree["seg_lo"][leaf].to(torch.float32), lo_m)
     hi = torch.where(bt, tree["seg_hi"][leaf].to(torch.float32), hi_m)
     return pos, lo, hi, tree["sigma"][leaf]

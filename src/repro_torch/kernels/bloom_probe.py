@@ -1,8 +1,9 @@
 """The §5 Bloom probe kernel (``csrc/probe.cu``): the PyTorch wrapper.
 
 ``bloom_probe_cuda`` — two `mix32` hashes of each pre-folded uint32 key
-    and k word-gather bit tests, one launch -> (B,) bool.  Replaces the
-    reference's ``bloom_probe_pallas``.
+    and up to k word-gather bit tests (each query stops at its first
+    clear bit), four queries a thread, one launch -> (B,) bool.
+    Replaces the reference's ``bloom_probe_pallas``.
 
 uint32 values travel as int32 tensors holding their bit patterns (torch's
 uint32 supports few operations); a uint32 tensor is viewed as int32.  The
@@ -22,6 +23,10 @@ from repro_torch.kernels import nvcc, ref
 from repro_torch.kernels.hash_probe import SOURCE, declare
 
 LAUNCHES: Dict[str, int] = {"bloom_probe_cuda": 0}
+
+# queries a thread, compiled into csrc/probe.cu as BLOOM_Q: keys by one
+# 16-byte load, answers by one 4-byte store
+QUERIES_PER_THREAD = 4
 
 
 def reset_launch_counts() -> None:

@@ -70,14 +70,22 @@
 // their inputs in ascending order, and float-to-int casts clamp in
 // float first (see to_index).  The position clamps to f32(n - 1), the
 // build's clamp; the reference's sharded body clamps to f32(n) - 1,
-// which differs above 2**24 (ROADMAP queue C).  Every gather index is
-// clipped: a load out of bounds is not clamped on the card.
+// which differs above 2**24 (ROADMAP queue C).  A query that is +inf
+// takes the position f32(n - 1), the end of the key range, whatever the
+// leaf's slope: on a leaf of slope 0 (keys that share one float32
+// value) 0 * inf is NaN, which the clamp would send to 0 and search in
+// the window of the first keys (queue C 17).  From there the first
+// probe, at n - 1, moves lo to n, so +inf ranks past every key like any
+// finite query above them: n + 1 single-shard, n sharded.  -inf and NaN
+// clamp to 0.  Every gather index is clipped: a load out of bounds is
+// not clamped on the card.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #define MAX_HIDDEN 64
 #define INDEX_CLAMP 1073741824.0f  // 2**30: every rank fits with room for +1
+#define POS_INF __int_as_float(0x7f800000)
 
 __device__ __forceinline__ float clampf(float x, float lo, float hi) {
   x = x > lo ? x : lo;  // NaN -> lo, like the plain version's select
@@ -149,7 +157,7 @@ __device__ __forceinline__ void base_window(float qq, float4 leaf,
                                             int n, float nm1f, int& lo,
                                             int& hi) {
   float pos = __fadd_rn(__fmul_rn(leaf.x, qq), leaf.y);
-  pos = clampf(pos, 0.0f, nm1f);
+  pos = clampf(qq == POS_INF ? nm1f : pos, 0.0f, nm1f);
   // clip(int(pos+lo), 0, n), clip(int(pos+hi)+1, 0, n)
   lo = min(to_index(__fadd_rn(pos, leaf.z), 0.0f), n);
   hi = max(min(to_index(__fadd_rn(pos, leaf.w), -1.0f) + 1, n), 0);

@@ -19,7 +19,7 @@ import torch
 from repro_torch.core import search as search_lib
 from repro_torch.core.learned_hash import mul_u32
 from repro_torch.core.models import stage0_apply
-from repro_torch.core.rmi import leaf_and_pos
+from repro_torch.core.rmi import leaf_and_pos, leaf_position
 
 
 def _base_lower_bound(
@@ -118,8 +118,7 @@ def rmi_sharded_merged_lookup_reference(
         p0 = stage0_apply(s0[s], hidden, qs)
         leaf = torch.clamp(
             search_lib.to_index(torch.floor(p0 * shard_ratio[s])), max=m - 1)
-        pos = leaf_w[s][leaf] * qs + leaf_b[s][leaf]
-        pos = search_lib.clampf(pos, 0.0, float(np.float32(n - 1)))
+        pos = leaf_position(leaf_w[s][leaf], leaf_b[s][leaf], qs, n)
         lb = search_lib.model_binary_search(
             sorted_keys[s, :n], qs, pos, err_lo[s][leaf], err_hi[s][leaf],
             max_window)

@@ -31,12 +31,18 @@ plain twins and the reference:
 * the §4 hash probe (B7): the 8-byte (w, b), (key bits, next) records
   `hash_probe_tensors` builds (or fresh packs), read one pair a gather,
   and the chain walk that stops at a hit, at the chain's end or after
-  ``trips`` hops.
+  ``trips`` hops;
+* the §5 Bloom probe (B8): four queries a thread (keys by one vector
+  load, the ragged tail one by one), each step one probe of every live
+  query, and the thread's stop once none is live.
+
+B4's and B7's leaf position follows ROADMAP queue C 17's select: +inf
+takes f32(n - 1) whatever the leaf's slope.
 
 Buffer sizes are parameters, small enough here to reach every path.
 The kernels themselves meet these cases in the `cuda`-marked tests of
-`test_torch_kernels.py`, `test_torch_scan.py`, `test_torch_sharded.py`
-and `test_torch_probe.py`.
+`test_torch_kernels.py`, `test_torch_scan.py`, `test_torch_sharded.py`,
+`test_torch_probe.py` and `test_torch_card.py`.
 """
 
 import types
@@ -70,8 +76,20 @@ from test_torch_scan import (  # noqa: E402
     _xla_page,
     _xla_range,
 )
-from test_torch_probe import _f32_twins, _fma_decides, _maps, _probe_queries  # noqa: E402
-from test_torch_sharded import _lookup_case, _scan_bounds, _scan_slabs  # noqa: E402
+from test_torch_probe import (  # noqa: E402
+    _f32_twins,
+    _family_words,
+    _fma_decides,
+    _maps,
+    _probe_queries,
+)
+from test_torch_sharded import (  # noqa: E402
+    _lookup_args,
+    _lookup_case,
+    _nan_position,
+    _scan_bounds,
+    _scan_slabs,
+)
 
 from repro_torch.core import learned_hash  # noqa: E402
 from repro_torch.core import search as search_lib  # noqa: E402
@@ -81,7 +99,7 @@ from repro_torch.index_service import scan as port_scan  # noqa: E402
 from repro_torch.index_service.delta import DeltaBuffer  # noqa: E402
 from repro_torch.core.rmi import LEAF_FIELDS, pack_leaves  # noqa: E402
 from repro_torch.kernels import ref as port_ref  # noqa: E402
-from repro_torch.kernels import hash_probe, ops, rmi_lookup, rmi_scan  # noqa: E402
+from repro_torch.kernels import bloom_probe, hash_probe, ops, rmi_lookup, rmi_scan  # noqa: E402
 
 # ---------------------------------------------------------------------------
 # B1/B2: the packed leaf record
@@ -740,7 +758,10 @@ def emulate_sharded_lookup(q, s0, leaf_w, leaf_b, err_lo, err_hi, keys, dkeys, d
         p0 = stage0_apply(s0[s], hidden, qq)
         leaf = torch.clamp(search_lib.to_index(torch.floor(p0 * shard_ratio[s])), max=m - 1)
         rec = rec4[s][leaf.long()]
-        pos = search_lib.clampf(rec[:, 0] * qq + rec[:, 1], 0.0, float(np.float32(n - 1)))
+        # +inf takes f32(n - 1) whatever the slope (C17), then the clamp
+        nm1 = float(np.float32(n - 1))
+        pos = search_lib.clampf(torch.where(qq == torch.inf, nm1, rec[:, 0] * qq + rec[:, 1]),
+                                0.0, nm1)
         lo = torch.clamp(search_lib.to_index(pos + rec[:, 2]), max=n)
         hi = torch.clamp(torch.clamp(search_lib.to_index(pos + rec[:, 3], -1.0) + 1, max=n),
                          min=0)
@@ -774,38 +795,19 @@ def emulate_sharded_lookup(q, s0, leaf_w, leaf_b, err_lo, err_hi, keys, dkeys, d
     return base, contrib
 
 
-def _nan_position(args, hidden):
-    """(S, B) lanes whose leaf position is 0 * inf = NaN for a query that
-    is not NaN: an infinite query on a leaf of slope 0 (queue C 17,
-    where the two packages part)."""
-    q, s0, leaf_w, leaf_b = args[:4]
-    out = []
-    for s in range(q.shape[0]):
-        p0 = stage0_apply(s0[s], hidden, q[s])
-        leaf = torch.clamp(search_lib.to_index(torch.floor(p0 * args[11][s])),
-                           max=int(args[10][s]) - 1).long()
-        out.append(torch.isnan(leaf_w[s][leaf] * q[s] + leaf_b[s][leaf]) & ~torch.isnan(q[s]))
-    return torch.stack(out).numpy()
-
-
-def _lookup_args(port, qs, dks, dps):
-    t = torch.as_tensor
-    return [t(qs), port["stage0"], port["leaf_w"], port["leaf_b"], port["err_lo"],
-            port["err_hi"], port["keys"], t(dks), t(dps), port["shard_n"], port["shard_m"],
-            port["shard_ratio"]]
-
-
 @pytest.mark.parametrize("num,dist,delta", [
     (1, "maps", "empty"), (3, "dup", "pow2"), (5, "maps", "staged"), (8, "maps", "pow2"),
     (8, "dup", "staged"), (5, "dup", "empty"),
 ])
 def test_sharded_lookup_decomposition_matches_plain_twin_and_reference(num, dist, delta):
     """The kernel's route over the record views `stack_rows` hands out
-    (and over four separate arrays, packed afresh), on stored, absent, duplicate-run, edge, NaN and infinite
-    queries: bit for bit against the plain twin, and against the
-    reference's Pallas kernel (interpret mode) wherever the reference
-    reads inside the delta row (C9) and no infinite query meets a flat
-    leaf (C17)."""
+    (and over four separate arrays, packed afresh), on stored, absent,
+    duplicate-run, edge, NaN and infinite queries: bit for bit against
+    the plain twin, and against the reference's Pallas kernel (interpret
+    mode) wherever the reference reads inside the delta row (C9) and no
+    infinite query meets a flat leaf (C17).  The C17 lanes, where the
+    reference's rank is wrong, equal the ``np.searchsorted`` oracle in
+    each shard's own frame."""
     raw, shards, st, port, qs, dks, dps = _lookup_case(num, dist, delta, num + 11, b=300)
     qs = np.concatenate([qs, np.tile(np.array([np.nan, np.inf, -np.inf, 2.0, -1.0],
                                               np.float32), (num, 1))], axis=1)
@@ -828,6 +830,13 @@ def test_sharded_lookup_decomposition_matches_plain_twin_and_reference(num, dist
     assert np.array_equal(got[0].numpy()[~flat], np.asarray(kb)[~flat])
     past = flat | (np.isfinite(dks[:, -1:]) & (qs > dks[:, -1:]))
     assert np.array_equal(got[1].numpy()[~past], np.asarray(kc)[~past])
+    for s in range(num):
+        n = int(port["shard_n"][s])
+        oracle = np.searchsorted(port["keys"][s, :n].numpy(), qs[s][flat[s]])
+        assert np.array_equal(got[0][s].numpy()[flat[s]], oracle)
+        assert np.array_equal(got[1][s].numpy()[flat[s]],
+                              dps[s][np.searchsorted(dks[s], qs[s][flat[s]])])
+    assert flat.any() or dist != "dup"
     assert stats["record_in_place"] == 1
 
 
@@ -884,7 +893,9 @@ def emulate_hash_probe(q, s0, leaf_w, leaf_b, slot_key, slot_next, ovf_key, ovf_
     p0 = q * s0[0] + s0[1]
     leaf = torch.clamp(search_lib.to_index(torch.floor(p0 * torch.tensor(
         f32(num_leaves / n)))), max=num_leaves - 1).long()
-    pos = search_lib.clampf(lf[leaf, 0] * q + lf[leaf, 1], 0.0, float(f32(n - 1)))
+    nm1 = float(f32(n - 1))
+    pos = search_lib.clampf(torch.where(q == torch.inf, nm1, lf[leaf, 0] * q + lf[leaf, 1]),
+                            0.0, nm1)
     slot = torch.clamp(search_lib.to_index(pos * torch.tensor(f32(num_slots / n))),
                        max=num_slots - 1).long()
     rec = sl[slot]
@@ -979,3 +990,97 @@ def test_hash_probe_decomposition_without_overflow_and_zero_trips():
     fma = _fma_decides(idx, q, s)
     assert np.array_equal(got.numpy()[~fma], want[~fma])
     assert stats.get("hops", 0) == 0
+
+
+# ---------------------------------------------------------------------------
+# B8: four queries a thread, each step one probe of every live query
+# ---------------------------------------------------------------------------
+
+def _np_mix32(h, seed):
+    """The kernel's uint32 `mix32` in NumPy (uint32 products wrap)."""
+    h = np.asarray(h, np.uint32) ^ np.uint32(seed * 0x9E3779B9 & 0xFFFFFFFF)
+    with np.errstate(over="ignore"):
+        h ^= h >> np.uint32(16)
+        h *= np.uint32(0x7FEB352D)
+        h ^= h >> np.uint32(15)
+        h *= np.uint32(0x846CA68B)
+    return h ^ (h >> np.uint32(16))
+
+
+def emulate_bloom_probe(queries, words, *, num_bits, k, per_thread, aligned, stats):
+    """B8's route, step for step: ``per_thread`` queries a thread (keys
+    by one vector load when the thread is whole and the tensors
+    ``aligned``, else one by one; lanes past the batch dead from the
+    start), each step the next probe of every live query gathered
+    before any is tested (``h1 + i*h2`` kept as a running uint32 sum),
+    and the thread stopping once none of its queries is live."""
+    q = queries.numpy().view(np.uint32)
+    w = words.numpy().view(np.uint32)
+    b = q.size
+    threads = -(-b // per_thread)
+    lane = np.arange(threads * per_thread).reshape(threads, per_thread)
+    live = lane < b
+    stats["vector_threads"] = stats.get("vector_threads", 0) + int(
+        (live.all(1) & aligned).sum())
+    stats["tail_threads"] = stats.get("tail_threads", 0) + int((~live.all(1)).sum())
+    key = np.zeros(lane.shape, np.uint32)
+    key[live] = q[lane[live]]
+    h, h2 = _np_mix32(key, 1), _np_mix32(key, 2) | np.uint32(1)
+    hit = live.copy()
+    running = np.ones(threads, bool)
+    for i in range(k):
+        bit = h % np.uint32(num_bits)
+        issue = hit & running[:, None]
+        word = np.zeros(lane.shape, np.uint32)
+        word[issue] = w[bit[issue] >> np.uint32(5)]
+        stats["loads"] = stats.get("loads", 0) + int(issue.sum())
+        hit &= ((word >> (bit & np.uint32(31))) & np.uint32(1)).astype(bool)
+        with np.errstate(over="ignore"):
+            h = h + h2
+        stopped = running & ~hit.any(1)
+        if i + 1 < k:
+            stats["stopped_early"] = stats.get("stopped_early", 0) + int(stopped.sum())
+        running &= ~stopped
+        if not running.any():
+            break
+    return torch.from_numpy(hit.reshape(-1)[:b].copy())
+
+
+BLOOM_ROUTE_SHAPES = ((1 << 14, 3), (1 << 16, 7), (1 << 18, 10), ((1 << 31) + 96, 7),
+                      (1, 3), (1 << 12, 0))
+
+
+@pytest.mark.parametrize("num_bits,k", BLOOM_ROUTE_SHAPES)
+def test_bloom_decomposition_matches_plain_twin(num_bits, k):
+    """Members, random keys and 0 / 1 / 2**31 / 2**32 - 1 in batches of
+    1, 3 and 777 (ragged tails) and 1,024, four queries a thread as the
+    kernel takes them (`bloom_probe.QUERIES_PER_THREAD`), and one and
+    eight, aligned and not: bit for bit against the plain twin, and
+    every member found.  Above 2**31 bits ``h1 + i*h2`` wraps 2**32
+    before the modulo; with one bit every key is a member."""
+    rng = np.random.default_rng(num_bits % 997 + k)
+    members = rng.integers(0, 1 << 32, 300, dtype=np.uint32)
+    words = torch.from_numpy(_family_words(members, num_bits, k).view(np.int32))
+    pool = np.concatenate([members, rng.integers(0, 1 << 32, 3_000, dtype=np.uint32),
+                           np.array([0, 1, 1 << 31, (1 << 32) - 1], np.uint32)])
+    stats = {}
+    for batch in (1, 3, 777, 1024):
+        q = torch.from_numpy(rng.choice(pool, batch).view(np.int32))
+        want = port_ref.bloom_probe_reference(q, words, num_bits=num_bits, k=k)
+        for per_thread in (bloom_probe.QUERIES_PER_THREAD, 1, 8):
+            for aligned in (True, False):
+                got = emulate_bloom_probe(q, words, num_bits=num_bits, k=k,
+                                          per_thread=per_thread, aligned=aligned, stats=stats)
+                assert torch.equal(got, want), (batch, per_thread, aligned)
+    m = torch.from_numpy(members.view(np.int32))
+    assert emulate_bloom_probe(m, words, num_bits=num_bits, k=k,
+                               per_thread=bloom_probe.QUERIES_PER_THREAD, aligned=True,
+                               stats=stats).all()
+    assert stats["tail_threads"] > 0 and stats["vector_threads"] > 0
+    assert (stats.get("stopped_early", 0) > 0) == (k > 1 and num_bits > 1)
+
+
+def test_bloom_kernel_shape_is_the_sources():
+    """The emulation's shape is the one `csrc/probe.cu` compiles."""
+    src = hash_probe.SOURCE.read_text()
+    assert f"constexpr int BLOOM_Q = {bloom_probe.QUERIES_PER_THREAD};" in src

@@ -22,6 +22,8 @@ torch = pytest.importorskip("torch")
 import jax.numpy as jnp  # noqa: E402
 
 from repro.core import RMIConfig, build_rmi, make_keyset  # noqa: E402
+from repro.index_service import IndexService as RefService  # noqa: E402
+from repro.index_service import ServiceConfig as RefConfig  # noqa: E402
 from repro.index_service.delta import combine_for_device  # noqa: E402
 from repro.kernels import ref as jax_ref  # noqa: E402
 from repro.kernels.rmi_lookup import (  # noqa: E402
@@ -32,7 +34,13 @@ from repro.kernels.rmi_lookup import (  # noqa: E402
 from test_lookup_parity import DISTRIBUTIONS, _staged_delta  # noqa: E402
 
 from repro_torch import convert  # noqa: E402
-from repro_torch.core.rmi import pack_leaves  # noqa: E402
+from repro_torch.core import RMIConfig as PortRMIConfig  # noqa: E402
+from repro_torch.core import build_rmi as port_build_rmi  # noqa: E402
+from repro_torch.core import make_keyset as port_make_keyset  # noqa: E402
+from repro_torch.core.rmi import LEAF_FIELDS, leaf_and_pos, pack_leaves  # noqa: E402
+from repro_torch.core.rmi import rmi_lookup as rmi_lookup_fn  # noqa: E402
+from repro_torch.index_service import REFERENCE_STRATEGY, IndexService, ServiceConfig  # noqa: E402
+from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels import ref as port_ref  # noqa: E402
 from repro_torch.kernels import rmi_lookup  # noqa: E402
 
@@ -155,28 +163,124 @@ def test_query_above_every_key_steps_past_n_like_the_reference():
     assert pb.tolist() == [ks.n + 1, ks.n + 1]
 
 
-def test_c17_infinite_query_on_a_flat_leaf_lands_at_position_zero():
-    """Open fault in both packages (ROADMAP queue C 17): a leaf whose
-    keys share one float32 value has slope 0, and an infinite query makes
-    its position 0 * inf = NaN.  The port clamps NaN to position 0 (the
-    select every clamp shares), so +inf is searched from the first key's
-    window; the reference clips NaN and casts it to an integer, which
-    gives another wrong rank.  The true lower bound is n."""
+def _flat_leaf_case():
+    """ROADMAP queue C 17's input: 16 raw keys, the last eight of which
+    share one float32 value, so leaf 1 has slope 0."""
     raw = np.concatenate([np.arange(8.0), 100.0 + np.arange(8) * 1e-9])
     ks = make_keyset(raw)
     idx = build_rmi(ks, RMIConfig(num_leaves=2, stage0_hidden=(), stage0_train_steps=0))
     assert idx.leaf_w[1] == 0.0 and (ks.norm[8:] == 1.0).all()
+    return raw, ks, idx
+
+
+def test_c17_infinite_query_on_a_flat_leaf_lands_past_every_key():
+    """Closed port fault (ROADMAP queue C 17): a leaf whose keys share
+    one float32 value has slope 0, and +inf makes its product 0 * inf =
+    NaN, which the clamps used to send to position 0 (rank 6 here).  The
+    port now gives +inf the position f32(n - 1), the end of the key
+    range, so it ranks like any finite query above every key: n + 1 by
+    the fixed-trip search (C5), n where the sharded lookup clamps (C10).
+    The reference clips the NaN and casts it, which still gives a wrong
+    rank (2 on this CPU), pinned beside the port's."""
+    _, ks, idx = _flat_leaf_case()
+    n = ks.n
     q = np.array([np.inf, 1e30, 1.0], np.float32)
     arrs, kw = _port_args(idx, ks, q)
+    _, pos = leaf_and_pos(arrs[1], (), arrs[2], arrs[3], arrs[0], n=n, num_leaves=2)
+    assert pos[0] == np.float32(n - 1)
     port = port_ref.rmi_lookup_reference(*arrs, **kw).tolist()
-    # from position 0: the window [0 + err_lo, 0 + err_hi] of leaf 1
-    # holds the first keys, all below +inf, and the trips end at 6
-    assert port == [6, ks.n + 1, 8]
+    assert port == [n + 1, n + 1, 8]
+    dk, dp = combine_for_device(None, None, ks.normalize)
+    base, merged = port_ref.rmi_merged_lookup_reference(
+        *arrs, torch.as_tensor(dk), torch.as_tensor(dp), **kw)
+    assert base.tolist() == port and merged.tolist() == port
+    # the same index as a K = 2 stack: the local base clamps to n
+    pi = convert.index_from_reference(idx)
+    st = ops.stack_shard_arrays([pi, pi], [ks.norm, ks.norm], "cpu")
+    qs = torch.as_tensor(np.stack([q, q]))
+    lb, _ = port_ref.rmi_sharded_merged_lookup_reference(
+        qs, st["stage0"], *(st[k] for k in LEAF_FIELDS), st["keys"],
+        torch.as_tensor(np.stack([dk, dk])), torch.as_tensor(np.stack([dp, dp])),
+        st["shard_n"], st["shard_m"], st["shard_ratio"], hidden=(),
+        max_window=st["max_window"])
+    assert lb.tolist() == [[n, n, 8]] * 2
     ref_kernel = np.asarray(rmi_lookup_pallas(
         *_jax_args(idx, ks, q), hidden=(), n=idx.n, num_leaves=idx.num_leaves,
         max_window=idx.max_window, interpret=True))
-    assert ref_kernel[0] not in (port[0], ks.n, ks.n + 1)
+    assert ref_kernel[0] not in (n, n + 1)
     assert ref_kernel[1:].tolist() == port[1:]
+
+
+def test_c17_infinite_query_on_a_flat_leaf_lands_at_position_zero():
+    """The other rows of C17's contract: on the flat leaf, -inf (0 *
+    -inf = NaN) and NaN still take position 0, and rank 0 and the
+    reference's rank, in both packages alike."""
+    _, ks, idx = _flat_leaf_case()
+    q = np.array([-np.inf, np.nan, -1e30], np.float32)
+    arrs, kw = _port_args(idx, ks, q)
+    leaf, pos = leaf_and_pos(arrs[1], (), arrs[2], arrs[3], arrs[0], n=ks.n, num_leaves=2)
+    assert pos.tolist() == [0.0, 0.0, 0.0]
+    port = port_ref.rmi_lookup_reference(*arrs, **kw).tolist()
+    assert port[0] == 0 and port[2] == 0
+    ref_kernel = np.asarray(rmi_lookup_pallas(
+        *_jax_args(idx, ks, q), hidden=(), n=idx.n, num_leaves=idx.num_leaves,
+        max_window=idx.max_window, interpret=True))
+    assert ref_kernel.tolist() == port
+
+
+@pytest.mark.parametrize("strategy", ["binary", "biased", "quaternary", "cuda",
+                                      "torch_fused", "cuda_fused"])
+def test_c17_reaches_the_service_through_a_finite_key(strategy):
+    """`KeySet.normalize` overflows the finite raw key 1e300 to +inf in
+    float32, so C17 reached `lookup_batch`: the port now gives both keys
+    17 (n + 1, C5) through every single-shard strategy.  The reference's
+    service still gives a wrong rank: 2 through its binary and XLA
+    strategies (3 through quaternary)."""
+    raw, _, _ = _flat_leaf_case()
+    kw = dict(num_leaves=2, stage0_hidden=(), stage0_train_steps=0)
+    q = np.array([np.inf, 1e300])
+    port = IndexService(raw, ServiceConfig(strategy=strategy, rmi=PortRMIConfig(**kw)),
+                        device="cpu")
+    with np.errstate(over="ignore"):
+        assert port.lookup_batch(q).tolist() == [17, 17]
+        assert port.get(q)[0].tolist() == [16, 16]
+        ref_svc = RefService(raw, RefConfig(strategy=REFERENCE_STRATEGY[strategy],
+                                            rmi=RMIConfig(**kw)))
+        ref_ranks = np.asarray(ref_svc.lookup_batch(q)).tolist()
+        assert not set(ref_ranks) & {16, 17}
+        if strategy in ("binary", "torch_fused"):
+            assert ref_ranks == [2, 2]
+        # `get` refines absent keys on the host in both packages
+        assert ref_svc.get(q)[0].tolist() == [16, 16]
+
+
+@pytest.mark.parametrize("hybrid", [False, True])
+def test_c17_infinite_query_on_a_non_last_leaf_lands_past_every_key(hybrid):
+    """With an MLP stage-0, +inf can reach a leaf that is not the last
+    (inf - inf inside a hidden layer makes the stage-0 output NaN, which
+    selects leaf 0).  Its position is f32(n - 1) all the same, the first
+    probe there moves ``lo`` to n, and every route gives n + 1: the
+    plain twins of B1/B2 and the binary, biased and quaternary searches,
+    also where the leaf is a hybrid one (Algorithm 1) whose window for a
+    finite query is its own key range."""
+    ks = port_make_keyset(np.random.default_rng(0).uniform(0, 1e6, 2000))
+    idx = port_build_rmi(ks, PortRMIConfig(
+        num_leaves=16, stage0_hidden=(16, 16), stage0_train_steps=30, seed=0,
+        hybrid_threshold=0 if hybrid else None), device="cpu")
+    tree = idx.as_tree("cpu")
+    q = torch.tensor([np.inf, 2.0], dtype=torch.float32)
+    leaf, pos = leaf_and_pos(tree["s0"], idx.hidden, tree["leaf_w"], tree["leaf_b"], q,
+                             n=idx.n, num_leaves=idx.num_leaves)
+    assert leaf[0] < idx.num_leaves - 1 and pos[0] == np.float32(idx.n - 1)
+    assert bool(idx.is_btree[leaf[0]]) == hybrid and idx.seg_hi[leaf[0]] < idx.n - 1
+    keys = torch.as_tensor(ks.norm)
+    kw = dict(hidden=idx.hidden, n=idx.n, num_leaves=idx.num_leaves,
+              max_window=idx.max_window)
+    for strategy in ("binary", "biased", "quaternary"):
+        assert rmi_lookup_fn(tree, keys, q, strategy=strategy, **kw).tolist() == \
+            [idx.n + 1] * 2, strategy
+    args = (q, tree["s0"], *(tree[k] for k in LEAF_FIELDS), keys)
+    assert port_ref.rmi_lookup_reference(*args, **kw).tolist() == [idx.n + 1] * 2
 
 
 @pytest.mark.cuda

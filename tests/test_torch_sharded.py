@@ -46,6 +46,8 @@ from repro_torch.index_service import (  # noqa: E402
 )
 from repro_torch.index_service.delta import DeltaBuffer  # noqa: E402
 from repro_torch.index_service.scan import pin_view, stack_scan_slabs  # noqa: E402
+from repro_torch.core import search as search_lib  # noqa: E402
+from repro_torch.core.models import stage0_apply  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
 from repro_torch.kernels import rmi_lookup, rmi_scan  # noqa: E402
 
@@ -233,13 +235,31 @@ def _lookup_case(num, dist, delta, seed, b=400):
     return raw, shards, st, port, qs, dks, dps
 
 
-def _port_lookup(port, qs, dks, dps):
+def _lookup_args(port, qs, dks, dps):
     t = torch.as_tensor
-    args = [t(qs), port["stage0"], port["leaf_w"], port["leaf_b"], port["err_lo"],
-            port["err_hi"], port["keys"], t(dks), t(dps), port["shard_n"],
-            port["shard_m"], port["shard_ratio"]]
+    return [t(qs), port["stage0"], port["leaf_w"], port["leaf_b"], port["err_lo"],
+            port["err_hi"], port["keys"], t(dks), t(dps), port["shard_n"], port["shard_m"],
+            port["shard_ratio"]]
+
+
+def _port_lookup(port, qs, dks, dps):
     return ref.rmi_sharded_merged_lookup_reference(
-        *args, hidden=port["hidden"], max_window=port["max_window"])
+        *_lookup_args(port, qs, dks, dps), hidden=port["hidden"],
+        max_window=port["max_window"])
+
+
+def _nan_position(args, hidden):
+    """(S, B) lanes whose leaf product is 0 * inf = NaN for a query that
+    is not NaN: an infinite query on a leaf of slope 0 (queue C 17,
+    where the reference takes a wrong window and the port does not)."""
+    q, s0, leaf_w, leaf_b = args[:4]
+    out = []
+    for s in range(q.shape[0]):
+        p0 = stage0_apply(s0[s], hidden, q[s])
+        leaf = torch.clamp(search_lib.to_index(torch.floor(p0 * args[11][s])),
+                           max=int(args[10][s]) - 1).long()
+        out.append(torch.isnan(leaf_w[s][leaf] * q[s] + leaf_b[s][leaf]) & ~torch.isnan(q[s]))
+    return torch.stack(out).numpy()
 
 
 @pytest.mark.parametrize("num,dist,delta", [
@@ -257,8 +277,13 @@ def test_sharded_lookup_twin_matches_reference(num, dist, delta):
     xb, xc = jax_ref.rmi_sharded_merged_lookup_reference(*jargs, max_window=st["max_window"])
     kb, kc = rmi_sharded_merged_lookup_pallas(
         *jargs, hidden=st["hidden"], max_window=st["max_window"], interpret=True)
-    assert np.array_equal(lb.numpy(), np.asarray(xb))
-    assert np.array_equal(lb.numpy(), np.asarray(kb))
+    # C17: an infinite query on a flat leaf (keys of one float32 value:
+    # every duplicate-heavy case, some Maps shards) takes a wrong window
+    # in the reference; the port's rank there is the oracle's, below
+    flat = _nan_position(_lookup_args(port, qs, dks, dps), port["hidden"])
+    assert flat.any() or dist != "dup"
+    assert np.array_equal(lb.numpy()[~flat], np.asarray(xb)[~flat])
+    assert np.array_equal(lb.numpy()[~flat], np.asarray(kb)[~flat])
     # a query above every key of a row that nothing pads walks the delta
     # search to D + 1: the port clamps the prefix gather, the reference's
     # fallback and kernel read past the row (ROADMAP queue C)
@@ -267,9 +292,10 @@ def test_sharded_lookup_twin_matches_reference(num, dist, delta):
     for got in (np.asarray(xc), np.asarray(kc)):
         assert np.array_equal(ct.numpy()[~past], got[~past])
         assert (got[past] == np.iinfo(np.int32).min).all()
-    # stored keys: each shard's own float32 lower bound, and delta contributions
+    # stored keys and the C17 lanes: each shard's own float32 lower
+    # bound; and delta contributions
     for s, (ks, _) in enumerate(shards):
-        stored = np.isin(qs[s], ks.norm)
+        stored = np.isin(qs[s], ks.norm) | flat[s]
         want = np.searchsorted(ks.norm, qs[s])
         assert np.array_equal(lb.numpy()[s][stored], want[stored])
         assert np.array_equal(ct.numpy()[s], dps[s][np.searchsorted(dks[s], qs[s])])
