@@ -41,6 +41,12 @@ is non-zero:
                num_bits above 2^31 (ragged and unaligned batches too);
                and ROADMAP queue C 17: +inf on a leaf of slope 0
                through both lookups and the sharded one (n + 1, n);
+               then the failover (`failover_injected`, n = 50k): two
+               injected ``kernel.dispatch`` faults reroute B1 (a
+               `cuda_fused` service) and B4 (a K = 4 `sharded_fused`
+               one) to their plain twins with bit-identical answers, 1
+               failover and 2 errors, and the 64th call re-probes,
+               recovers and launches the kernel again;
   LM phase   — yi-6b at full width and depth (bf16, random weights from a
                seeded generator on the card): `prefill` of 2 x 4,096
                tokens, each call launching the attention kernel once a
@@ -82,7 +88,25 @@ is non-zero:
                flush, one dispatch per warm read; and a 2M-key sharded
                service with per-shard Bloom screens (bloom_fpr=0.02)
                through a rebalance to three shards.  Each path runs with
-               the launch counts zeroed just before and read just after;
+               the launch counts zeroed just before and read just after,
+               and the sticky reroutes forgotten before and read after
+               (`failover_guard`: any disabled pair or kernel error fails
+               the run).  After phase 4's times the single service also
+               serves eight tenant threads through a started
+               `IndexFrontend` (`frontend`: get / contains of 1-64 keys,
+               range_lookup and their own inserts and deletes then reads
+               of them; the first scan after those writes, timed as the
+               scan-slab rebuild it stalls on; a timed window of 1,000
+               reads a tenant (get, contains, range_lookup, scans of
+               1-10,000 rows), p50 / p99 over all of its requests; every
+               answer against NumPy; then one `pump()` round on this
+               thread, one dispatch per read kind; its launches stay in
+               its own line); the K = 4 service is checkpointed while
+               its writes are staged and restored on the card
+               (`checkpoint`: the restored service's get, contains,
+               lookup_batch and scan_batch equal the live one's), and a
+               torn save on the 2M-key service falls back to the step
+               before it;
   4. times   — kernel, plain version and torch.searchsorted (the
                paper's binary-search yardstick, timed only) with CUDA
                events, the bound from bytes over 3.35 TB/s, lookup_batch
@@ -1183,14 +1207,16 @@ def write_set(base, rng, n_writes):
 
 
 def drive_sharded(svc, base, rng, device, tag, n_writes, n_get, n_lookup, windows,
-                  rebalance_to=None):
+                  rebalance_to=None, staged_hook=None):
     """Writes, reads and scans on a sharded service over ``base`` (zero
     payload): ``n_writes`` inserts (values 1..n) and deletes routed
     across the shards, then get / contains / range_lookup / lookup_batch
-    and the scan ranges against the oracles; optionally a rebalance to
-    ``rebalance_to`` shards; a flush; and all the checks again.  Each
-    path's launch counts go to ``windows``.  Returns the staged plan
-    and plane (for the times), the oracle state and a summary."""
+    and the scan ranges against the oracles (then
+    ``staged_hook(svc, oracle, ranges)``, while the writes are staged);
+    optionally a rebalance to ``rebalance_to`` shards; a flush; and all
+    the checks again.  Each path's launch counts go to ``windows``.
+    Returns the staged plan and plane (for the times), the oracle state
+    and a summary."""
     ins, ins_vals, dels = write_set(base, rng, n_writes)
     t0 = time.perf_counter()
     check(svc.insert(ins, ins_vals) == ins.size, f"{tag}: insert applied count")
@@ -1254,8 +1280,112 @@ def drive_sharded(svc, base, rng, device, tag, n_writes, n_get, n_lookup, window
                          "shards": svc.num_shards,
                          "shard_live_keys": svc.stats_summary()["shard_live_keys"]}
         states.append(err)
+        if step == "staged" and staged_hook is not None:
+            summary["staged_hook"] = staged_hook(svc, oracle, ranges)
     summary["scan_max_abs_err"] = max(states)
     return staged, ranges, summary
+
+
+def _scan_rows(out):
+    keys, vals, live = out
+    m = live.flatten()
+    return keys.flatten()[m], vals.flatten()[m]
+
+
+def run_checkpoint(svc, oracle, ranges, rng, dev):
+    """`IndexCheckpointer.save` of the sharded service while its writes
+    are staged, `restore()` on the card, and the restored service's
+    sharded lookup_batch (B4), get, contains and scan_batch (B5) equal
+    to the live service's on a query set and the phase's scan windows.
+    The checkpoint goes to a temporary directory removed after."""
+    import shutil
+    import tempfile
+    import torch
+    from repro_torch.distributed import IndexCheckpointer
+
+    base = oracle.base
+    q = rng.permutation(np.concatenate([
+        rng.choice(base, N_GET // 2), oracle.ins[rng.integers(0, oracle.ins.size, N_GET // 8)],
+        oracle.dels[rng.integers(0, oracle.dels.size, N_GET // 8)],
+        rng.uniform(base[0] - 1, base[-1] + 1, N_GET // 4)]))
+    qb = rng.choice(base, BIG_BATCH)
+    page = SCAN_PAGE_SIZES[0]
+    live = {"get": svc.get(q), "contains": svc.contains(q), "lookup": svc.lookup_batch(qb),
+            "scans": {k: _scan_rows(svc.scan_batch(lo, hi, page)) for k, (lo, hi) in
+                      ranges.items()}}
+    root = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    try:
+        ckpt = IndexCheckpointer(root)
+        t0 = time.perf_counter()
+        path = ckpt.save(1, svc)
+        save_s = time.perf_counter() - t0
+        size = sum(f.stat().st_size for f in pathlib.Path(path).rglob("*") if f.is_file())
+        t0 = time.perf_counter()
+        back, step = ckpt.restore(svc.config, device=dev)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        check(step == 1 and back.num_shards == svc.num_shards, "checkpoint: restored step")
+        staged = [len(s._active) for s in back.shards]
+        check(sum(staged) > 0, "checkpoint: the restored shards hold no staged writes")
+        reset_counts()
+        t0 = time.perf_counter()
+        check(all(np.array_equal(a, b) for a, b in zip(back.get(q), live["get"])),
+              "checkpoint: restored get != live")
+        check(bool(np.array_equal(back.contains(q), live["contains"])),
+              "checkpoint: restored contains != live")
+        check(torch.equal(back.lookup_batch(qb), live["lookup"]),
+              "checkpoint: restored lookup_batch != live")
+        for k, (lo, hi) in ranges.items():
+            got = _scan_rows(back.scan_batch(lo, hi, page))
+            check(all(torch.equal(a, b) for a, b in zip(got, live["scans"][k])),
+                  f"checkpoint: restored scan_batch != live on {k}")
+        torch.cuda.synchronize()
+        verify_s = time.perf_counter() - t0
+        counts = read_counts()
+        launches = {k: counts[k] for k in ("rmi_sharded_merged_lookup_cuda",
+                                           "rmi_sharded_scan_page_cuda")}
+        check(all(v > 0 for v in launches.values()),
+              f"checkpoint: the restored reads launched {launches}")
+        del back
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    out = {"save_s": save_s, "restore_s": restore_s, "verify_s": verify_s, "bytes": size,
+           "staged_per_shard": staged, "queries": int(q.size), "lookup_batch": int(qb.size),
+           "windows": len(ranges), "launches": launches}
+    emit({"phase": "checkpoint", "service": "sharded", **out})
+    return out
+
+
+def run_torn_checkpoint(svc, rng, dev):
+    """A save under ``ckpt.write.torn`` is quarantined and `restore()`
+    falls back to the intact step before it."""
+    import os
+    import shutil
+    import tempfile
+    from repro_torch import faults
+    from repro_torch.distributed import IndexCheckpointer
+
+    root = tempfile.mkdtemp(prefix="chip_smoke_torn_")
+    try:
+        ckpt = IndexCheckpointer(root)
+        ckpt.save(1, svc)
+        raw = np.concatenate([sh._mgr.current().keys.raw for sh in svc.shards])
+        extra = _absent(raw, rng.uniform(raw[0], raw[-1], 1_000))
+        svc.insert(extra)
+        with faults.inject(faults.FaultSchedule({"ckpt.write.torn": 1})) as sched:
+            ckpt.save(2, svc)
+        check(sched.fired["ckpt.write.torn"] == 1, "torn checkpoint: the fault did not fire")
+        back, step = ckpt.restore(svc.config, device=dev)
+        check(step == 1 and os.path.isdir(os.path.join(root, "step_0000000002.quarantine")),
+              f"torn checkpoint: restored step {step}")
+        sample = raw[rng.integers(0, raw.size, 20_000)]
+        check(bool(back.contains(sample).all()) and not bool(back.contains(extra).any()),
+              "torn checkpoint: the restored service is not step 1's")
+        svc.delete(extra)
+        del back
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return {"restored_step": step, "quarantined": 2}
 
 
 def run_sharded(args, base, rng, dev, card):
@@ -1277,13 +1407,14 @@ def run_sharded(args, base, rng, dev, card):
           "shard_n": [sh._mgr.current().n for sh in svc.shards],
           "num_leaves": [sh._mgr.current().index.num_leaves for sh in svc.shards],
           "max_window": [sh._mgr.current().index.max_window for sh in svc.shards]})
+    guard = start_failover_guard()
     ops.reset_dispatch_stats()
     windows = []
     t_main = time.perf_counter()
     # the --n rehearsal's cut base holds fewer keys than N_WRITES deletes
-    staged, ranges, summary = drive_sharded(svc, base, rng, dev, "sharded",
-                                            min(N_WRITES, base.size // 4), N_GET, N_LOOKUP,
-                                            windows)
+    staged, ranges, summary = drive_sharded(
+        svc, base, rng, dev, "sharded", min(N_WRITES, base.size // 4), N_GET, N_LOOKUP,
+        windows, staged_hook=lambda s, o, r: run_checkpoint(s, o, r, rng, dev))
     launches = {k: 0 for ks in SHARDED_PATHS.values() for k in ks}
     for path, counts in windows:
         for k in SHARDED_PATHS[path]:
@@ -1297,6 +1428,7 @@ def run_sharded(args, base, rng, dev, card):
         check(bool(rows) and all(r["path"] == "kernel" for r in rows),
               f"{op} rows must all be on path kernel")
     check(all(v > 0 for v in launches.values()), f"a sharded kernel never launched: {launches}")
+    failover_guard("sharded", guard)
 
     # ---- phase 4: times on the staged sharded index ---------------------
     plan = staged["plan"]
@@ -1395,6 +1527,7 @@ def run_rebalance(args, rng, dev, n=2_000_000):
                             bloom_fpr=0.02),
         vals=np.zeros(base.size, np.int64), device=dev)
     windows = []
+    guard = start_failover_guard()
     _, _, summary = drive_sharded(svc, base, rng, dev, "rebalance", 20_000, 100_000, 200_000,
                                   windows, rebalance_to=3)
     counts = {k: sum(c[k] for path, c in windows if k in SHARDED_PATHS[path])
@@ -1404,6 +1537,11 @@ def run_rebalance(args, rng, dev, n=2_000_000):
           "rebalance path: a shard without its Bloom screen")
     screen = svc.stats_summary()["contains"]
     check(screen["bloom_screened"] > 0, "rebalance path: the per-shard screens screened nothing")
+    failover_guard("rebalance", guard)
+    t0 = time.perf_counter()
+    torn = run_torn_checkpoint(svc, rng, dev)
+    emit({"phase": "checkpoint", "service": "rebalance", "torn": torn,
+          "seconds": time.perf_counter() - t0})
     return {"n": int(base.size), "launches": counts, "bloom_screened": screen["bloom_screened"],
             "bloom_fp": screen["bloom_fp"], **summary}
 
@@ -1796,6 +1934,7 @@ def run_hash_index(args, base, rng, dev, card):
           "build_s": build_s, **model_stats})
 
     # -- the main path: counts zeroed just before, read just after -------
+    guard = start_failover_guard()
     reset_counts()
     t0 = time.perf_counter()
     found = sum(int(ops.hash_probe_op(hm, idx, ks, ks.raw[s:s + HASH_BATCH], device=dev).sum())
@@ -1807,6 +1946,7 @@ def run_hash_index(args, base, rng, dev, card):
     launches = read_counts()["hash_probe_cuda"]
     main_s = time.perf_counter() - t0
     check(launches > 0, "hash_probe_cuda never launched on the main path")
+    failover_guard("hash_index", guard)
 
     # the kernel against its twin, then its times
     tabs = ops.hash_probe_tensors(hm, idx, ks, dev)
@@ -2190,6 +2330,339 @@ def read_counts():
             **bloom_probe.LAUNCHES, **flash_attention.LAUNCHES}
 
 
+FAILOVER_COUNTERS = ("kernel_failover", "kernel_failover.errors", "kernel_failover.recoveries")
+
+
+def failover_counters():
+    from repro_torch.obs.metrics import default_registry
+    reg = default_registry()
+    return {k: int(reg.counter(k).value) for k in FAILOVER_COUNTERS}
+
+
+def start_failover_guard():
+    """Forget every sticky reroute before a main path; returns the
+    counters to hold the path's own against."""
+    from repro_torch.kernels import ops
+    ops.reset_failover()
+    return failover_counters()
+
+
+def failover_guard(path, start):
+    """After a main path: its `failover_summary()` and the three
+    counters.  A kernel that raised even once on the path (an error, a
+    disabled pair) fails the run, so no kernel passes behind its twin."""
+    from repro_torch.kernels import ops
+    now = failover_counters()
+    delta = {k: now[k] - start[k] for k in FAILOVER_COUNTERS}
+    summary = ops.failover_summary()
+    emit({"phase": "failover_guard", "path": path, "summary": summary, "counters": delta})
+    check(not any(r["disabled"] for r in summary.values()),
+          f"{path}: a kernel pair was rerouted to its plain twin: {summary}")
+    check(delta["kernel_failover.errors"] == 0 and delta["kernel_failover"] == 0,
+          f"{path}: a kernel raised on the main path: {delta}")
+    return {"summary": summary, "counters": delta}
+
+
+def check_injected_failover(svc, q, launch, tag):
+    """Two injected ``kernel.dispatch`` faults on a warm kernel path: the
+    attempt and its retry fail, the pair reroutes to its plain twin with
+    bit-identical answers and no launch, and the 64th call since the
+    failover re-probes the kernel, recovers and launches it again."""
+    import torch
+    from repro_torch import faults
+    from repro_torch.kernels import ops, rmi_lookup
+
+    start = start_failover_guard()
+    want_get, want_rank = svc.get(q), svc.lookup_batch(q)
+    n0 = rmi_lookup.LAUNCHES[launch]
+    with faults.inject(faults.FaultSchedule({"kernel.dispatch": 2})) as sched:
+        got_get = svc.get(q)
+    check(sched.fired["kernel.dispatch"] == 2, f"{tag}: the faults did not fire")
+    summary = ops.failover_summary()
+    check([r["disabled"] for r in summary.values()] == [True], f"{tag}: no reroute: {summary}")
+    check(all(np.array_equal(a, b) for a, b in zip(got_get, want_get)),
+          f"{tag}: rerouted get != the kernel's")
+    rerouted = []
+    for _ in range(ops.FAILOVER_REPROBE_EVERY):
+        rerouted.append(rmi_lookup.LAUNCHES[launch] - n0)
+        check(torch.equal(svc.lookup_batch(q), want_rank), f"{tag}: rerouted lookup_batch")
+    after = {k: v - start[k] for k, v in failover_counters().items()}
+    relaunched = rmi_lookup.LAUNCHES[launch] - n0
+    check(after == {"kernel_failover": 1, "kernel_failover.errors": 2,
+                    "kernel_failover.recoveries": 1}, f"{tag}: counters {after}")
+    check(rerouted == [0] * ops.FAILOVER_REPROBE_EVERY and relaunched == 1,
+          f"{tag}: launches while rerouted {rerouted}, after {relaunched}")
+    check(not any(r["disabled"] for r in ops.failover_summary().values()),
+          f"{tag}: the re-probe did not re-enable the kernel")
+    ops.reset_failover()
+    check(faults.active() is None, f"{tag}: a fault schedule left in force")
+    return {"pair": next(iter(summary)), "counters": after, "queries": int(q.size),
+            "launches_while_rerouted": rerouted[-1], "launches_after_reprobe": relaunched}
+
+
+def run_failover_injected(dev):
+    """Phase 2's failover check on n = 50k keys: B1 through the
+    `cuda_fused` service, then B4 through the K = 4 `sharded_fused` one."""
+    from repro_torch.data import gen_maps
+    from repro_torch.index_service import IndexService, ServiceConfig, ShardedIndexService
+
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(5)
+    base = gen_maps(SMALL_N, seed=5)
+    ins = _absent(base, rng.uniform(base[0], base[-1], 2_000))
+    dels = rng.choice(base, 1_000, replace=False)
+    q = np.concatenate([rng.choice(base, 20_000), ins[:2_000], dels,
+                        rng.uniform(base[0] - 1, base[-1] + 1, 2_000)])
+    out = {}
+    for tag, svc, launch in (
+            ("cuda_fused", IndexService(base, ServiceConfig(strategy="cuda_fused"), device=dev),
+             "rmi_merged_lookup_cuda"),
+            ("sharded_fused", ShardedIndexService(base, ServiceConfig(
+                num_shards=4, strategy="sharded_fused"), device=dev),
+             "rmi_sharded_merged_lookup_cuda")):
+        svc.insert(ins)
+        svc.delete(dels)
+        out[tag] = check_injected_failover(svc, q, launch, tag)
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+FRONTEND_TENANTS = 8
+FRONTEND_WRITE_REQUESTS = 20    # per tenant, before the window: reads, ranges, own writes
+FRONTEND_READS = 1_000          # per tenant, in the timed read window
+FRONTEND_SCAN_ROWS = 10_000
+FRONTEND_READ_KINDS = ("get", "contains", "range", "scan")
+
+
+def _point_keys(rng, raw):
+    q = raw[rng.integers(0, raw.size, rng.integers(1, 65))]
+    q[::2] += rng.uniform(-1e-7, 1e-7, q[::2].size)  # mostly absent
+    return q
+
+
+def _key_range(rng, raw):
+    w = int(rng.integers(1, FRONTEND_SCAN_ROWS + 1))
+    i = int(rng.integers(0, raw.size - w))
+    return raw[i], raw[i + w]
+
+
+def _tenant_writes(seed, t, raw, top):
+    """Tenant ``t``'s seeded requests before the window: point reads of
+    1-64 keys, ranges, and inserts and deletes of keys of its own, each
+    followed by a read of them.  Its own keys lie in a band above every
+    stored key, so they move no rank, row or membership of the base
+    range."""
+    rng = np.random.default_rng((seed, t, 0))
+    band = top + 10.0 * (t + 1) + 1e-3 * np.arange(FRONTEND_WRITE_REQUESTS * 4)
+    used = 0
+    reqs = []
+    for _ in range(FRONTEND_WRITE_REQUESTS):
+        kind = ("get", "contains", "range", "insert", "delete")[rng.integers(0, 5)]
+        if kind in ("get", "contains"):
+            reqs.append((kind, (_point_keys(rng, raw),)))
+        elif kind == "insert":
+            keys = band[used: used + 4]
+            used += 4
+            reqs.append(("insert", (keys, np.arange(4, dtype=np.int64) + t)))
+            reqs.append(("get", (keys,)))
+        elif kind == "delete" and used:
+            keys = band[max(0, used - 6): used]
+            reqs.append(("delete", (keys,)))
+            reqs.append(("contains", (keys,)))
+        elif kind == "range":
+            reqs.append(("range", _key_range(rng, raw)))
+    return reqs
+
+
+def _tenant_reads(seed, t, raw):
+    """Tenant ``t``'s seeded read window: `FRONTEND_READS` requests, each
+    kind of `FRONTEND_READ_KINDS` drawn evenly, over the base range."""
+    rng = np.random.default_rng((seed, t, 1))
+    reqs = []
+    for k in rng.integers(0, len(FRONTEND_READ_KINDS), FRONTEND_READS):
+        kind = FRONTEND_READ_KINDS[k]
+        reqs.append((kind, (_point_keys(rng, raw),) if kind in ("get", "contains")
+                     else _key_range(rng, raw)))
+    return reqs
+
+
+def _run_tenants(fe, scripts):
+    """Every tenant's script on its own thread through the started
+    ``fe``, each request timed on the client from call to answer.
+    Returns (answers per tenant as (kind, args, got, seconds), wall s)."""
+    import threading
+
+    answers = [[] for _ in scripts]
+    errors = []
+    barrier = threading.Barrier(len(scripts))
+
+    def client(t):
+        name = f"tenant{t}"
+        call = {"get": fe.get, "contains": fe.contains, "insert": fe.insert,
+                "delete": fe.delete, "range": fe.range_lookup, "scan": fe.scan}
+        try:
+            barrier.wait(60)
+            for kind, args in scripts[t]:
+                t1 = time.perf_counter()
+                got = call[kind](name, *args, timeout=120)
+                answers[t].append((kind, args, got, time.perf_counter() - t1))
+        except BaseException as e:  # noqa: BLE001 — reported below
+            errors.append((t, repr(e)))
+            barrier.abort()
+
+    threads = [threading.Thread(target=client, args=(t,)) for t in range(len(scripts))]
+    t0 = time.perf_counter()
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(300)
+    wall = time.perf_counter() - t0
+    check(not any(th.is_alive() for th in threads), "frontend: a tenant thread hung")
+    check(not errors, f"frontend: {errors[:3]}")
+    return answers, wall
+
+
+def run_frontend(svc, rng, dev, card):
+    """Eight tenant threads through a started `IndexFrontend` over the
+    (compacted) single service, every answer held against NumPy: first
+    their own writes with reads of them; then the first scan after those
+    writes, whose scan-slab rebuild is timed as the stall it is; then a
+    timed window of `FRONTEND_READS` reads a tenant through a fresh
+    frontend, its latencies taken over every request of the window; then
+    one `pump()` round on this thread with mixed kinds, one dispatch per
+    read kind."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.serve import FrontendConfig, IndexFrontend
+
+    snap = svc._mgr.current()
+    raw, n = snap.keys.raw, snap.n
+    check(len(svc._active) == 0 and svc.num_delta_levels == 0,
+          "frontend: the service must start compacted")
+    state = ScanState(snap, np.empty(0), np.empty(0, np.int64), np.empty(0))
+    top = float(raw[-1])
+    seed = int(rng.integers(1 << 31))
+    cfg = FrontendConfig(max_queue=1024, scan_page_size=256)
+    checked = dict.fromkeys(("get", "contains", "range", "scan", "insert", "delete"), 0)
+    others_max = FRONTEND_WRITE_REQUESTS * 4 * FRONTEND_TENANTS
+
+    def hold(t, own, kind, args, got):
+        """One answer against the oracle: base ranks and rows are the
+        snapshot's; tenant ``t``'s band holds ``own``."""
+        checked[kind] += 1
+        if kind == "insert":
+            own.update(args[0].tolist())
+            check(got == args[0].size, f"frontend/{t}: insert ack {got}")
+        elif kind == "delete":
+            own.difference_update(args[0].tolist())
+            check(got == args[0].size, f"frontend/{t}: delete ack {got}")
+        elif kind in ("get", "contains"):
+            q = args[0]
+            mine = q > top + 5.0   # the bands start at top + 10
+            base_live = np.zeros(q.size, bool)
+            i = np.clip(np.searchsorted(raw, q), 0, n - 1)
+            base_live[~mine] = raw[i[~mine]] == q[~mine]
+            live = base_live | np.isin(q, np.fromiter(own, float, len(own)))
+            if kind == "contains":
+                check(bool(np.array_equal(got, live)), f"frontend/{t}: contains")
+                return
+            rank, found = got
+            check(bool(np.array_equal(found, live)), f"frontend/{t}: get presence")
+            check(bool(np.array_equal(rank[~mine], np.searchsorted(raw, q[~mine]))),
+                  f"frontend/{t}: get ranks")
+            below = np.searchsorted(np.sort(np.fromiter(own, float, len(own))), q[mine])
+            r = rank[mine] - n
+            check(bool(((r >= below) & (r <= below + others_max)).all()),
+                  f"frontend/{t}: own-key ranks")
+        elif kind == "range":
+            check(got == tuple(int(x) for x in np.searchsorted(raw, args)),
+                  f"frontend/{t}: range_lookup")
+        else:
+            keys, vals, live = (x.cpu().numpy() for x in got)
+            lo_n, hi_n = (np.float32(x) for x in snap.keys.normalize(np.array(args)))
+            want_k, want_v, _ = state.rows_f32(lo_n, hi_n)
+            m = live.ravel()
+            check(bool(np.array_equal(keys.ravel()[m], want_k)
+                       and np.array_equal(vals.ravel()[m], want_v.astype(np.int32))),
+                  f"frontend/{t}: scan rows")
+
+    def summary_of(fe, answers):
+        summary = fe.serving_summary()
+        check(summary["requests"] == sum(map(len, answers)) and summary["rejected"] == 0
+              and summary["shed_writes"] == 0 and summary["deadline_exceeded"] == 0,
+              f"frontend: {summary}")
+        check(all(r["errors"] == 0 for r in summary["tenants"].values()),
+              "frontend: tenant errors")
+        return summary
+
+    # 1. each tenant's own writes, read back (no scans: the slab stays)
+    fe = IndexFrontend(svc, cfg)
+    with fe:
+        writes, writes_wall = _run_tenants(
+            fe, [_tenant_writes(seed, t, raw, top) for t in range(FRONTEND_TENANTS)])
+        owns = [set() for _ in writes]
+        for t, rows in enumerate(writes):
+            for kind, args, got, _ in rows:
+                hold(t, owns[t], kind, args, got)
+        writes_summary = summary_of(fe, writes)
+        # 2. the stall: the first scan after writes rebuilds the scan slab
+        lo, hi = _key_range(rng, raw)
+        t0 = time.perf_counter()
+        got = fe.scan("stall", lo, hi, timeout=120)
+        stall_s = time.perf_counter() - t0
+        hold(-1, set(), "scan", (lo, hi), got)
+
+    # 3. the timed read window, through a fresh frontend (its own registries)
+    fe = IndexFrontend(svc, cfg)
+    with fe:
+        reads, wall = _run_tenants(
+            fe, [_tenant_reads(seed, t, raw) for t in range(FRONTEND_TENANTS)])
+        for t, rows in enumerate(reads):
+            for kind, args, got, _ in rows:
+                hold(t, owns[t], kind, args, got)
+        summary = summary_of(fe, reads)
+    rounds = summary["rounds"]
+    secs = {k: np.array([s for rows in reads for kind, _, _, s in rows if kind == k])
+            for k in FRONTEND_READ_KINDS}
+    secs["all"] = np.concatenate([secs[k] for k in FRONTEND_READ_KINDS])
+    latency = {k: {"count": int(v.size), "p50_ms": float(np.percentile(v, 50) * 1e3),
+                   "p99_ms": float(np.percentile(v, 99) * 1e3),
+                   "max_ms": float(v.max() * 1e3), "mean_ms": float(v.mean() * 1e3)}
+               for k, v in secs.items()}
+
+    # 4. one round on this thread: one dispatch per read kind
+    top_keys = top + 1000.0 + np.arange(3.0)
+    reqs = [fe.submit(f"g{c}", "get", raw[rng.integers(0, n, 8)]) for c in range(8)]
+    reqs += [fe.submit(f"c{c}", "contains", raw[rng.integers(0, n, 4)]) for c in range(6)]
+    reqs += [fe.submit("r", "range", raw[100], raw[5000]),
+             fe.submit("s", "scan", raw[200], raw[3000], 256),
+             fe.submit("w", "insert", top_keys, np.zeros(3, np.int64))]
+    fe.pump()   # warm: the insert moved the delta, so the scan slab rebuilds here
+    reqs = [fe.submit(f"g{c}", "get", raw[rng.integers(0, n, 8)]) for c in range(8)]
+    reqs += [fe.submit(f"c{c}", "contains", raw[rng.integers(0, n, 4)]) for c in range(6)]
+    reqs += [fe.submit("r", "range", raw[100], raw[5000]),
+             fe.submit("s", "scan", raw[200], raw[3000], 256)]
+    with ops.count_dispatches() as nd:
+        check(fe.pump() == len(reqs), "frontend: pump served a partial round")
+        dispatches = nd()
+    for r in reqs:
+        r.wait(10)
+    check(dispatches == 4, f"frontend: {len(reqs)} requests of 4 read kinds took "
+                           f"{dispatches} dispatches")
+    svc.delete(top_keys)
+    torch.cuda.synchronize()
+    return {"card": card, "tenants": FRONTEND_TENANTS, "checked": checked,
+            "writes": {"requests": writes_summary["requests"],
+                       "rounds": writes_summary["rounds"], "wall_s": writes_wall},
+            "stall_scan_s": stall_s,
+            "window": {"requests": summary["requests"], "rounds": rounds, "wall_s": wall,
+                       "rounds_per_s": rounds / wall,
+                       "requests_per_s": summary["requests"] / wall,
+                       "latency_ms": latency,
+                       "frontend_read_p99_ms": summary["read_p99_ms"]},
+            "pump_round": {"requests": len(reqs), "read_kinds": 4, "dispatches": dispatches}}
+
+
 def run_single(args, base, rng, dev, card, record, worst, scan_worst):
     """Phases 3-4 on the single-shard service over ``base``: the main
     path (lookups, scans, compaction), the snapshot-level sharded_fused
@@ -2230,6 +2703,7 @@ def run_single(args, base, rng, dev, card, record, worst, scan_worst):
 
     # -- the main path: each path's counts zeroed just before it, read
     # just after; the dispatch ledger covers the whole run ---------------
+    guard0 = start_failover_guard()
     ops.reset_dispatch_stats()
     windows = []
     reset_counts()
@@ -2355,6 +2829,7 @@ def run_single(args, base, rng, dev, card, record, worst, scan_worst):
         check(bool(rows) and all(r["path"] == "kernel" for r in rows),
               f"{op} rows must all be on path kernel")
     check(all(v > 0 for v in launches.values()), f"a kernel never launched: {launches}")
+    failover_guard("single", guard0)
 
     # ---- phase 4: times on the staged 200M-key index ---------------------
     idx0 = snap0.index
@@ -2498,6 +2973,19 @@ def run_single(args, base, rng, dev, card, record, worst, scan_worst):
           "pack_slab_s": pack_slab_s, "staged_inserts": int(staged["ins_n"]),
           "tombstones": int(dels.size)})
 
+    # ---- the multi-tenant frontend over the compacted service -------------
+    guard1 = start_failover_guard()
+    reset_counts()
+    t0 = time.perf_counter()
+    front = run_frontend(svc, rng, dev, card)
+    counts = read_counts()
+    front["launches"] = {k: counts[k] for k in ("rmi_merged_lookup_cuda", "rmi_scan_range_cuda")}
+    front["seconds"] = time.perf_counter() - t0
+    emit({"phase": "frontend", **front})
+    check(all(v > 0 for v in front["launches"].values()),
+          f"frontend: a kernel never launched: {front['launches']}")
+    failover_guard("frontend", guard1)
+
     scan_worst = max([scan_worst] + [r["page_max_abs_err"] for r in scan_times])
     return {"times": times, "scan_times": scan_times, "launches": launches,
             "worst": worst, "scan_worst": scan_worst, "n": int(ks0.n),
@@ -2597,6 +3085,7 @@ def main(argv=None) -> int:
     hash_worst, bloom_worst = compare_probe_kernels(rng, dev, probe_record)
     emit({"phase": "probe_kernels_vs_plain", "hash_mismatches": hash_worst,
           "bloom_mismatches": bloom_worst, "rows": probe_record})
+    emit({"phase": "failover_injected", **run_failover_injected(dev)})
 
     # ---- the LM substrate (yi-6b), released before the index phases -----
     lm = run_lm(args, dev, card)

@@ -27,6 +27,7 @@ import dataclasses
 import os
 import re
 import threading
+import weakref
 from typing import Callable, Dict, Optional, Tuple
 
 import numpy as np
@@ -39,6 +40,7 @@ from repro_torch.core.rmi import RMIConfig, RMIndex, build_rmi, refit_rmi, rmi_l
 from repro_torch.device import resolve_device
 from repro_torch.kernels import ops as kernels_ops
 from repro_torch.kernels import ref as kernels_ref
+from repro_torch.kernels import rmi_lookup as kernels_rmi_lookup
 from repro_torch.kernels.rmi_lookup import (
     rmi_lookup_cuda,
     rmi_merged_lookup_cuda,
@@ -47,6 +49,15 @@ from repro_torch.kernels.rmi_lookup import (
 # strategies whose closures enter through a CUDA kernel (on the card;
 # on the CPU the same wrappers run their plain versions)
 KERNEL_STRATEGIES: Tuple[str, ...] = ("cuda", "cuda_fused", "sharded_fused")
+
+# each kernel strategy's bit-identical plain twin: where the sticky
+# kernel->twin failover (`kernels.ops.run_with_failover`) reroutes a
+# closure whose kernel raises at launch
+_FALLBACK_STRATEGY = {
+    "cuda": "binary",
+    "cuda_fused": "torch_fused",
+    "sharded_fused": "torch_fused",
+}
 
 _SNAP_RE = re.compile(r"snapshot-(\d+)\.npz$")
 
@@ -220,7 +231,9 @@ class IndexSnapshot:
         prefix gather — one CUDA launch under `cuda_fused`, one launch of
         the sharded kernel plus torch routing and reassembly under
         `sharded_fused`, kernel plus torch ops under `cuda`, torch ops
-        otherwise; see MERGED_STRATEGIES.  Each call is one dispatch.
+        otherwise; see MERGED_STRATEGIES.  Each call is one dispatch.  A
+        kernel strategy's closure runs under the sticky failover onto
+        its `_FALLBACK_STRATEGY` twin.
         """
         validate_strategy(strategy)
         fn = self._compiled.get(strategy)
@@ -285,6 +298,26 @@ class IndexSnapshot:
                     sig=(tuple(q.shape), tuple(dkeys.shape), snap_n, strategy),
                 ):
                     return _inner(q, dkeys, dprefix)
+
+            if kernel:
+                # kernel closures ride the sticky failover policy onto
+                # their bit-identical twin (built lazily, and itself
+                # counted under its OWN strategy tag, so attribution
+                # shows which program really ran); on the card the
+                # library loads first, so a build failure raises, and
+                # only an injected fault reroutes.  The closure
+                # holds its snapshot weakly: no cycle keeps a dropped
+                # snapshot's device tensors alive.
+                fb = _FALLBACK_STRATEGY[strategy]
+                me = weakref.ref(self)
+
+                def fn(q, dkeys, dprefix, _k=fn):
+                    return kernels_ops.run_with_failover(
+                        "merged_lookup", strategy,
+                        lambda: _k(q, dkeys, dprefix),
+                        lambda: me().merged_lookup_fn(fb)(q, dkeys, dprefix),
+                        q, kernels_rmi_lookup,
+                    )
 
             self._compiled[strategy] = fn
         return fn
@@ -402,6 +435,18 @@ class IndexSnapshot:
                     strategy=tag, sig=(tuple(q.shape), snap_n, tag),
                 ):
                     return _inner(q)
+
+            if kernel:
+                # both kernel aliases lower to the base RMI kernel; its
+                # bit-identical twin is the binary closure
+                me = weakref.ref(self)
+
+                def fn(q, _k=fn):
+                    return kernels_ops.run_with_failover(
+                        "base_lookup", tag, lambda: _k(q),
+                        lambda: me().base_lookup_fn("binary")(q),
+                        q, kernels_rmi_lookup,
+                    )
 
             self._compiled[key] = fn
         return fn

@@ -2,8 +2,11 @@
 
 Each op launches the CUDA kernel for tensors on the card and runs the
 plain PyTorch version for tensors on the CPU; callers never touch the
-launch directly.  There is no failover: a kernel that fails to build or
-launch raises.
+launch directly.  The lookup and scan ops (B1, B3-B6) run their kernel
+under the reference's retry-once, sticky failover onto the plain twin
+(`run_with_failover`).  On a card tensor only an injected fault
+reroutes: a kernel library that fails to build or load, and any real
+launch error, raises from the op.
 """
 
 from __future__ import annotations
@@ -16,11 +19,12 @@ import time
 import numpy as np
 import torch
 
+from repro_torch import faults
 from repro_torch.core.bloom import words_tensor
 from repro_torch.core.models import pack_stage0
 from repro_torch.core.rmi import LEAF_FIELDS
 from repro_torch.device import resolve_device
-from repro_torch.kernels import ref
+from repro_torch.kernels import ref, rmi_lookup, rmi_scan
 from repro_torch.kernels.bloom_probe import as_u32_bits, bloom_probe_cuda
 from repro_torch.kernels.flash_attention import flash_attention_cuda
 from repro_torch.kernels.hash_probe import hash_probe_cuda
@@ -169,6 +173,142 @@ def _on_card(t: torch.Tensor) -> bool:
     return t.device.type == "cuda"
 
 
+# ---------------------------------------------------------------------------
+# kernel -> plain twin failover
+# ---------------------------------------------------------------------------
+# Every lookup and scan op below has a bit-identical plain twin one
+# branch away; a kernel that RAISES at launch (a CUDA runtime fault, an
+# injected ``kernel.dispatch`` fault) must not take the read path down
+# with it.  Policy, per (op, strategy), as in the reference:
+#
+#   * a healthy kernel that raises is retried ONCE (transient faults
+#     heal invisibly), and a second failure stickily reroutes the pair
+#     to the twin — counted as ``kernel_failover``;
+#   * while rerouted, every `FAILOVER_REPROBE_EVERY`-th call re-probes
+#     the kernel with a single attempt; success re-enables it
+#     (``kernel_failover.recoveries``), failure stays on the twin.
+#
+# Every error is counted (``kernel_failover.errors``) and traced, so a
+# reroute is never quiet.  On a card tensor only an injected fault
+# (`faults.InjectedFault`) reroutes: a library that does not build or
+# load raises before the policy runs, and a real launch error or a
+# refused input raises from the op.  On CPU tensors every exception
+# reroutes, as in the reference.
+#
+# The healthy fast path costs one dict read and one attribute check.
+
+FAILOVER_REPROBE_EVERY = 64
+
+
+class _Failover:
+    """Sticky health record for one (op, strategy) kernel pair."""
+
+    __slots__ = ("lock", "disabled", "since")
+
+    def __init__(self):
+        self.lock = threading.Lock()
+        self.disabled = False   # reroute every call to the twin
+        self.since = 0          # twin calls since disablement
+
+
+_FAILOVER: dict = {}            # (op, strategy) -> _Failover
+_FAILOVER_LOCK = threading.Lock()
+
+
+def _failover_state(op: str, strategy) -> _Failover:
+    key = (op, strategy or "")
+    st = _FAILOVER.get(key)     # lock-free fast path (GIL-atomic read)
+    if st is None:
+        with _FAILOVER_LOCK:
+            st = _FAILOVER.setdefault(key, _Failover())
+    return st
+
+
+def failover_summary() -> dict:
+    """{"op:strategy": {"disabled": bool, "fallback_calls": int}} for
+    every kernel pair that has been exercised."""
+    with _FAILOVER_LOCK:
+        items = list(_FAILOVER.items())
+    return {
+        f"{op}:{strategy}": {
+            "disabled": st.disabled, "fallback_calls": st.since,
+        }
+        for (op, strategy), st in items
+    }
+
+
+def reset_failover() -> None:
+    """Forget all sticky reroutes (tests / bench isolation)."""
+    with _FAILOVER_LOCK:
+        _FAILOVER.clear()
+
+
+def run_with_failover(op: str, strategy, kernel_fn, fallback_fn, t=None, module=None):
+    """Run ``kernel_fn`` under the retry-once + sticky-failover policy,
+    rerouting to ``fallback_fn`` (bit-identical results) on failure.
+    Both callables own their dispatch_span, so attribution stays honest
+    about which program actually ran.  Twin errors propagate: with the
+    kernel already out of the picture there is nothing left to fail
+    over to.
+
+    ``t`` is the tensor the kernel runs on.  When it lies on the card,
+    ``module``'s kernel library is built and loaded first, so a build
+    or load error raises here, and only `faults.InjectedFault` is
+    caught: any other error of the kernel propagates."""
+    on_card = t is not None and _on_card(t)
+    if on_card and module is not None:
+        module.load()
+    rerouted = faults.InjectedFault if on_card else Exception
+    st = _failover_state(op, strategy)
+    probe = False
+    if st.disabled:
+        with st.lock:
+            if st.disabled:
+                st.since += 1
+                if st.since % FAILOVER_REPROBE_EVERY:
+                    return fallback_fn()
+                probe = True
+    reg = obs_metrics.default_registry()
+    for _attempt in range(1 if probe else 2):
+        try:
+            faults.maybe("kernel.dispatch")
+            out = kernel_fn()
+        except rerouted as e:
+            reg.counter("kernel_failover.errors").add(1)
+            obs_trace.instant(
+                "kernel.error", cat="fault", op=op,
+                strategy=strategy or "", error=type(e).__name__,
+            )
+            continue
+        if st.disabled:
+            with st.lock:
+                st.disabled = False
+                st.since = 0
+            reg.counter("kernel_failover.recoveries").add(1)
+            obs_trace.instant("kernel.recovered", cat="fault", op=op,
+                              strategy=strategy or "")
+        return out
+    if not st.disabled:
+        with st.lock:
+            st.disabled = True
+            st.since = 0
+        reg.counter("kernel_failover").add(1)
+        obs_trace.instant("kernel.failover", cat="fault", op=op,
+                          strategy=strategy or "")
+    return fallback_fn()
+
+
+def _kernel_or_twin(op: str, strategy, run, use_kernel: bool, module,
+                    t: torch.Tensor):
+    """``run(kernel: bool)`` as one dispatch: the plain twin when
+    ``use_kernel`` is off, else the kernel under the failover policy
+    with the twin behind it."""
+    if not use_kernel:
+        return run(False)
+    return run_with_failover(op, strategy, lambda: run(True), lambda: run(False),
+                             t, module)
+
+
 def _index_tensors(index, sorted_keys_norm, device):
     return (
         stage0_flat(index.stage0_params, device),
@@ -200,7 +340,9 @@ def rmi_merged_lookup_op(index, sorted_keys_norm, q_norm: torch.Tensor,
     One dispatch covering the RMI bounded search over the base *and*
     the delta prefix search (`strategy="cuda_fused"`); with
     ``use_kernel=False`` the plain PyTorch version runs instead
-    (`strategy="torch_fused"`) — same arithmetic, same results."""
+    (`strategy="torch_fused"`) — same arithmetic, same results.  A
+    kernel that raises rides the retry-once + sticky-failover policy
+    onto that twin (`run_with_failover`)."""
     dev = q_norm.device
     args = (q_norm, *_index_tensors(index, sorted_keys_norm, dev),
             torch.as_tensor(delta_keys, device=dev),
@@ -208,13 +350,20 @@ def rmi_merged_lookup_op(index, sorted_keys_norm, q_norm: torch.Tensor,
     kw = dict(hidden=index.hidden, n=index.n, num_leaves=index.num_leaves,
               max_window=index.max_window)
     sig = (_shape(q_norm), _shape(delta_keys), index.n)
-    if not use_kernel:
-        with dispatch_span("rmi_merged_lookup", kernel=False,
-                           strategy=strategy or "torch_fused", sig=sig):
+
+    def run(kernel):
+        with dispatch_span(
+            "rmi_merged_lookup", kernel=kernel and _on_card(q_norm),
+            strategy=(strategy or "cuda_fused") if kernel
+            else "torch_fused" if use_kernel else (strategy or "torch_fused"),
+            sig=sig + (kernel,),
+        ):
+            if kernel:
+                return rmi_merged_lookup_cuda(*args, **kw)
             return ref.rmi_merged_lookup_reference(*args, **kw)
-    with dispatch_span("rmi_merged_lookup", kernel=_on_card(q_norm),
-                       strategy=strategy or "cuda_fused", sig=sig):
-        return rmi_merged_lookup_cuda(*args, **kw)
+
+    return _kernel_or_twin("rmi_merged_lookup", strategy or "cuda_fused", run, use_kernel,
+                           rmi_lookup, q_norm)
 
 
 def rmi_scan_page_op(
@@ -241,11 +390,15 @@ def rmi_scan_page_op(
         torch.as_tensor(end_rank, dtype=torch.int32, device=dev).reshape(1),
     )
     sig = (_shape(args[0]), _shape(base_keys), _shape(args[3]), page_size)
-    impl = rmi_scan_page_cuda if use_kernel else ref.rmi_scan_page_reference
-    with dispatch_span("rmi_scan_page", kernel=use_kernel and _on_card(base_keys),
-                       strategy=strategy, sig=sig + (use_kernel,)):
-        keys, vals, live = impl(*args, page_size=page_size)
-        return keys, vals, live.bool()
+
+    def run(kernel):
+        impl = rmi_scan_page_cuda if kernel else ref.rmi_scan_page_reference
+        with dispatch_span("rmi_scan_page", kernel=kernel and _on_card(base_keys),
+                           strategy=strategy, sig=sig + (kernel,)):
+            keys, vals, live = impl(*args, page_size=page_size)
+            return keys, vals, live.bool()
+
+    return _kernel_or_twin("rmi_scan_page", strategy, run, use_kernel, rmi_scan, base_keys)
 
 
 def rmi_scan_range_op(
@@ -265,11 +418,15 @@ def rmi_scan_range_op(
     args = (torch.as_tensor(bounds, dtype=torch.float32, device=dev),
             base_keys, base_vals, live_prefix, ins_keys, ins_vals, ins_rank)
     sig = (_shape(base_keys), _shape(ins_keys), page_size, max_pages)
-    impl = rmi_scan_range_cuda if use_kernel else ref.rmi_scan_range_reference
-    with dispatch_span("rmi_scan_range", kernel=use_kernel and _on_card(base_keys),
-                       strategy=strategy, sig=sig + (use_kernel,)):
-        keys, vals, live = impl(*args, page_size=page_size, max_pages=max_pages)
-        return keys, vals, live.bool()
+
+    def run(kernel):
+        impl = rmi_scan_range_cuda if kernel else ref.rmi_scan_range_reference
+        with dispatch_span("rmi_scan_range", kernel=kernel and _on_card(base_keys),
+                           strategy=strategy, sig=sig + (kernel,)):
+            keys, vals, live = impl(*args, page_size=page_size, max_pages=max_pages)
+            return keys, vals, live.bool()
+
+    return _kernel_or_twin("rmi_scan_range", strategy, run, use_kernel, rmi_scan, base_keys)
 
 
 # ---------------------------------------------------------------------------
@@ -389,14 +546,20 @@ def rmi_sharded_routed_lookup_op(
     strategy=None,
 ):
     """`sharded_routed_lookup` in ONE dispatch (``plan`` is its stacked
-    shard tensors, delta and offsets, in its order)."""
+    shard tensors, delta and offsets, in its order).  The kernel path
+    rides the retry-once + sticky-failover policy onto the plain twin."""
     sorted_keys, delta_keys = plan[5], plan[6]
-    sig = (_shape(q_stacked), _shape(sorted_keys), _shape(delta_keys), use_kernel)
-    with dispatch_span("rmi_sharded_routed_lookup",
-                       kernel=use_kernel and _on_card(q_stacked),
-                       strategy=strategy or "sharded_fused", sig=sig):
-        return sharded_routed_lookup(q_stacked, shard_of, *plan, hidden=hidden,
-                                     max_window=max_window, use_kernel=use_kernel)
+    sig = (_shape(q_stacked), _shape(sorted_keys), _shape(delta_keys))
+
+    def run(kernel):
+        with dispatch_span("rmi_sharded_routed_lookup",
+                           kernel=kernel and _on_card(q_stacked),
+                           strategy=strategy or "sharded_fused", sig=sig + (kernel,)):
+            return sharded_routed_lookup(q_stacked, shard_of, *plan, hidden=hidden,
+                                         max_window=max_window, use_kernel=kernel)
+
+    return _kernel_or_twin("rmi_sharded_routed_lookup", strategy or "sharded_fused", run,
+                           use_kernel, rmi_lookup, q_stacked)
 
 
 def sharded_scan_owners(bounds, base_keys, live_prefix, ins_keys):
@@ -435,18 +598,22 @@ def rmi_sharded_scan_page_op(
     share one normalized frame (`index_service.scan.pack_scan_slab`);
     rows come back in it.  Returns ``(keys f32, vals i32, live_mask
     bool)``, pages past the range fully masked."""
-    sig = (_shape(base_keys), _shape(ins_keys), page_size, max_pages, use_kernel)
-    impl = rmi_sharded_scan_page_cuda if use_kernel else ref.rmi_sharded_scan_page_reference
-    with dispatch_span("rmi_sharded_scan_page",
-                       kernel=use_kernel and _on_card(base_keys),
-                       strategy=strategy, sig=sig):
-        owners = sharded_scan_owners(bounds, base_keys, live_prefix, ins_keys)
-        keys, vals, live = impl(
-            base_keys, base_vals, live_prefix, ins_keys, ins_vals, ins_rank,
-            *owners, page_size=page_size, max_pages=max_pages)
-        # exactly one shard owns each stream slot
-        return (keys.amin(0), vals.sum(0, dtype=torch.int32),
-                live.amax(0).bool())
+    sig = (_shape(base_keys), _shape(ins_keys), page_size, max_pages)
+
+    def run(kernel):
+        impl = rmi_sharded_scan_page_cuda if kernel else ref.rmi_sharded_scan_page_reference
+        with dispatch_span("rmi_sharded_scan_page",
+                           kernel=kernel and _on_card(base_keys),
+                           strategy=strategy, sig=sig + (kernel,)):
+            owners = sharded_scan_owners(bounds, base_keys, live_prefix, ins_keys)
+            keys, vals, live = impl(
+                base_keys, base_vals, live_prefix, ins_keys, ins_vals, ins_rank,
+                *owners, page_size=page_size, max_pages=max_pages)
+            # exactly one shard owns each stream slot
+            return (keys.amin(0), vals.sum(0, dtype=torch.int32),
+                    live.amax(0).bool())
+
+    return _kernel_or_twin("rmi_sharded_scan_page", strategy, run, use_kernel, rmi_scan, base_keys)
 
 
 # ---------------------------------------------------------------------------

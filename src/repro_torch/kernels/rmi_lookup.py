@@ -94,6 +94,12 @@ def build():
     return nvcc.build(SOURCE)
 
 
+def load():
+    """The loaded kernel library, built first if this source hash is not;
+    raises if it does not build or load."""
+    return nvcc.load(SOURCE, _declare)
+
+
 def _declare(lib) -> None:
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.rmi_lookup_launch.argtypes = [
@@ -154,7 +160,7 @@ def _launch(q, s0, leaf_w, leaf_b, err_lo, err_hi, sorted_keys,
     if q.shape[0] == 0:
         return base, merged
     args.append(torch.cuda.current_stream(dev).cuda_stream)
-    err = nvcc.load(SOURCE, _declare).rmi_lookup_launch(*args)
+    err = load().rmi_lookup_launch(*args)
     nvcc.raise_on_error(err, "rmi_lookup")
     LAUNCHES["rmi_merged_lookup_cuda" if delta_keys is not None
              else "rmi_lookup_cuda"] += 1
@@ -320,7 +326,7 @@ def rmi_sharded_merged_lookup_cuda(
     if S == 0 or B == 0:
         return base, contrib
     stride_buf = (ctypes.c_longlong * len(strides))(*strides)
-    err = nvcc.load(SOURCE, _declare).rmi_sharded_lookup_launch(
+    err = load().rmi_sharded_lookup_launch(
         q.data_ptr(), S, B, s0.data_ptr(), len(hidden) + 1,
         hidden[0] if hidden else 0, hidden[1] if len(hidden) > 1 else 0,
         record.data_ptr(), sorted_keys.data_ptr(), delta_keys.data_ptr(),

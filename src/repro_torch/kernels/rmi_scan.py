@@ -63,6 +63,12 @@ def build():
     return nvcc.build(SOURCE)
 
 
+def load():
+    """The loaded kernel library, built first if this source hash is not;
+    raises if it does not build or load."""
+    return nvcc.load(SOURCE, _declare)
+
+
 def _declare(lib) -> None:
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.rmi_scan_range_launch.argtypes = [
@@ -142,7 +148,7 @@ def rmi_scan_range_cuda(
     if lanes == 0:
         return out
     i32 = torch.int32
-    err = nvcc.load(SOURCE, _declare).rmi_scan_range_launch(
+    err = load().rmi_scan_range_launch(
         nvcc.check_tensor(bounds, "bounds", torch.float32, dev), bk, bv,
         nvcc.check_tensor(live_prefix, "live_prefix", i32, dev), n, ik, iv,
         nvcc.check_tensor(ins_rank, "ins_rank", i32, dev), ni, lanes,
@@ -189,7 +195,7 @@ def rmi_scan_page_cuda(
     steps, dsteps = ref.trip_counts(n, nd)
     i32 = torch.int32
     scratch = torch.empty(ni + nd, dtype=i32, device=dev)
-    err = nvcc.load(SOURCE, _declare).rmi_scan_page_launch(
+    err = load().rmi_scan_page_launch(
         nvcc.check_tensor(starts, "starts", i32, dev), g, page_size,
         max(1, RANGE_TILE // page_size), bk, bv, n, ik, iv, ni,
         nvcc.check_tensor(del_pos, "del_pos", i32, dev), nd,
@@ -248,7 +254,7 @@ def rmi_sharded_scan_page_cuda(
         (ins_vals, "ins_vals", i32, 2), (ins_rank, "ins_rank", i32, 2),
         (ls0, "ls0", i32, 1), (own_lo, "own_lo", i32, 1), (own_hi, "own_hi", i32, 1))]
     psteps, msteps = ref.trip_counts(n + 1, ni)
-    err = nvcc.load(SOURCE, _declare).rmi_sharded_scan_launch(
+    err = load().rmi_sharded_scan_launch(
         *ptrs[:3], S, n, *ptrs[3:6], ni, *ptrs[6:], lanes, RANGE_TILE, RANGE_INS_CAP,
         RANGE_PREFIX_CAP, psteps, msteps,
         *(o.data_ptr() for o in out), torch.cuda.current_stream(dev).cuda_stream)

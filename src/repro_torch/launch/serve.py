@@ -41,7 +41,7 @@ def main(argv=None) -> dict:
     if args.prefix_bloom:
         raise NotImplementedError(
             "--prefix-bloom needs the learned Bloom filter "
-            "(core/learned_bloom.py), not ported yet: ROADMAP queue A item 5b")
+            "(core/learned_bloom.py), not ported yet: ROADMAP queue A item 2")
     dev = resolve_device(args.device)
     cfg = get_arch(args.arch, reduced=args.reduced)
     api = get_model(cfg, dev)

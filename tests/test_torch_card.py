@@ -11,20 +11,39 @@ so they run where the card is:
 * C17 (ROADMAP queue C): +inf on a flat leaf through B1, B2 and B4 on
   the card, bit for bit against the plain twins, at n + 1 single-shard
   and n sharded.
+* The kernel failover on the card: an injected ``kernel.dispatch``
+  reroutes B1 (the `cuda_fused` service) and B4 (the `sharded_fused`
+  service) onto their plain twins with bit-identical answers, and a
+  library that fails to build makes the op raise with nothing rerouted.
 
-Without a card every test here skips.
+Without a card every test here skips, except
+`test_build_failure_raises_before_the_failover`,
+`test_launch_error_on_card_raises_and_nothing_reroutes` and
+`test_injected_fault_on_card_still_reroutes`, which hold the failover's
+card rules on the CPU with a stand-in for the card tensor: a build
+failure or a launch error raises, and only an injected fault reroutes.
 """
+
+import subprocess
 
 import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
 
+from repro_torch import faults  # noqa: E402
 from repro_torch.core import RMIConfig, build_rmi, make_keyset  # noqa: E402
 from repro_torch.core.rmi import LEAF_FIELDS  # noqa: E402
+from repro_torch.data import gen_maps  # noqa: E402
+from repro_torch.index_service import (  # noqa: E402
+    IndexService,
+    ServiceConfig,
+    ShardedIndexService,
+)
 from repro_torch.index_service.delta import combine_for_device  # noqa: E402
-from repro_torch.kernels import bloom_probe, ops, ref, rmi_lookup  # noqa: E402
+from repro_torch.kernels import bloom_probe, nvcc, ops, ref, rmi_lookup  # noqa: E402
 from repro_torch.kernels.ref import mix32  # noqa: E402
+from repro_torch.obs.metrics import default_registry  # noqa: E402
 
 BLOOM_SHAPES = ((1, 3), (64, 0), (1 << 14, 3), (1 << 16, 7), (1 << 18, 10),
                 ((1 << 31) + 96, 7))
@@ -104,3 +123,181 @@ def test_c17_infinite_query_on_a_flat_leaf_on_card():
     want = ref.rmi_sharded_merged_lookup_reference(*sargs, **skw)
     assert all(torch.equal(a, b) for a, b in zip(got, want))
     assert got[0][:, :3].tolist() == [[n, n, 8]] * 2
+
+
+# ---- the kernel failover ------------------------------------------------------
+
+def _service(kind, dev):
+    base = gen_maps(20_000, seed=4)
+    if kind == "single":
+        svc = IndexService(base, ServiceConfig(strategy="cuda_fused", delta_capacity=4096),
+                           device=dev)
+    else:
+        svc = ShardedIndexService(base, ServiceConfig(
+            num_shards=4, strategy="sharded_fused", delta_capacity=4096), device=dev)
+    rng = np.random.default_rng(1)
+    svc.insert(np.setdiff1d(rng.uniform(base[0], base[-1], 600), base))
+    svc.delete(rng.choice(base, 300, replace=False))
+    q = np.concatenate([rng.choice(base, 3000), rng.uniform(base[0], base[-1], 1000)])
+    return svc, q
+
+
+def _failure_counts():
+    reg = default_registry()
+    return [int(reg.counter(k).value) for k in (
+        "kernel_failover", "kernel_failover.errors", "kernel_failover.recoveries")]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind,launch", [("single", "rmi_merged_lookup_cuda"),
+                                         ("sharded", "rmi_sharded_merged_lookup_cuda")])
+def test_injected_fault_reroutes_on_card_bit_identical(kind, launch):
+    dev = _card()
+    ops.reset_failover()
+    svc, q = _service(kind, dev)
+    want = svc.get(q), svc.lookup_batch(q)
+    before = _failure_counts()
+    n0 = rmi_lookup.LAUNCHES[launch]
+    with faults.inject(faults.FaultSchedule({"kernel.dispatch": 2})):
+        got = svc.get(q), svc.lookup_batch(q)
+    assert rmi_lookup.LAUNCHES[launch] == n0  # both reads ran on the twin
+    assert [a - b for a, b in zip(_failure_counts(), before)] == [1, 2, 0]
+    assert all(np.array_equal(a, b) for a, b in zip(got[0], want[0]))
+    assert torch.equal(got[1], want[1])
+    assert any(r["disabled"] for r in ops.failover_summary().values())
+    for _ in range(ops.FAILOVER_REPROBE_EVERY):
+        assert torch.equal(svc.lookup_batch(q), want[1])
+    assert rmi_lookup.LAUNCHES[launch] > n0  # the re-probe brought the kernel back
+    assert [a - b for a, b in zip(_failure_counts(), before)] == [1, 2, 1]
+    assert not any(r["disabled"] for r in ops.failover_summary().values())
+    ops.reset_failover()
+
+
+def _failing_build(source, flags=nvcc.NVCC_FLAGS):
+    raise subprocess.CalledProcessError(1, ["nvcc", str(source)], "", "error: stand-in")
+
+
+RULE_A_ENTRIES = (
+    "snapshot_merged_cuda_fused", "snapshot_merged_cuda", "snapshot_merged_sharded_fused",
+    "snapshot_base_cuda", "rmi_merged_lookup_op", "rmi_scan_range_op", "rmi_scan_page_op",
+    "rmi_sharded_routed_lookup_op", "rmi_sharded_scan_page_op",
+)
+
+
+def _rule_a_call(entry):
+    """One entry of a wrapped kernel, on CPU tensors: the five ops and
+    the snapshot's merged and base closures."""
+    from repro_torch.index_service.scan import device_scan_plan
+    base = gen_maps(4_000, seed=9)
+    single = IndexService(base, ServiceConfig(strategy="cuda_fused"), device="cpu")
+    sharded = ShardedIndexService(base, ServiceConfig(num_shards=3, strategy="sharded_fused"),
+                                  device="cpu")
+    snap = single._mgr.current()
+    q = torch.as_tensor(snap.keys.norm[::5].copy())
+    dk, dp = (torch.as_tensor(a) for a in combine_for_device(None, None, snap.keys.normalize))
+    plan = (torch.tensor([0, 64], dtype=torch.int32),
+            *(torch.as_tensor(a) for a in device_scan_plan(single._pin(), snap.keys.normalize)),
+            torch.tensor([100], dtype=torch.int32))
+    return {
+        "snapshot_merged_cuda_fused": lambda: single.get(base[:64]),
+        "snapshot_merged_cuda": lambda: snap.merged_lookup_fn("cuda")(q, dk, dp),
+        "snapshot_merged_sharded_fused": lambda: snap.merged_lookup_fn("sharded_fused")(
+            q, dk, dp),
+        "snapshot_base_cuda": lambda: snap.base_lookup_fn("cuda_fused")(q),
+        "rmi_merged_lookup_op": lambda: ops.rmi_merged_lookup_op(
+            snap.index, snap.keys.norm, q, dk, dp),
+        "rmi_scan_range_op": lambda: single.scan_batch(base[10], base[900], 64),
+        "rmi_scan_page_op": lambda: snap.scan_page_fn("cuda_fused", 64)(*plan),
+        "rmi_sharded_routed_lookup_op": lambda: sharded.get(base[:64]),
+        "rmi_sharded_scan_page_op": lambda: sharded.scan_batch(base[10], base[900], 64),
+    }[entry]
+
+
+@pytest.mark.parametrize("entry", RULE_A_ENTRIES)
+def test_build_failure_raises_before_the_failover(entry, monkeypatch):
+    """On the CPU, with every tensor standing in for a card tensor: a
+    library that does not build raises from the op, is never retried or
+    rerouted, and `failover_summary()` stays empty."""
+    call = _rule_a_call(entry)
+    ops.reset_failover()
+    before = _failure_counts()
+    monkeypatch.setattr(ops, "_on_card", lambda t: True)
+    monkeypatch.setattr(nvcc, "_LIBS", {})
+    monkeypatch.setattr(nvcc, "build", _failing_build)
+    with faults.inject(faults.FaultSchedule({})) as sched:
+        with pytest.raises(subprocess.CalledProcessError):
+            call()
+    assert sched.probes.get("kernel.dispatch", 0) == 0
+    assert ops.failover_summary() == {}
+    assert _failure_counts() == before
+
+
+def _same(a, b) -> bool:
+    if isinstance(a, (tuple, list)):
+        return len(a) == len(b) and all(_same(x, y) for x, y in zip(a, b))
+    if isinstance(a, torch.Tensor):
+        return torch.equal(a, b)
+    return bool(np.array_equal(a, b))
+
+
+@pytest.mark.parametrize("entry", RULE_A_ENTRIES)
+def test_launch_error_on_card_raises_and_nothing_reroutes(entry, monkeypatch):
+    """On the CPU, with every tensor standing in for a card tensor and
+    the library loaded: an error of the kernel that is not an injected
+    fault (a launch error, a refused input) raises from the op on its
+    first attempt, is not counted as a failover, and reroutes nothing."""
+    call = _rule_a_call(entry)
+    ops.reset_failover()
+    before = _failure_counts()
+    real = faults.maybe
+    attempts = []
+
+    def launch_error(name, exc=faults.InjectedFault):
+        if name == "kernel.dispatch":
+            attempts.append(name)
+            raise RuntimeError("stand-in launch error")
+        return real(name, exc)
+
+    monkeypatch.setattr(ops, "_on_card", lambda t: True)
+    monkeypatch.setattr(nvcc, "load", lambda *a, **k: None)
+    monkeypatch.setattr(faults, "maybe", launch_error)
+    with pytest.raises(RuntimeError, match="stand-in launch error") as err:
+        call()
+    assert not isinstance(err.value, faults.InjectedFault)
+    assert len(attempts) == 1   # no retry
+    assert not any(r["disabled"] for r in ops.failover_summary().values())
+    assert _failure_counts() == before
+
+
+@pytest.mark.parametrize("entry", RULE_A_ENTRIES)
+def test_injected_fault_on_card_still_reroutes(entry, monkeypatch):
+    """The same stand-in for the card: two injected ``kernel.dispatch``
+    faults retry once and then reroute onto the twin, with the answer
+    unchanged."""
+    call = _rule_a_call(entry)
+    monkeypatch.setattr(ops, "_on_card", lambda t: True)
+    monkeypatch.setattr(nvcc, "load", lambda *a, **k: None)
+    want = call()
+    ops.reset_failover()
+    before = _failure_counts()
+    with faults.inject(faults.FaultSchedule({"kernel.dispatch": 2})):
+        got = call()
+    assert _same(got, want)
+    assert [a - b for a, b in zip(_failure_counts(), before)] == [1, 2, 0]
+    assert any(r["disabled"] for r in ops.failover_summary().values())
+    ops.reset_failover()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["single", "sharded"])
+def test_build_failure_raises_on_card_and_nothing_reroutes(kind, monkeypatch):
+    dev = _card()
+    svc, q = _service(kind, dev)
+    ops.reset_failover()
+    monkeypatch.setattr(nvcc, "_LIBS", {})
+    monkeypatch.setattr(nvcc, "build", _failing_build)
+    for read in (lambda: svc.get(q), lambda: svc.lookup_batch(q),
+                 lambda: svc.scan_batch(q.min(), q.max(), 256)):
+        with pytest.raises(subprocess.CalledProcessError):
+            read()
+    assert ops.failover_summary() == {}
