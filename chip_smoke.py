@@ -119,7 +119,25 @@ is non-zero:
                against its plain version at both shapes;
                both probes at 1<<20 and 1<<24 queries (bound: the 32-byte
                sectors their gathers touch), screened contains keys/s;
-               the attention kernel's row comes from the LM phase.
+               the attention kernel's row comes from the LM phase;
+  5. paper_structures — the paper's other structures, plain torch on
+               the card (no kernel of theirs; they launch none of the
+               nine, except the reduced model's attention in the last):
+               the B-Tree baseline over the compacted main-path key set
+               (inside phase 3-4's service, no second key set) at every
+               `BTREE_PAGE_SIZES` page, 1<<20 stored and 1<<20 absent
+               queries against np.searchsorted, its size beside the
+               RMI's; after the sharded services, the §3.5 string index
+               over gen_webdocs(100k) at 16 bytes (linear and (8,)
+               stage-0, three strategies, every stored string exact);
+               the §5.1 learned Bloom filter (the paper's E 32, W 16
+               GRU, 600 steps, gen_urls(4k, 12k): no false negative,
+               held-out FPR <= 0.05, beside a plain filter at the same
+               target); LIF over gen_maps(1M) on a four-candidate grid
+               (stored keys exact); the pipeline's document lookup at
+               10M and 1e9 tokens (1<<20 offsets each against the
+               oracle); and `launch.serve --prefix-bloom` on the reduced
+               yi-6b (the reference test's argv).
 
 The last line is ``{"ok": true, "device": {...}}``.  Without a card the
 script exits non-zero before printing any result.
@@ -2663,6 +2681,217 @@ def run_frontend(svc, rng, dev, card):
             "pump_round": {"requests": len(reqs), "read_kinds": 4, "dispatches": dispatches}}
 
 
+# ---------------------------------------------------------------------------
+# the paper's other structures (plain torch on the card): the B-Tree over
+# the main path's key set, string keys, the learned Bloom filter, LIF, the
+# data pipeline's document lookup and `launch.serve --prefix-bloom`
+# ---------------------------------------------------------------------------
+
+BTREE_QUERIES = 1 << 20          # stored, and absent, queries per page size
+PAPER_WEBDOCS = 100_000          # gen_webdocs strings of the string index
+STRING_LEN = 16                  # bytes a string is tokenized to
+STRING_HIDDEN = ((), (8,))
+STRING_STRATEGIES = ("binary", "biased", "quaternary")
+PAPER_URLS = (4_000, 12_000)     # gen_urls keys, non-keys of the learned Bloom
+GRU_STEPS = 600
+BLOOM_TARGET_FPR = 0.01
+BLOOM_MAX_FPR = 0.05             # the reference test's bound on the held-out FPR
+LIF_KEYS = 1_000_000             # gen_maps keys LIF synthesizes over
+LIF_GRID = {"num_leaves": (10_000, 50_000), "stage0_hidden": ((), (16, 16))}
+PIPELINE_TOKENS = (10_000_000, 1_000_000_000)
+PIPELINE_OFFSETS = 1 << 20
+# tests/test_system.py:66-69, the reference's --prefix-bloom run
+PREFIX_BLOOM_ARGV = ["--arch", "yi-6b", "--reduced", "--requests", "3", "--max-new", "4",
+                     "--batch-slots", "3", "--max-len", "32", "--prefix-bloom"]
+
+
+def run_btree(ks, keys_t, index, rng, dev, card):
+    """Every `BTREE_PAGE_SIZES` page size over the service's float32 key
+    set (``keys_t`` is the snapshot's own device copy), held to
+    ``np.searchsorted`` on stored and absent queries, timed with CUDA
+    events, its size beside the RMI's."""
+    import torch
+    from repro_torch.configs.learned_index import BTREE_PAGE_SIZES
+    from repro_torch.core.btree import btree_lookup, build_btree
+
+    t0 = time.perf_counter()
+    norm = ks.norm
+    stored = norm[rng.choice(ks.n, BTREE_QUERIES)]
+    absent = ks.normalize(f32_absent_queries(ks, rng, BTREE_QUERIES))
+    sets = {name: (torch.as_tensor(q, device=dev), np.searchsorted(norm, q, side="left"))
+            for name, q in (("stored", stored), ("absent", absent))}
+    rows = []
+    for page in BTREE_PAGE_SIZES:
+        bt = build_btree(norm, page)
+        levels = bt.as_tree(dev)
+        row = {"page": page, "depth": bt.depth, "size_bytes": bt.size_bytes}
+        for name, (qt, want) in sets.items():
+            got = btree_lookup(levels, keys_t, qt, page).cpu().numpy()
+            row[f"{name}_mismatches"] = int((got != want).sum())
+            check(row[f"{name}_mismatches"] == 0,
+                  f"btree page {page}: {name} queries off np.searchsorted")
+            row[f"{name}_ms"] = time_ms(lambda: btree_lookup(levels, keys_t, qt, page),
+                                        reps=5, warmup=1)
+        rows.append(row)
+        del levels
+    out = {"phase": "paper_structures", "part": "btree", "card": card, "n": int(ks.n),
+           "queries": {k: int(v[0].numel()) for k, v in sets.items()},
+           "rmi_model_size_bytes": index.model_size_bytes, "rows": rows,
+           "seconds": time.perf_counter() - t0}
+    emit(out)
+    return out
+
+
+def run_strings(args, dev, card):
+    """The §3.5 string index over gen_webdocs at `STRING_LEN` bytes: a
+    linear and an (8,) stage-0, every stored string at its position under
+    the three strategies."""
+    import torch
+    from repro_torch.core import (RMIConfig, build_rmi, compile_string_lookup,
+                                  make_vector_keyset, tokenize)
+    from repro_torch.data import gen_webdocs
+
+    t0 = time.perf_counter()
+    vks = make_vector_keyset(tokenize(gen_webdocs(PAPER_WEBDOCS, seed=args.seed), STRING_LEN))
+    gen_s = time.perf_counter() - t0
+    q = torch.as_tensor(vks.raw, device=dev)
+    want = np.arange(vks.n)
+    rows = []
+    for hidden in STRING_HIDDEN:
+        t1 = time.perf_counter()
+        idx = build_rmi(vks, RMIConfig(num_leaves=max(64, vks.n // 20), stage0_hidden=hidden,
+                                       stage0_train_steps=250, seed=args.seed), device=dev)
+        row = {"hidden": list(hidden), "num_leaves": idx.num_leaves,
+               "max_window": idx.max_window, "model_size_bytes": idx.model_size_bytes,
+               "build_s": time.perf_counter() - t1}
+        for strategy in STRING_STRATEGIES:
+            lookup = compile_string_lookup(idx, vks, strategy, device=dev)
+            bad = int((lookup(q).cpu().numpy() != want).sum())
+            check(bad == 0, f"strings {hidden} {strategy}: {bad} stored strings off")
+            row[strategy] = {"mismatches": bad, "ms": time_ms(lambda: lookup(q), reps=5)}
+        rows.append(row)
+    out = {"phase": "paper_structures", "part": "strings", "card": card, "n": vks.n,
+           "max_len": STRING_LEN, "gen_s": gen_s, "rows": rows,
+           "seconds": time.perf_counter() - t0}
+    emit(out)
+    return out
+
+
+def run_learned_bloom(args, dev, card):
+    """The §5.1 learned Bloom filter with the paper's GRU (E 32, W 16)
+    over gen_urls: no false negative, the held-out FPR within
+    `BLOOM_MAX_FPR`, sizes beside a plain Bloom filter at the target
+    FPR."""
+    from repro_torch.core import GRUSpec, build_bloom, build_learned_bloom
+    from repro_torch.core.bloom import string_hash_u64
+    from repro_torch.data import gen_urls
+
+    t0 = time.perf_counter()
+    keys, nonkeys = gen_urls(*PAPER_URLS, seed=args.seed)
+    gen_s = time.perf_counter() - t0
+    t1 = time.perf_counter()
+    lb = build_learned_bloom(keys, nonkeys, target_fpr=BLOOM_TARGET_FPR, spec=GRUSpec(),
+                             train_steps=GRU_STEPS, seed=args.seed, device=dev)
+    build_s = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    fn = int((~lb.contains(keys)).sum())
+    contains_s = time.perf_counter() - t1
+    check(fn == 0, f"learned bloom: {fn} false negatives")
+    check(lb.measured_fpr <= BLOOM_MAX_FPR, f"learned bloom: FPR {lb.measured_fpr}")
+    plain = build_bloom(string_hash_u64(keys), fpr=BLOOM_TARGET_FPR)
+    out = {"phase": "paper_structures", "part": "learned_bloom", "card": card,
+           "keys": len(keys), "nonkeys": len(nonkeys), "steps": GRU_STEPS,
+           "target_fpr": BLOOM_TARGET_FPR, "tau": lb.tau, "fnr": lb.fnr,
+           "measured_fpr": lb.measured_fpr, "false_negatives": fn,
+           "size_bytes": lb.size_bytes, "model_bytes": lb.spec.size_bytes,
+           "overflow_bytes": lb.overflow.size_bytes, "plain_bloom_bytes": plain.size_bytes,
+           "gen_s": gen_s, "build_s": build_s, "contains_s": contains_s,
+           "seconds": time.perf_counter() - t0}
+    emit(out)
+    return out
+
+
+def run_lif(args, rng, dev, card):
+    """LIF over gen_maps on the four-candidate `LIF_GRID`: every stored
+    key at its float32 lower bound through the emitted lookup."""
+    import torch
+    from repro_torch.core import IndexSpec, make_keyset, synthesize
+    from repro_torch.data import gen_maps
+
+    t0 = time.perf_counter()
+    ks = make_keyset(gen_maps(LIF_KEYS, seed=args.seed + 11))
+    idx, lookup, cands = synthesize(ks, IndexSpec(), LIF_GRID, device=dev)
+    synth_s = time.perf_counter() - t0
+    q = torch.as_tensor(ks.norm, device=dev)
+    bad = int((lookup(q).cpu().numpy() != np.searchsorted(ks.norm, ks.norm)).sum())
+    check(bad == 0, f"lif: {bad} stored keys off their lower bound")
+    check(len(cands) == 4, f"lif: {len(cands)} candidates")
+    out = {"phase": "paper_structures", "part": "lif", "card": card, "n": int(ks.n),
+           "candidates": [{"num_leaves": c.config.num_leaves,
+                           "hidden": list(c.config.stage0_hidden), "avg_window": c.avg_window,
+                           "max_window": c.max_window, "size_bytes": c.size_bytes,
+                           "score": c.score} for c in cands],
+           "picked": {"num_leaves": idx.num_leaves, "hidden": list(idx.hidden)},
+           "mismatches": bad, "lookup_ms": time_ms(lambda: lookup(q), reps=5),
+           "synthesize_s": synth_s, "seconds": time.perf_counter() - t0}
+    emit(out)
+    return out
+
+
+def run_pipeline(args, rng, dev, card):
+    """The data pipeline's document lookup at 10M and 1e9 tokens: every
+    seeded offset at the oracle's document (the last start <= it)."""
+    from repro_torch.data.pipeline import make_synthetic_corpus
+
+    rows = []
+    t0 = time.perf_counter()
+    for tokens in PIPELINE_TOKENS:
+        t1 = time.perf_counter()
+        corpus = make_synthetic_corpus(tokens, seed=args.seed, device=dev)
+        build_s = time.perf_counter() - t1
+        offsets = rng.integers(0, tokens, PIPELINE_OFFSETS)
+        got = corpus.lookup_documents(offsets)
+        want = np.searchsorted(corpus.doc_starts, offsets, side="right") - 1
+        bad = int((got != want).sum())
+        check(bad == 0, f"pipeline {tokens}: {bad} offsets off the oracle's document")
+        t1 = time.perf_counter()
+        for _ in range(5):
+            corpus.lookup_documents(offsets)
+        rows.append({"tokens": tokens, "documents": int(corpus.doc_starts.size),
+                     "offsets": PIPELINE_OFFSETS, "mismatches": bad, "build_s": build_s,
+                     "lookup_documents_ms": (time.perf_counter() - t1) / 5 * 1e3})
+    out = {"phase": "paper_structures", "part": "pipeline", "card": card, "rows": rows,
+           "seconds": time.perf_counter() - t0}
+    emit(out)
+    return out
+
+
+def run_prefix_bloom_serve(card):
+    """`launch.serve --prefix-bloom` on the reduced yi-6b, the reference
+    test's argv, on the card."""
+    from repro_torch.launch import serve
+
+    t0 = time.perf_counter()
+    out = serve.main(PREFIX_BLOOM_ARGV)
+    check(out["completed"] == 3 and out["tokens"] == 12 and out["kv_pages_in_use"] == 0,
+          f"serve --prefix-bloom: {out}")
+    row = {"phase": "paper_structures", "part": "serve_prefix_bloom", "card": card,
+           "argv": PREFIX_BLOOM_ARGV, **out, "seconds": time.perf_counter() - t0}
+    emit(row)
+    return row
+
+
+def run_paper_structures(args, rng, dev, card):
+    """Strings, the learned Bloom filter, LIF, the pipeline and the
+    prefix-bloom launcher, one `paper_structures` line each (the B-Tree
+    line comes from `run_single`)."""
+    t0 = time.perf_counter()
+    parts = [run_strings(args, dev, card), run_learned_bloom(args, dev, card),
+             run_lif(args, rng, dev, card), run_pipeline(args, rng, dev, card),
+             run_prefix_bloom_serve(card)]
+    return {"seconds": time.perf_counter() - t0, "parts": [p["part"] for p in parts]}
+
+
 def run_single(args, base, rng, dev, card, record, worst, scan_worst):
     """Phases 3-4 on the single-shard service over ``base``: the main
     path (lookups, scans, compaction), the snapshot-level sharded_fused
@@ -2986,11 +3215,14 @@ def run_single(args, base, rng, dev, card, record, worst, scan_worst):
           f"frontend: a kernel never launched: {front['launches']}")
     failover_guard("frontend", guard1)
 
+    # ---- the B-Tree baseline over the compacted key set --------------------
+    btree = run_btree(snap1.keys, snap1._device_tree()[1], snap1.index, rng, dev, card)
+
     scan_worst = max([scan_worst] + [r["page_max_abs_err"] for r in scan_times])
     return {"times": times, "scan_times": scan_times, "launches": launches,
             "worst": worst, "scan_worst": scan_worst, "n": int(ks0.n),
             "snapshot_sharded": snapshot_sharded, "bloom_times": bloom_times,
-            "bloom_worst": bloom_worst}
+            "bloom_worst": bloom_worst, "btree_s": btree["seconds"]}
 
 
 def main(argv=None) -> int:
@@ -3113,6 +3345,12 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     rebalanced = run_rebalance(args, rng, dev)
     emit({"phase": "rebalance", **rebalanced})
+    gc.collect()
+    torch.cuda.empty_cache()
+    structures = run_paper_structures(args, rng, dev, card)
+    emit({"phase": "paper_structures", "part": "all", "card": card,
+          "seconds": structures["seconds"] + single["btree_s"], "parts": ["btree"]
+          + structures["parts"]})
 
     times, scan_times, launches = single["times"], single["scan_times"], single["launches"]
     worst, scan_worst = single["worst"], single["scan_worst"]

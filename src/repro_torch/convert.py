@@ -15,7 +15,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.bloom import BloomFilter
-from repro_torch.core.keys import KeySet
+from repro_torch.core.keys import KeySet, VectorKeySet
 from repro_torch.core.learned_hash import HashMap
 from repro_torch.core.rmi import RMIConfig, RMIndex
 from repro_torch.device import resolve_device
@@ -37,15 +37,14 @@ def config_from_reference(cfg) -> RMIConfig:
 
 
 def index_from_reference(idx) -> RMIndex:
-    """A reference `RMIndex` (scalar keys) as the port's `RMIndex`."""
-    if int(idx.in_dim) != 1:
-        raise ValueError("the port supports scalar keys only")
+    """A reference `RMIndex` (scalar or vector keys) as the port's
+    `RMIndex`."""
     arr = lambda a, dt: np.array(a, dtype=dt)  # noqa: E731 (own copies)
     return RMIndex(
         config=config_from_reference(idx.config),
         n=int(idx.n),
         num_leaves=int(idx.num_leaves),
-        in_dim=1,
+        in_dim=int(idx.in_dim),
         stage0_params={k: arr(v, np.float32) for k, v in idx.stage0_params.items()},
         leaf_w=arr(idx.leaf_w, np.float32),
         leaf_b=arr(idx.leaf_b, np.float32),
@@ -63,6 +62,20 @@ def keyset_from_reference(ks) -> KeySet:
     return KeySet(raw=np.array(ks.raw, np.float64),
                   norm=np.array(ks.norm, np.float32),
                   lo=float(ks.lo), hi=float(ks.hi))
+
+
+def vector_keyset_from_reference(vks) -> VectorKeySet:
+    """A reference `VectorKeySet` (tokenized strings) as the port's."""
+    return VectorKeySet(raw=np.array(vks.raw, np.float64),
+                        norm=np.array(vks.norm, np.float32), scale=float(vks.scale))
+
+
+def gru_params_from_reference(params) -> dict:
+    """A reference learned-Bloom GRU's parameters (a dict of arrays,
+    `learned_bloom.gru_train`'s output) as the port's: float32 NumPy
+    copies under the same names, which `learned_bloom.gru_logits` takes
+    on any device."""
+    return {k: np.array(v, np.float32) for k, v in params.items()}
 
 
 def bloom_from_reference(bf) -> BloomFilter:

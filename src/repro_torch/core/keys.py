@@ -1,5 +1,6 @@
-"""Key handling: normalization and the sorted key-set container (the
-scalar half of the reference's ``core/keys.py``, NumPy verbatim).
+"""Key handling: normalization and the sorted key-set containers, scalar
+and fixed-length vector (tokenized strings), the reference's
+``core/keys.py`` in NumPy verbatim.
 
 Raw keys may be int64/uint64 (timestamps, ids) or float64 (longitudes).
 Model arithmetic runs in float32; correctness does not depend on
@@ -57,3 +58,44 @@ def make_keyset(raw_keys: ArrayLike) -> KeySet:
         raise ValueError("degenerate key range")
     norm = ((raw - lo) / (hi - lo)).astype(np.float32)
     return KeySet(raw=raw, norm=norm, lo=lo, hi=hi)
+
+
+def make_vector_keyset(vectors: np.ndarray) -> "VectorKeySet":
+    """Key set for string keys tokenized to fixed-length vectors.
+
+    Vectors must already be lexicographically sorted (see strings.py).
+    Each component is normalized to [0, 1] by the global max (e.g. 255
+    for ASCII).
+    """
+    vecs = np.asarray(vectors, dtype=np.float64)
+    if vecs.ndim != 2:
+        raise ValueError("expected (N, D) vectors")
+    scale = max(float(vecs.max()), 1.0)
+    norm = (vecs / scale).astype(np.float32)
+    return VectorKeySet(raw=vecs, norm=norm, scale=scale)
+
+
+@dataclasses.dataclass(frozen=True)
+class VectorKeySet:
+    """Sorted fixed-length-vector keys (tokenized strings)."""
+
+    raw: np.ndarray   # (N, D) float64
+    norm: np.ndarray  # (N, D) float32 in [0, 1]
+    scale: float
+
+    @property
+    def n(self) -> int:
+        return int(self.raw.shape[0])
+
+    @property
+    def dim(self) -> int:
+        return int(self.raw.shape[1])
+
+    @property
+    def positions(self) -> np.ndarray:
+        return np.arange(self.n, dtype=np.float32)
+
+    def normalize(self, queries: np.ndarray) -> np.ndarray:
+        return (np.asarray(queries, dtype=np.float64) / self.scale).astype(
+            np.float32
+        )

@@ -2,9 +2,10 @@
 
 The paper (§3.3) uses two model families: 0-hidden-layer nets (= linear
 regression, trained optimally in closed form) and 1-2 hidden-layer ReLU
-nets of width 4-32.  The closed-form fits are the reference's NumPy,
-verbatim; the MLP is trained in torch with the same hand-rolled Adam.
-Scalar keys only.
+nets of width 4-32.  Inputs may be scalars (numeric keys) or
+fixed-length vectors (tokenized strings, §3.5).  The closed-form fits
+are the reference's NumPy, verbatim; the MLP is trained in torch with
+the same hand-rolled Adam.
 """
 
 from __future__ import annotations
@@ -120,8 +121,9 @@ def mlp_init(
 
 
 def mlp_apply(params: Dict[str, torch.Tensor], x: torch.Tensor) -> torch.Tensor:
-    """x: (B,) scalar keys -> (B,) predictions (training forward pass;
-    lookups use the fixed-order `kernels.ref.stage0_apply`)."""
+    """x: (B,) scalar keys or (B, D) vector keys -> (B,) predictions
+    (training forward pass; lookups use the fixed-order
+    `stage0_apply`)."""
     h = x[:, None] if x.ndim == 1 else x
     n_layers = len(params) // 2
     for i in range(n_layers):
@@ -160,7 +162,15 @@ def mlp_train(
                 "w0": np.array([[slope]], np.float32),
                 "b0": np.array([intercept], np.float32),
             }
-        raise ValueError("the port supports scalar keys only")
+        # multivariate least squares with ridge for stability
+        xd = np.asarray(x, np.float64)
+        a = np.concatenate([xd, np.ones((xd.shape[0], 1))], axis=1)
+        ata = a.T @ a + 1e-6 * np.eye(a.shape[1])
+        w = np.linalg.solve(ata, a.T @ np.asarray(y, np.float64))
+        return {
+            "w0": w[:-1, None].astype(np.float32),
+            "b0": w[-1:].astype(np.float32),
+        }
 
     gen = torch.Generator().manual_seed(seed)
     params = mlp_init(spec, gen, device)
@@ -212,9 +222,11 @@ def mlp_train(
 #   acc = h0*w0j; acc += h1*w1j; ...; out = acc + bj
 # The CUDA kernel (kernels/csrc/rmi_lookup.cu) does the same with
 # __fmul_rn / __fadd_rn, so both devices agree with this function.
+# Vector keys (in_dim D > 1) take the same order over their D inputs;
+# the kernels take scalar keys only.
 
-def stage0_dims(hidden: tuple) -> tuple:
-    return (1, *tuple(int(h) for h in hidden), 1)
+def stage0_dims(hidden: tuple, in_dim: int = 1) -> tuple:
+    return (int(in_dim), *tuple(int(h) for h in hidden), 1)
 
 
 def pack_stage0(params: Dict[str, np.ndarray]) -> np.ndarray:
@@ -229,10 +241,11 @@ def pack_stage0(params: Dict[str, np.ndarray]) -> np.ndarray:
 
 
 def stage0_apply(s0: torch.Tensor, hidden: tuple, q: torch.Tensor) -> torch.Tensor:
-    """Stage-0 prediction p0 for (B,) float32 queries from the flat
-    parameter buffer ``s0`` (`pack_stage0`), in the fixed order above."""
-    dims = stage0_dims(hidden)
-    h = [q]
+    """Stage-0 prediction p0 for (B,) float32 scalar queries or (B, D)
+    vector queries (in_dim D) from the flat parameter buffer ``s0``
+    (`pack_stage0`), in the fixed order above."""
+    h = [q] if q.ndim == 1 else list(q.unbind(1))
+    dims = stage0_dims(hidden, len(h))
     off = 0
     for i in range(len(dims) - 1):
         din, dout = dims[i], dims[i + 1]

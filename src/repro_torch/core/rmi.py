@@ -6,12 +6,17 @@ Two stages (the paper's best configuration throughout §3.6):
            its prediction picks one of M leaf models:
            ``leaf = clip(floor(f0(x) * M / N), 0, M-1)``.
   stage 1: M linear models stored structure-of-arrays — slope[M],
-           intercept[M] — plus per-leaf min/max residual bounds and
-           residual σ for the biased searches.
+           intercept[M] (vector keys: W[M, D], b[M]) — plus per-leaf
+           min/max residual bounds and residual σ for the biased
+           searches.
 
 The builder is the reference's host NumPy, with the stage-0 leaf
 assignment computed by the same fixed-order float32 arithmetic the
-lookups use (`models.stage0_apply`).  Scalar keys only.
+lookups use (`models.stage0_apply`).  A vector key's leaf position
+``Σ w·q + b`` is summed in that order too, at build and at lookup
+(`leaf_dot`), where the reference sums with ``np.sum`` at build and
+``jnp.sum`` at lookup.  The lookup kernels take scalar keys only; vector
+keys (tokenized strings, `core.strings`) run the plain torch path.
 
 Error-bound contract (paper §2): bounds are computed *post hoc* over the
 stored keys with float32 arithmetic, separately rounded multiply and
@@ -22,13 +27,13 @@ leaf's window.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional, Tuple
+from typing import Dict, Optional, Tuple, Union
 
 import numpy as np
 import torch
 
 from repro_torch.core import search as search_lib
-from repro_torch.core.keys import KeySet
+from repro_torch.core.keys import KeySet, VectorKeySet
 from repro_torch.core.models import (
     MLPSpec,
     mlp_train,
@@ -62,7 +67,7 @@ class RMIndex:
     num_leaves: int
     in_dim: int
     stage0_params: Dict[str, np.ndarray]
-    leaf_w: np.ndarray          # (M,) float32
+    leaf_w: np.ndarray          # (M,) float32, or (M, D) for vector keys
     leaf_b: np.ndarray          # (M,)
     err_lo: np.ndarray          # (M,) float32 <= 0
     err_hi: np.ndarray          # (M,) float32 >= 0
@@ -92,16 +97,18 @@ class RMIndex:
         return np.float32(self.num_leaves / self.n)
 
     def as_tree(self, device) -> Dict[str, torch.Tensor]:
-        """The lookups' tensors on ``device``.  The four leaf arrays are
-        the column views of one `pack_leaves` record."""
+        """The lookups' tensors on ``device``.  For scalar keys the four
+        leaf arrays are the column views of one `pack_leaves` record;
+        for vector keys they are separate tensors."""
         dev = torch.device(device)
         t = {
             k: torch.as_tensor(getattr(self, k), device=dev)
             for k in ("sigma", "seg_lo", "seg_hi", "is_btree")
         }
-        record = pack_leaves(*(torch.as_tensor(getattr(self, k), device=dev)
-                               for k in LEAF_FIELDS))
-        t.update(zip(LEAF_FIELDS, record.unbind(1)))
+        leaves = [torch.as_tensor(getattr(self, k), device=dev) for k in LEAF_FIELDS]
+        if self.in_dim == 1:
+            leaves = pack_leaves(*leaves).unbind(1)
+        t.update(zip(LEAF_FIELDS, leaves))
         t["s0"] = torch.as_tensor(pack_stage0(self.stage0_params), device=dev)
         return t
 
@@ -115,14 +122,28 @@ def pack_leaves(leaf_w, leaf_b, err_lo, err_hi) -> torch.Tensor:
     return torch.stack([leaf_w, leaf_b, err_lo, err_hi], dim=1)
 
 
+def leaf_dot(w, q):
+    """Row-wise ``Σ_k w[:, k] * q[:, k]`` of (B, D) float32 arrays, NumPy
+    or torch: each product and each add rounded separately, in ascending
+    k, the order of `models.stage0_apply`, so the build's positions and
+    the lookup's agree bit for bit."""
+    acc = w[:, 0] * q[:, 0]
+    for k in range(1, q.shape[1]):
+        acc = acc + w[:, k] * q[:, k]
+    return acc
+
+
 def leaf_position(w: torch.Tensor, b: torch.Tensor, q: torch.Tensor,
                   n: int) -> torch.Tensor:
     """The leaf position ``w * q + b`` clipped to [0, f32(n - 1)], with
     +inf taking f32(n - 1), the end of the key range, whatever the
     slope: on a leaf of slope 0 (keys that share one float32 value)
     ``0 * inf`` is NaN, which the clamp would send to 0 (ROADMAP queue
-    C 17).  -inf and NaN clamp to 0."""
+    C 17).  -inf and NaN clamp to 0.  Vector keys (q of shape (B, D),
+    w of (B, D)) take ``leaf_dot(w, q) + b``, clipped the same way."""
     nm1 = float(np.float32(n - 1))
+    if q.ndim == 2:
+        return search_lib.clampf(leaf_dot(w, q) + b, 0.0, nm1)
     pos = torch.where(q == torch.inf, nm1, w * q + b)
     return search_lib.clampf(pos, 0.0, nm1)
 
@@ -146,7 +167,8 @@ def rmi_predict(
     n: int, num_leaves: int,
 ) -> Tuple[torch.Tensor, ...]:
     """queries -> (pos, lo, hi, sigma): float32 position estimates, the
-    per-query float window [lo, hi] and σ for the biased searches."""
+    per-query float window [lo, hi] and σ for the biased searches.
+    q: (B,) normalized scalar keys or (B, D) normalized vector keys."""
     leaf, pos = leaf_and_pos(
         tree["s0"], hidden, tree["leaf_w"], tree["leaf_b"], q,
         n=n, num_leaves=num_leaves,
@@ -156,7 +178,9 @@ def rmi_predict(
     # hybrid leaves (Algorithm 1): window = the leaf's full key range,
     # except for +inf, whose window stays the model's around f32(n - 1)
     # (from the last probe the search ends past every key on any leaf)
-    bt = tree["is_btree"][leaf] & (q != torch.inf)
+    bt = tree["is_btree"][leaf]
+    if q.ndim == 1:
+        bt = bt & (q != torch.inf)
     lo = torch.where(bt, tree["seg_lo"][leaf].to(torch.float32), lo_m)
     hi = torch.where(bt, tree["seg_hi"][leaf].to(torch.float32), hi_m)
     return pos, lo, hi, tree["sigma"][leaf]
@@ -174,7 +198,11 @@ def rmi_lookup(
     strategy: str = "binary",
 ) -> torch.Tensor:
     """Full lookup: predict + error-bounded search.  Returns lower-bound
-    indices into `sorted_keys` (normalized float32)."""
+    indices into `sorted_keys` (normalized float32).  For vector keys
+    ``sorted_keys`` is the first column of the sorted vectors and the
+    search compares the queries' first column (`_q1`), as the reference
+    does (ROADMAP queue C 19); `strings.compile_string_lookup` is the
+    exact string search."""
     pos, lo, hi, sig = rmi_predict(
         tree, q, hidden=hidden, n=n, num_leaves=num_leaves
     )
@@ -182,8 +210,14 @@ def rmi_lookup(
     err_hi = hi - pos
     fn = search_lib.STRATEGIES[strategy]
     if strategy == "binary":
-        return fn(sorted_keys, q, pos, err_lo, err_hi, max_window)
-    return fn(sorted_keys, q, pos, err_lo, err_hi, sig, max_window)
+        return fn(sorted_keys, _q1(q), pos, err_lo, err_hi, max_window)
+    return fn(sorted_keys, _q1(q), pos, err_lo, err_hi, sig, max_window)
+
+
+def _q1(q: torch.Tensor) -> torch.Tensor:
+    """The search's scalar comparison key: the query itself, or a vector
+    query's first component (the reference's `_q1`)."""
+    return q if q.ndim == 1 else q[:, 0]
 
 
 # --------------------------------------------------------------------------
@@ -194,7 +228,8 @@ def stage0_segments(
     stage0_params: Dict[str, np.ndarray], norm: np.ndarray, *, n: int,
     m: int, device=None,
 ) -> np.ndarray:
-    """Leaf assignment for every key with lookup-time arithmetic."""
+    """Leaf assignment for every key ((N,) scalar or (N, D) vector) with
+    lookup-time arithmetic."""
     dev = resolve_device(device)
     hidden = tuple(
         int(np.shape(stage0_params[f"w{i}"])[1])
@@ -209,26 +244,26 @@ def stage0_segments(
 
 
 def build_rmi(
-    keys: KeySet,
+    keys: Union[KeySet, VectorKeySet],
     config: RMIConfig,
     *,
     device=None,
     verbose: bool = False,
 ) -> RMIndex:
-    """Cold build.  ``device`` runs the stage-0 training and the leaf
-    assignment (None = "cuda"); everything else is host NumPy."""
+    """Cold build over scalar or vector keys.  ``device`` runs the
+    stage-0 training and the leaf assignment (None = "cuda"); everything
+    else is host NumPy."""
     dev = resolve_device(device)
     norm = keys.norm
     n = keys.n
     m = config.num_leaves
-    if norm.ndim != 1:
-        raise ValueError("the port supports scalar keys only")
     if n >= 2**30:
         raise ValueError("the lookup kernels take n < 2**30 keys")
     y = np.arange(n, dtype=np.float32)
+    in_dim = 1 if norm.ndim == 1 else norm.shape[1]
 
     # ---- stage 0 ---------------------------------------------------------
-    spec = MLPSpec(in_dim=1, hidden=tuple(config.stage0_hidden))
+    spec = MLPSpec(in_dim=in_dim, hidden=tuple(config.stage0_hidden))
     if config.stage0_sample is not None and config.stage0_sample < n:
         idx = np.linspace(0, n - 1, config.stage0_sample).astype(np.int64)
         x0, y0 = norm[idx], y[idx]
@@ -241,11 +276,38 @@ def build_rmi(
     seg = stage0_segments(s0, norm, n=n, m=m, device=dev)
 
     # ---- stage 1: per-leaf linear fits ------------------------------------
-    slope, intercept, cnt = segmented_linear_fit(norm, y, seg, m)
+    if in_dim == 1:
+        slope, intercept, cnt = segmented_linear_fit(norm, y, seg, m)
+        leaf_w = slope.astype(np.float32)
+        leaf_b = intercept.astype(np.float32)
+    else:
+        leaf_w, leaf_b, cnt = _segmented_multivariate_fit(norm, y, seg, m)
     return _finalize_rmi(
-        config, n, 1, s0, slope.astype(np.float32),
-        intercept.astype(np.float32), cnt, norm, y, seg, verbose=verbose,
+        config, n, in_dim, s0, leaf_w.astype(np.float32),
+        leaf_b.astype(np.float32), cnt, norm, y, seg, verbose=verbose,
     )
+
+
+def _segmented_multivariate_fit(
+    x: np.ndarray, y: np.ndarray, seg: np.ndarray, m: int
+) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Per-segment ridge least squares for vector keys, chunked accumulation."""
+    n, d = x.shape
+    da = d + 1
+    ata = np.zeros((m, da, da), np.float64)
+    aty = np.zeros((m, da), np.float64)
+    cnt = np.bincount(seg, minlength=m).astype(np.float64)
+    chunk = max(1, int(5e7 // (da * da)))
+    xd = np.asarray(x, np.float64)
+    yd = np.asarray(y, np.float64)
+    for s in range(0, n, chunk):
+        e = min(n, s + chunk)
+        a = np.concatenate([xd[s:e], np.ones((e - s, 1))], axis=1)
+        np.add.at(ata, seg[s:e], a[:, :, None] * a[:, None, :])
+        np.add.at(aty, seg[s:e], a * yd[s:e, None])
+    ata += 1e-6 * np.eye(da)[None]
+    sol = np.linalg.solve(ata, aty[..., None])[..., 0]
+    return sol[:, :d].astype(np.float32), sol[:, d].astype(np.float32), cnt
 
 
 def _segment_reduce(ufunc, init, seg: np.ndarray, vals: np.ndarray,
@@ -321,7 +383,10 @@ def _finalize_rmi(
     obtained (cold fit or warm reuse in `refit_rmi`).
     """
     m = config.num_leaves
-    pred1 = leaf_w[seg] * norm + leaf_b[seg]
+    if in_dim == 1:
+        pred1 = leaf_w[seg] * norm + leaf_b[seg]
+    else:
+        pred1 = leaf_dot(leaf_w[seg], norm) + leaf_b[seg]
     pred1 = np.clip(pred1.astype(np.float32), 0.0, float(n - 1))
 
     # ---- residual bounds (the B-Tree-strength guarantee) -------------------
@@ -494,13 +559,15 @@ def refit_rmi(
 # Convenience: end-to-end lookup closure (what LIF §3.1 emits)
 # --------------------------------------------------------------------------
 
-def compile_lookup(index: RMIndex, keys: KeySet, strategy: str = "binary",
-                   *, device=None):
+def compile_lookup(index: RMIndex, keys: Union[KeySet, VectorKeySet],
+                   strategy: str = "binary", *, device=None):
     """Returns a fn: normalized float32 queries (tensor on ``device``)
-    -> lower-bound indices."""
+    -> lower-bound indices.  Over a `VectorKeySet` it searches the first
+    column only, as the reference does (ROADMAP queue C 19)."""
     dev = resolve_device(device)
     tree = index.as_tree(dev)
-    sorted_keys = torch.as_tensor(keys.norm, device=dev)
+    sorted_np = keys.norm[:, 0] if isinstance(keys, VectorKeySet) else keys.norm
+    sorted_keys = torch.as_tensor(np.ascontiguousarray(sorted_np), device=dev)
     n, m, w = index.n, index.num_leaves, index.max_window
 
     def lookup(q):

@@ -1,3 +1,9 @@
-from repro_torch.data.datasets import gen_lognormal, gen_maps, gen_weblogs
+from repro_torch.data.datasets import (
+    gen_lognormal,
+    gen_maps,
+    gen_urls,
+    gen_weblogs,
+    gen_webdocs,
+)
 
-__all__ = ["gen_lognormal", "gen_maps", "gen_weblogs"]
+__all__ = ["gen_lognormal", "gen_maps", "gen_urls", "gen_weblogs", "gen_webdocs"]

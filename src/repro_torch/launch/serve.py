@@ -6,8 +6,12 @@
 The reference's flags and JSON line (`repro/launch/serve.py`), plus
 ``--device`` (default ``cuda``; ``cpu`` runs the plain path on the host)
 and ``--seed`` (parameters from a seeded `torch.Generator` on the
-device, prompts from `np.random.default_rng(seed)`), and a ``truncated``
-count in the output.
+device, prompts from `np.random.default_rng(seed)`, the
+``--prefix-bloom`` classifier's weights and batches from ``seed``), and
+a ``truncated`` count in the output.  ``--prefix-bloom`` builds the
+reference's learned prefix filter (512 ``prefix-%04d`` keys, 2,048
+``other-%05d`` non-keys, a W = 8, E = 8 GRU over 16 bytes, 150 steps)
+on ``--device`` and hands it to the engine's prefix screen.
 """
 
 from __future__ import annotations
@@ -20,6 +24,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs import get_arch
+from repro_torch.core.learned_bloom import GRUSpec, build_learned_bloom
 from repro_torch.device import resolve_device
 from repro_torch.models import get_model
 from repro_torch.serve.engine import Request, ServeEngine
@@ -38,17 +43,24 @@ def main(argv=None) -> dict:
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
 
-    if args.prefix_bloom:
-        raise NotImplementedError(
-            "--prefix-bloom needs the learned Bloom filter "
-            "(core/learned_bloom.py), not ported yet: ROADMAP queue A item 2")
     dev = resolve_device(args.device)
     cfg = get_arch(args.arch, reduced=args.reduced)
     api = get_model(cfg, dev)
     params = api.init(torch.Generator(device=dev).manual_seed(args.seed))
 
+    bloom = None
+    if args.prefix_bloom:
+        keys = [f"prefix-{i:04d}" for i in range(512)]
+        negs = [f"other-{i:05d}" for i in range(2048)]
+        bloom = build_learned_bloom(
+            keys, negs, target_fpr=0.01,
+            spec=GRUSpec(width=8, embed=8, max_len=16), train_steps=150,
+            seed=args.seed, device=dev,
+        )
+
     engine = ServeEngine(
         api, params, batch_slots=args.batch_slots, max_len=args.max_len,
+        prefix_bloom=bloom,
     )
     rng = np.random.default_rng(args.seed)
     reqs = [

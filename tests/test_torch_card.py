@@ -15,6 +15,11 @@ so they run where the card is:
   reroutes B1 (the `cuda_fused` service) and B4 (the `sharded_fused`
   service) onto their plain twins with bit-identical answers, and a
   library that fails to build makes the op raise with nothing rerouted.
+* The paper's other structures, plain torch on the card against the
+  same calls on the CPU: the string index (every stored string exact
+  under the three strategies, ranks equal to the CPU's), the B-Tree
+  (equal to ``np.searchsorted``), the learned Bloom's GRU logits, and
+  the pipeline's document lookup (equal to the oracle).
 
 Without a card every test here skips, except
 `test_build_failure_raises_before_the_failover`,
@@ -301,3 +306,62 @@ def test_build_failure_raises_on_card_and_nothing_reroutes(kind, monkeypatch):
         with pytest.raises(subprocess.CalledProcessError):
             read()
     assert ops.failover_summary() == {}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hidden", [(), (8,)])
+def test_string_lookup_on_card_equals_the_cpu(hidden):
+    from repro_torch.core import compile_string_lookup, make_vector_keyset, tokenize
+    from repro_torch.data import gen_webdocs
+    dev = _card()
+    vks = make_vector_keyset(tokenize(gen_webdocs(5_000), 16))
+    idx = build_rmi(vks, RMIConfig(num_leaves=64, stage0_hidden=hidden,
+                                   stage0_train_steps=60), device="cpu")
+    absent = tokenize([f"{c}zz/999999x" for c in "abcdefghijklmnopqrstuvwxyz"], 16)
+    q = np.concatenate([vks.raw, absent])
+    for strategy in ("binary", "biased", "quaternary"):
+        on_card = compile_string_lookup(idx, vks, strategy, device=dev)(
+            torch.as_tensor(q, device=dev)).cpu().numpy()
+        on_cpu = compile_string_lookup(idx, vks, strategy, device="cpu")(
+            torch.as_tensor(q)).numpy()
+        assert np.array_equal(on_card, on_cpu), strategy
+        assert np.array_equal(on_card[:vks.n], np.arange(vks.n)), strategy
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("page", [16, 64, 256])
+def test_btree_on_card_matches_searchsorted(page):
+    from repro_torch.core import build_btree, compile_btree_lookup
+    dev = _card()
+    rng = np.random.default_rng(page)
+    keys = np.sort(np.repeat(rng.uniform(0, 1, 20_000).astype(np.float32),
+                             rng.integers(1, 6, 20_000)))
+    q = np.concatenate([keys, rng.uniform(-0.1, 1.1, 1 << 16).astype(np.float32)])
+    got = compile_btree_lookup(build_btree(keys, page), keys, device=dev)(
+        torch.as_tensor(q, device=dev)).cpu().numpy()
+    assert np.array_equal(got, np.searchsorted(keys, q))
+
+
+@pytest.mark.cuda
+def test_gru_logits_on_card_match_the_cpu():
+    from repro_torch.core import GRUSpec, tokenize
+    from repro_torch.core import learned_bloom
+    from repro_torch.data import gen_urls
+    dev = _card()
+    keys, nonkeys = gen_urls(500, 1_500)
+    toks = torch.as_tensor(tokenize(keys + nonkeys, 32).astype(np.int32))
+    params = learned_bloom.gru_init(GRUSpec(), torch.Generator().manual_seed(0), "cpu")
+    on_cpu = learned_bloom.gru_logits(params, toks)
+    on_card = learned_bloom.gru_logits({k: v.to(dev) for k, v in params.items()},
+                                       toks.to(dev)).cpu()
+    torch.testing.assert_close(on_card, on_cpu, rtol=0, atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_document_lookup_on_card_equals_the_oracle():
+    from repro_torch.data.pipeline import make_synthetic_corpus
+    dev = _card()
+    corpus = make_synthetic_corpus(10_000_000, seed=0, device=dev)
+    offsets = np.random.default_rng(5).integers(0, 10_000_000, 1 << 20)
+    want = np.searchsorted(corpus.doc_starts, offsets, side="right") - 1
+    assert np.array_equal(corpus.lookup_documents(offsets), want)
