@@ -7,16 +7,15 @@
 Phases, each printing JSON lines; any mismatch raises and the exit code
 is non-zero:
 
-  1. card    — the card's name and power limit (nvidia-smi), the four
+  1. card    — the card's name and power limit (nvidia-smi), the five
                kernel libraries built in parallel and their compiler
-               resource reports;
+               resource reports (the bf16 D = 128 attention instance must
+               spill nothing);
   2. kernels — each CUDA kernel against its plain PyTorch version on the
                card: flash attention within the reference's tolerances
                (f32 2e-5, bf16 2e-2) at the reference's four test shapes,
                S = 48, 1000 and 1 and yi-6b's heads at S = 1000, both
-               dtypes, causal and not, and its refusal of inputs that
-               require grad (it has no backward); the rest
-               bit for bit: the lookups at n = 50k (linear and
+               dtypes, causal and not; the rest bit for bit: the lookups at n = 50k (linear and
                (16,16) MLP stage-0, and a duplicate-heavy key set) and on
                the full service index (stored, absent, leaf-boundary,
                duplicate-run and out-of-range queries, batches of 1, 777
@@ -62,7 +61,28 @@ is non-zero:
                allclose at 1e-3); a `ServeEngine` run whose page table is
                held against the binary baseline midway; and
                `launch.serve` (16 requests of 32 new tokens, 8 slots,
-               max_len 512).  The model is released before phase 3;
+               max_len 512).  The model is released before lm_train;
+  lm_train   — the training path: (a) the attention backward kernel
+               against `ref.mha_backward_reference` (float32 and bf16 x
+               D 32/64/128 x causal and full x S 1/77/1000 x GQA groups
+               1/4/8, and the training shape; max |Δ| <= 1e-4 (f32) or
+               2e-2 (bf16, and a relative L2 of 1e-2) x max |twin|), two
+               launches bit-identical, the forward's log-sum-exp
+               against its twin and its output bits unchanged; the
+               kernel, its twin and SDPA's backward (timed only) at the
+               training shape; (b) the reduced yi-6b's loss and
+               gradients on the card (float32, TF32 off) against the
+               CPU (1e-5 relative, 1e-4 x each leaf's max); (c) yi-6b at
+               full width (bf16, remat "full"), cut to 8 of 32 layers,
+               through `get_model`, `adamw_init`, `make_train_step` and
+               `DataPipeline`: 8 steps of 2 x 4,096 tokens in 2
+               microbatches, every loss and grad norm finite, the loss
+               falling, 32 forward and 16 backward attention launches a
+               step, step seconds, tokens/s, the forward + backward and
+               optimizer split (CUDA events) and peak memory; (d)
+               `launch.train` on the reduced yi-6b, 12 steps
+               checkpointed every 5, then resumed to 16.  Released
+               before phase 3;
   3. main path — `IndexService(strategy="cuda_fused", bloom_fpr=0.01)`
                over gen_maps(n) with a zero payload: every stored key at
                its float32 lower bound, then 300k inserts (values
@@ -78,7 +98,7 @@ is non-zero:
                hash index at full size: `build_model_hashmap` over the
                same keys (S = n), every stored key through the kernel,
                4M float32-absent keys, and the random-hash map (every
-               4th key in as many slots: a cut of depth for the time
+               16th key in as many slots: a cut of depth for the time
                limit) through the plain chain walk.  Then, with those released,
                `ShardedIndexService(num_shards=4,
                strategy="sharded_fused")` over every 8th of those keys
@@ -146,6 +166,7 @@ script exits non-zero before printing any result.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import gc
 import json
 import pathlib
@@ -172,7 +193,7 @@ N_GET = 500_000
 N_LOOKUP = 2_000_000
 SCAN_PAGE_SIZES = (256, 160, 1)
 SHARDED_STRIDE = 8              # the K = 4 service holds every 8th key
-RANDOM_HASH_STRIDE = 4          # the §4 random-hash baseline holds every 4th key
+RANDOM_HASH_STRIDE = 16         # the §4 random-hash baseline holds every 16th key
 SCAN_WIDTHS = (1, 2, 3, 10, 100, 1_000, 4_097, 10_000, 65_536, 100_000)
 BIG_SCANS = (1 << 20, 1 << 22)  # rows of the two timed ranges
 HOST_SCAN_ROWS = 20_000         # host `scan` checked on ranges up to this wide
@@ -2045,6 +2066,15 @@ BF16_FLOPS_PER_S = 989e12      # H100 SXM dense bf16 tensor-core rate
 # design it replaced (NVIDIA H100 80GB HBM3, 700.00 W; PERF.md §6)
 ATTN_DESIGN = "wgmma"
 ATTN_EARLIER_MS = 22.09
+# lm_train (a): the backward kernel against its twin (max |Δ| <= tol x max
+# |twin|; bf16 also a relative L2 error), the forward's log-sum-exp
+ATTN_BWD_SEQS = (1, 77, 1000)
+ATTN_BWD_DIMS = (32, 64, 128)
+ATTN_BWD_GROUPS = (1, 4, 8)
+ATTN_BWD_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
+ATTN_BWD_REL_L2 = 1e-2
+ATTN_LSE_TOL = 1e-5
+TRAIN_ATTN_SHAPE = (1, 32, 4, 4096, 128)   # (B, Hq, Hkv, S, D) of one training microbatch
 SERVE_ARGV = ["--arch", LM_ARCH, "--requests", "16", "--max-new", "32",
               "--batch-slots", "8", "--max-len", "512"]
 
@@ -2092,38 +2122,172 @@ def compare_attention_kernel(dev, seed, record):
     return worst
 
 
-def check_attention_refuses_grad(dev, seed):
-    """C16: the kernel has no backward, so on the card
-    `flash_attention_cuda` and `chunked_attention` raise when an input
-    requires grad under grad mode, and run under `torch.no_grad()`."""
+def ptxas_entries(log_path):
+    """Registers and spills of every entry function in an ``-Xptxas -v``
+    report, by mangled name (one entry a template instance)."""
+    out, cur = {}, None
+    for ln in (log_path.read_text().splitlines() if log_path.exists() else []):
+        m = re.search(r"Compiling entry function '(\w+)'", ln)
+        if m:
+            cur = m.group(1)
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)
+        if m and cur:
+            out.setdefault(cur, {}).update(spill_stores=int(m[1]), spill_loads=int(m[2]))
+        m = re.search(r"Used (\d+) registers", ln)
+        if m and cur:
+            out.setdefault(cur, {})["registers"] = int(m[1])
+    return out
+
+
+def attention_ptxas():
+    """ptxas's report on the two attention libraries: every instance's
+    registers and spills, and the bf16 D = 128 forward's (168 registers,
+    no spills, before its log-sum-exp output)."""
+    from repro_torch.kernels import flash_attention as fa, nvcc
+    entries = {}
+    for src in (fa.SOURCE, fa.BWD_SOURCE):
+        entries.update(ptxas_entries(nvcc.library_path(src, fa.FLAGS).with_suffix(".log")))
+    fwd = next((v for k, v in entries.items()
+                if "flash_attention_bf16_kernelILi128E" in k), None)
+    return {"entries": entries, "bf16_d128_forward": fwd}
+
+
+def attention_bwd_bound(b, hq, hkv, s, d, elem_bytes, causal=True):
+    """The least time for the attention gradient: its operations, 2.5x
+    the forward's (five products of the forward's two sizes), over the
+    bf16 peak, against its bytes (q, k, v, o, dO and lse read once, dq,
+    dk and dv written once) over the memory rate."""
+    fwd = attention_bound(b, hq, hkv, s, d, elem_bytes, causal)
+    flops = 2.5 * fwd["flops"]
+    moved = elem_bytes * d * s * b * (4 * hq + 4 * hkv) + 4 * b * hq * s
+    flops_ms = flops / BF16_FLOPS_PER_S * 1e3
+    bytes_ms = moved / HBM_BYTES_PER_S * 1e3
+    return {"flops": flops, "bytes": moved, "bound_ms": max(flops_ms, bytes_ms),
+            "bound_by": "operations" if flops_ms >= bytes_ms else "bytes"}
+
+
+def _bwd_errors(got, want, s, name):
+    """Each gradient's max |kernel - twin| against tol x max |twin| (and,
+    for bf16, its relative L2 error).  At S = 1 dq and dk are zero by
+    construction (one key: the scores' gradient vanishes) and both sides
+    hold only rounding noise, so they are held against the scale of dv."""
+    tol = ATTN_BWD_TOL[name]
+    out = {}
+    for tag, g, w in zip(("dq", "dk", "dv"), got, want):
+        ref_t = want[2] if (s == 1 and tag != "dv") else w
+        g, w, ref_t = g.float(), w.float(), ref_t.float()
+        err = float((g - w).abs().max())
+        scale = float(ref_t.abs().max())
+        row = {"max_abs_err": err, "max_abs_twin": scale, "ok": err <= tol * scale}
+        if name == "bfloat16":
+            row["rel_l2"] = float((g - w).norm() / max(float(ref_t.norm()), 1e-30))
+            row["ok"] = row["ok"] and row["rel_l2"] <= ATTN_BWD_REL_L2
+        out[tag] = row
+    return out
+
+
+def compare_attention_backward(dev, seed, record):
+    """(a) of `lm_train`: the backward kernel against
+    `ref.mha_backward_reference` on the card (float32 and bf16 x D 32 /
+    64 / 128 x causal and full x S 1 / 77 / 1000 x GQA groups 1 / 4 / 8,
+    plus the training shape in bf16), two launches bit-identical; the
+    forward with ``return_lse=True`` bit-identical to the inference call
+    and its log-sum-exp against `ref.mha_reference_lse`.  Returns the
+    largest error over tol x scale seen (<= 1 everywhere passes)."""
     import torch
     from repro_torch.kernels import ref
-    from repro_torch.kernels.flash_attention import flash_attention_cuda
-    from repro_torch.models.attention import chunked_attention
+    from repro_torch.kernels.flash_attention import (flash_attention_bwd_cuda,
+                                                     flash_attention_cuda)
     g = torch.Generator(device=dev).manual_seed(seed)
-    qkv = [torch.randn((1, h, 64, 32), generator=g, device=dev).to(torch.bfloat16)
-           for h in (4, 2, 2)]
-    want = ref.mha_reference(*qkv)
-    out = {}
-    for name, fn in (("flash_attention_cuda", flash_attention_cuda),
-                     ("chunked_attention", chunked_attention)):
-        for which in range(3):
-            args = list(qkv)
-            args[which] = args[which].clone().requires_grad_(True)
-            try:
-                fn(*args)
-                raised = False
-            except RuntimeError as e:
-                raised = "no backward" in str(e)
-            check(raised, f"{name} with input {which} requiring grad did not raise")
-            with torch.no_grad():
-                got = fn(*args)
-            torch.cuda.synchronize()
-            check(not got.requires_grad and bool(torch.allclose(
-                got.float(), want.float(), atol=ATTN_TOL["bfloat16"],
-                rtol=ATTN_TOL["bfloat16"])), f"{name} under no_grad: wrong output")
-        out[name] = True
-    return out
+    cases = [(1, 2 * grp, 2, s, d, name, causal)
+             for s in ATTN_BWD_SEQS for d in ATTN_BWD_DIMS for grp in ATTN_BWD_GROUPS
+             for name in ATTN_BWD_TOL for causal in (True, False)]
+    cases.append((*TRAIN_ATTN_SHAPE, "bfloat16", True))
+    worst = 0.0
+    for b, hq, hkv, s, d, name, causal in cases:
+        dt = getattr(torch, name)
+        q, k, v = (torch.randn((b, h, s, d), generator=g, device=dev).to(dt)
+                   for h in (hq, hkv, hkv))
+        with torch.no_grad():
+            plain_out = flash_attention_cuda(q, k, v, causal=causal)
+            out, lse = flash_attention_cuda(q, k, v, causal=causal, return_lse=True)
+            _, lse_twin = ref.mha_reference_lse(q, k, v, causal=causal)
+            d_out = torch.randn(out.shape, generator=g, device=dev).to(dt)
+            got = flash_attention_bwd_cuda(q, k, v, out, lse, d_out, causal=causal)
+            again = flash_attention_bwd_cuda(q, k, v, out, lse, d_out, causal=causal)
+            want = ref.mha_backward_reference(q, k, v, out, lse, d_out, causal=causal)
+        torch.cuda.synchronize()
+        row = {"shape": [b, hq, hkv, s, d], "dtype": name, "causal": causal,
+               "out_bits_equal": bool(torch.equal(out, plain_out)),
+               "lse_max_abs_err": float((lse - lse_twin).abs().max()),
+               "repeat_bits_equal": all(torch.equal(x, y) for x, y in zip(got, again)),
+               **_bwd_errors(got, want, s, name)}
+        row["lse_ok"] = bool(torch.allclose(lse, lse_twin, atol=ATTN_LSE_TOL, rtol=ATTN_LSE_TOL))
+        row["within_tol"] = (row["out_bits_equal"] and row["lse_ok"] and row["repeat_bits_equal"]
+                             and all(row[t]["ok"] for t in ("dq", "dk", "dv")))
+        record.append(row)
+        check(row["within_tol"], f"attention backward {b, hq, hkv, s, d} {name} "
+                                 f"causal={causal}: {row}")
+        worst = max([worst] + [row[t]["max_abs_err"] / max(row[t]["max_abs_twin"], 1e-30)
+                               / ATTN_BWD_TOL[name] for t in ("dq", "dk", "dv")])
+        del q, k, v, out, lse, lse_twin, d_out, got, again, want, plain_out
+    torch.cuda.empty_cache()
+    return worst
+
+
+def time_attention_backward(dev, seed):
+    """The backward kernel, its twin and SDPA's backward (timed only,
+    never called by the port: autograd.grad through
+    `scaled_dot_product_attention(..., enable_gqa=True)` less its forward)
+    at the training shape, and the forward kernel with and without its
+    log-sum-exp there."""
+    import torch
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_attention import (flash_attention_bwd_cuda,
+                                                     flash_attention_cuda)
+    b, hq, hkv, s, d = TRAIN_ATTN_SHAPE
+    g = torch.Generator(device=dev).manual_seed(seed)
+    q, k, v = (torch.randn((b, h, s, d), generator=g, device=dev).to(torch.bfloat16)
+               for h in (hq, hkv, hkv))
+    with torch.no_grad():
+        out, lse = flash_attention_cuda(q, k, v, causal=True, return_lse=True)
+        d_out = torch.randn(out.shape, generator=g, device=dev).to(torch.bfloat16)
+        row = {"shape": [b, hq, hkv, s, d], "dtype": "bfloat16", "causal": True,
+               "ms": time_ms(lambda: flash_attention_bwd_cuda(q, k, v, out, lse, d_out),
+                             reps=5, warmup=1),
+               "plain_ms": time_ms(lambda: ref.mha_backward_reference(
+                   q, k, v, out, lse, d_out), reps=2, warmup=1),
+               "forward_ms": time_ms(lambda: flash_attention_cuda(q, k, v), reps=10),
+               "forward_lse_ms": time_ms(lambda: flash_attention_cuda(
+                   q, k, v, return_lse=True), reps=10)}
+    qs, ks, vs = (t.clone().requires_grad_(True) for t in (q, k, v))
+    library, backend = None, None
+    for be in (SDPBackend.FLASH_ATTENTION, SDPBackend.EFFICIENT_ATTENTION,
+               SDPBackend.CUDNN_ATTENTION, SDPBackend.MATH):
+        try:
+            with sdpa_kernel([be]):
+                def fwd():
+                    return F.scaled_dot_product_attention(qs, ks, vs, is_causal=True,
+                                                          enable_gqa=True)
+
+                def fwd_bwd():
+                    torch.autograd.grad(fwd(), (qs, ks, vs), d_out)
+
+                both = time_ms(fwd_bwd, reps=5, warmup=1)
+                with torch.no_grad():
+                    alone = time_ms(fwd, reps=5, warmup=1)
+            library, backend = both - alone, be.name
+            break
+        except RuntimeError:
+            continue
+    row.update(library_ms=library, library_backend=backend,
+               **attention_bwd_bound(b, hq, hkv, s, d, 2))
+    del q, k, v, qs, ks, vs, out, lse, d_out
+    torch.cuda.empty_cache()
+    return row
 
 
 def _lm_tokens(rng, cfg, b, s, dev):
@@ -2332,6 +2496,261 @@ def run_lm(args, dev, card):
     return {"launches": launches, "timing": timing, "layer0_err": layer0_err,
             "layer0_ok": layer0["ok"],
             "prefill_tok_per_s": b * s / min(times), "serve": out}
+
+
+# ---------------------------------------------------------------------------
+# lm_train: the training path (yi-6b at full width, cut in depth)
+# ---------------------------------------------------------------------------
+
+TRAIN_LAYERS = 8             # of yi-6b's 32: 20 B a parameter of AdamW state fits 80 GB
+TRAIN_SEQ = 4096             # train_4k's sequence
+TRAIN_BATCH, TRAIN_MICRO = 2, 2   # of train_4k's global batch of 256: one card's time
+TRAIN_STEPS = 8
+TRAIN_OPT = dict(lr=3e-4, warmup_steps=2, total_steps=8)
+TRAIN_CORPUS_TOKENS = 2_000_000   # the launcher's synthetic corpus
+LAUNCH_TRAIN_ARGV = ["--arch", LM_ARCH, "--reduced", "--global-batch", "2", "--seq", "32",
+                     "--warmup", "2", "--checkpoint-every", "5"]
+
+
+@contextlib.contextmanager
+def count_plain_attention():
+    """Counts the calls, while open, of the attention twins
+    (`ref.mha_reference`, `ref.mha_reference_lse`,
+    `ref.mha_backward_reference`) and of PyTorch's own attention
+    (`F.scaled_dot_product_attention`); yields the counts by name."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import ref
+    counts = {}
+    originals = [(mod, name, getattr(mod, name)) for mod, name in (
+        (ref, "mha_reference"), (ref, "mha_reference_lse"),
+        (ref, "mha_backward_reference"), (F, "scaled_dot_product_attention"))]
+
+    def wrap(name, fn):
+        def call(*a, **kw):
+            counts[name] = counts.get(name, 0) + 1
+            return fn(*a, **kw)
+        return call
+    for mod, name, fn in originals:
+        setattr(mod, name, wrap(name, fn))
+    try:
+        yield counts
+    finally:
+        for mod, name, fn in originals:
+            setattr(mod, name, fn)
+
+
+def check_model_gradient(dev, seed):
+    """(b): the reduced yi-6b's loss and gradients (float32, TF32 off) on
+    the card, through both attention kernels, against the CPU's plain
+    loop: the loss within 1e-5 relative, each leaf within 1e-4 x its
+    max."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.models import get_model
+    from repro_torch.train.optimizer import tree_leaves, tree_map
+    from repro_torch.train.train_step import loss_and_grads
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = dataclasses.replace(get_arch(LM_ARCH, reduced=True), dtype="float32")
+    toks = np.random.default_rng((seed, 3)).integers(0, cfg.vocab_size, (4, 65))
+    params = get_model(cfg, "cpu").init(torch.Generator().manual_seed(seed))
+    got = {}
+    reset_counts()
+    for where in ("cpu", dev):
+        batch = {"tokens": torch.as_tensor(toks[:, :-1], dtype=torch.int32, device=where),
+                 "labels": torch.as_tensor(toks[:, 1:], dtype=torch.int32, device=where)}
+        loss, _, grads = loss_and_grads(get_model(cfg, where).loss,
+                                        tree_map(lambda t: t.to(where), params), batch)
+        got[str(where)] = (float(loss), [g.float().cpu() for g in tree_leaves(grads)])
+    launches = read_counts()
+    (loss_cpu, grads_cpu), (loss_card, grads_card) = got["cpu"], got[str(dev)]
+    leaf_err = max(float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+                   for a, b in zip(grads_card, grads_cpu))
+    out = {"arch": cfg.name, "dtype": "float32", "tf32": False, "loss_cpu": loss_cpu,
+           "loss_card": loss_card, "loss_rel_err": abs(loss_card - loss_cpu) / abs(loss_cpu),
+           "max_leaf_err_over_max": leaf_err,
+           "attention_launches": launches["flash_attention_cuda"],
+           "attention_bwd_launches": launches["flash_attention_bwd_cuda"]}
+    out["ok"] = (out["loss_rel_err"] <= 1e-5 and leaf_err <= 1e-4
+                 and out["attention_launches"] == 2 * cfg.num_layers
+                 and out["attention_bwd_launches"] == cfg.num_layers)
+    return out
+
+
+def run_full_width_training(args, dev, card):
+    """(c): yi-6b at full width (d_model 4,096, 32/4 heads of 128, d_ff
+    11,008, vocabulary 64,000, bf16, remat "full"), cut to TRAIN_LAYERS
+    layers, through `get_model`, `adamw_init`, `make_train_step` and
+    `DataPipeline`: TRAIN_STEPS steps of TRAIN_BATCH x TRAIN_SEQ tokens
+    in TRAIN_MICRO microbatches.  Each step's attention launches are
+    counted; the optimizer's share is timed with CUDA events around
+    `adamw_update` inside the step."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.data.pipeline import DataPipeline, make_synthetic_corpus
+    from repro_torch.kernels import ops
+    from repro_torch.models import get_model
+    from repro_torch.train import OptimizerConfig, adamw_init, make_train_step
+    from repro_torch.train import train_step as ts
+    full = get_arch(LM_ARCH, reduced=args.lm_reduced)
+    cfg = dataclasses.replace(full, num_layers=min(TRAIN_LAYERS, full.num_layers))
+    seq = TRAIN_SEQ if not args.lm_reduced else 64
+    check(cfg.remat and cfg.remat_policy == "full" and cfg.dtype == "bfloat16",
+          f"training config: {cfg}")
+    api = get_model(cfg, dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params = api.init(torch.Generator(device=dev).manual_seed(args.seed))
+    state = adamw_init(params)
+    corpus = make_synthetic_corpus(total_tokens=TRAIN_CORPUS_TOKENS,
+                                   vocab_size=cfg.vocab_size, device=dev)
+    pipeline = DataPipeline(corpus, global_batch=TRAIN_BATCH, seq_len=seq)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(t.numel() for t in [params["embed"], params["final_norm"]]
+                   + [w for blk in params["blocks"] for w in blk.values()])
+
+    opt_events = []
+    real_update = ts.adamw_update
+
+    def timed_update(*a, **kw):
+        ev = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+        ev[0].record()
+        out = real_update(*a, **kw)
+        ev[1].record()
+        opt_events.append(ev)
+        return out
+
+    step_fn = make_train_step(api.loss, OptimizerConfig(**TRAIN_OPT), microbatches=TRAIN_MICRO)
+    steps = []
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_dispatch_stats()
+    ts.adamw_update = timed_update
+    try:
+        with count_plain_attention() as plain_calls:
+            for step in range(TRAIN_STEPS):
+                batch = {k: torch.as_tensor(v, device=dev)
+                         for k, v in pipeline.batch_at(step).items()}
+                reset_counts()
+                a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                a.record()
+                params, state, metrics = step_fn(params, state, batch)
+                b.record()
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+                launches = read_counts()
+                step_ms = a.elapsed_time(b)
+                opt_ms = opt_events[-1][0].elapsed_time(opt_events[-1][1])
+                steps.append({"step": step, "loss": float(metrics["loss"]),
+                              "grad_norm": float(metrics["grad_norm"]), "lr": float(metrics["lr"]),
+                              "step_s": wall, "fwd_bwd_ms": step_ms - opt_ms, "opt_ms": opt_ms,
+                              "attention_launches": launches["flash_attention_cuda"],
+                              "attention_bwd_launches": launches["flash_attention_bwd_cuda"],
+                              "other_launches": sum(v for k, v in launches.items()
+                                                    if not k.startswith("flash_attention"))})
+    finally:
+        ts.adamw_update = real_update
+    peak = torch.cuda.max_memory_allocated()
+    attn_rows = [r for r in ops.dispatch_summary()["rows"] if r["op"] == "attention"]
+    per_step_fwd = cfg.num_layers * TRAIN_MICRO * 2
+    per_step_bwd = cfg.num_layers * TRAIN_MICRO
+    for r in steps:
+        check(np.isfinite(r["loss"]) and np.isfinite(r["grad_norm"]),
+              f"training step {r['step']}: loss or grad norm not finite: {r}")
+        check(r["attention_launches"] == per_step_fwd
+              and r["attention_bwd_launches"] == per_step_bwd and r["other_launches"] == 0,
+              f"training step {r['step']}: launches {r}, want {per_step_fwd} forward and "
+              f"{per_step_bwd} backward")
+    check(all(r["path"] == "kernel" for r in attn_rows) and not plain_calls,
+          f"training reached plain or library attention: {attn_rows}, {plain_calls}")
+    check(steps[-1]["loss"] < steps[0]["loss"],
+          f"training loss did not fall: {[r['loss'] for r in steps]}")
+    warm = steps[1:] or steps
+    step_s = float(np.median([r["step_s"] for r in warm]))
+    out = {"arch": cfg.name, "layers": cfg.num_layers, "params": n_params,
+           "d_model": cfg.d_model, "heads": [cfg.num_heads, cfg.num_kv_heads],
+           "d_ff": cfg.d_ff, "vocab": cfg.vocab_size, "dtype": cfg.dtype,
+           "remat": cfg.remat_policy, "seq": seq, "global_batch": TRAIN_BATCH,
+           "microbatches": TRAIN_MICRO, "steps": TRAIN_STEPS, "opt": TRAIN_OPT,
+           "cuts": {"layers": f"{cfg.num_layers} of {full.num_layers}: AdamW's 20 B a "
+                              "parameter at full depth exceeds 80 GB",
+                    "global_batch": f"{TRAIN_BATCH} of train_4k's 256: one card's time"},
+           "init_s": init_s, "step_s_median": step_s,
+           "tok_per_s": TRAIN_BATCH * seq / step_s,
+           "fwd_bwd_ms_median": float(np.median([r["fwd_bwd_ms"] for r in warm])),
+           "opt_ms_median": float(np.median([r["opt_ms"] for r in warm])),
+           "peak_mem_gb": peak / 1e9, "plain_or_library_attention_calls": plain_calls,
+           "per_step": steps,
+           "launches": {"flash_attention_cuda": sum(r["attention_launches"] for r in steps),
+                        "flash_attention_bwd_cuda": sum(r["attention_bwd_launches"]
+                                                        for r in steps)}}
+    del params, state, api, corpus, pipeline
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def run_train_launcher(dev):
+    """(d): `launch.train.main` with the reduced yi-6b on the card: 12
+    steps checkpointed every 5, then 16, resuming (latest step 16)."""
+    import shutil
+    import tempfile
+    from repro_torch.distributed import latest_step
+    from repro_torch.launch import train
+    root = tempfile.mkdtemp(prefix="chip_smoke_train_")
+    try:
+        argv = LAUNCH_TRAIN_ARGV + ["--checkpoint-dir", root, "--device", str(dev)]
+        first = train.main(argv + ["--steps", "12"])
+        at12 = latest_step(root)
+        second = train.main(argv + ["--steps", "16"])
+        at16 = latest_step(root)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    out = {"argv": LAUNCH_TRAIN_ARGV, "first": first, "second": second,
+           "latest_after_12": at12, "latest_after_16": at16}
+    out["ok"] = (at12 == 12 and at16 == 16
+                 and all(np.isfinite(o[k]) for o in (first, second)
+                         for k in ("first_loss", "last_loss")))
+    return out
+
+
+def run_lm_train(args, dev, card):
+    """The training phase: (a) the backward kernel against its twin and
+    its times, (b) the reduced model's gradient on the card against the
+    CPU, (c) yi-6b at full width through the training entry points, (d)
+    `launch.train` resuming from its checkpoint."""
+    import torch
+    t_phase = time.perf_counter()
+    record = []
+    worst = compare_attention_backward(dev, args.seed, record)
+    emit({"phase": "lm_train", "part": "attention_backward_vs_plain",
+          "worst_err_over_tol": worst, "cases": len(record),
+          "rows": record, "seconds": time.perf_counter() - t_phase})
+    timing = time_attention_backward(dev, args.seed)
+    emit({"phase": "lm_train", "part": "attention_times", "card": card, **timing})
+    t0 = time.perf_counter()
+    grad = check_model_gradient(dev, args.seed)
+    emit({"phase": "lm_train", "part": "model_gradient_card_vs_cpu", **grad,
+          "seconds": time.perf_counter() - t0})
+    check(grad["ok"], f"model gradient on the card against the CPU: {grad}")
+    t0 = time.perf_counter()
+    full = run_full_width_training(args, dev, card)
+    emit({"phase": "lm_train", "part": "full_width", "card": card, **full,
+          "attention_ms": timing["forward_lse_ms"], "attention_bwd_ms": timing["ms"],
+          "seconds": time.perf_counter() - t0})
+    t0 = time.perf_counter()
+    launcher = run_train_launcher(dev)
+    emit({"phase": "lm_train", "part": "launch_train", **launcher,
+          "seconds": time.perf_counter() - t0})
+    check(launcher["ok"], f"launch.train did not resume: {launcher}")
+    torch.cuda.empty_cache()
+    return {"worst": worst, "record_ok": all(r["within_tol"] for r in record),
+            "max_abs_err": max(r[t]["max_abs_err"] for r in record for t in ("dq", "dk", "dv")),
+            "timing": timing, "full": full, "seconds": time.perf_counter() - t_phase}
 
 
 def reset_counts():
@@ -3251,9 +3670,10 @@ def main(argv=None) -> int:
 
     # ---- phase 1: card + build (one nvcc per source, all at once) --------
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(4) as pool:
-        libs = list(pool.map(lambda m: m.build(),
-                             (rmi_lookup, rmi_scan, hash_probe, flash_attention)))
+    with ThreadPoolExecutor(5) as pool:
+        libs = list(pool.map(lambda build: build(),
+                             (rmi_lookup.build, rmi_scan.build, hash_probe.build,
+                              flash_attention.build, flash_attention.build_backward)))
     build_s = time.perf_counter() - t0
     # the scan kernels' tile and shared-memory buffers (dynamic shared
     # memory, which ptxas does not report; the range, page and sharded
@@ -3269,13 +3689,19 @@ def main(argv=None) -> int:
               "ptxas": [ln.strip() for ln in log.splitlines()
                         if "registers" in ln or "spill" in ln or "entry function" in ln],
               "tiles": tiles.get(lib.stem.split("-")[0])})
+    # B9's bf16 D = 128 instance had 168 registers and no spills before
+    # its log-sum-exp output; it must still spill nothing
+    attn_ptxas = attention_ptxas()
+    emit({"phase": "build", "part": "attention_ptxas", **attn_ptxas})
+    fwd128 = attn_ptxas["bf16_d128_forward"] or {}
+    check(fwd128.get("spill_stores") == 0 and fwd128.get("spill_loads") == 0,
+          f"flash_attention_bf16_kernel<128> spills: {fwd128}")
 
     # ---- phase 2: kernels against plain versions ------------------------
     attn_record = []
     attn_worst = compare_attention_kernel(dev, args.seed, attn_record)
     emit({"phase": "attention_kernel_vs_plain", "max_abs_err": attn_worst,
           "rows": attn_record})
-    emit({"phase": "attention_grad_guard", **check_attention_refuses_grad(dev, args.seed)})
     # a stream of its own: gen_maps(n, seed) draws from default_rng(seed),
     # and "absent" query candidates must not replay its keys
     rng = np.random.default_rng((args.seed, 1))
@@ -3325,6 +3751,11 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     attn_worst = max(attn_worst, lm["layer0_err"])
     attn_ok = all(r["within_tol"] for r in attn_record) and lm["layer0_ok"]
+
+    # ---- the training path (yi-6b at full width, cut in depth) ----------
+    trained = run_lm_train(args, dev, card)
+    gc.collect()
+    torch.cuda.empty_cache()
 
     # ---- phases 3-4: the single-shard service, then the sharded one ------
     t0 = time.perf_counter()
@@ -3422,12 +3853,28 @@ def main(argv=None) -> int:
         {"name": "flash_attention_cuda", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
          "replaces": "src/repro/kernels/flash_attention.py:83",
-         "launches": lm["launches"], "max_abs_err": attn_worst, "within_tol": attn_ok,
+         "launches": lm["launches"] + trained["full"]["launches"]["flash_attention_cuda"],
+         "prefill_launches": lm["launches"],
+         "train_launches": trained["full"]["launches"]["flash_attention_cuda"],
+         "max_abs_err": attn_worst, "within_tol": attn_ok,
          "ms": lm["timing"]["ms"], "plain_ms": lm["timing"]["plain_ms"],
          "bound_ms": lm["timing"]["bound_ms"], "bound_by": lm["timing"]["bound_by"],
-         "library_ms": lm["timing"]["sdpa_ms"]},
+         "library_ms": lm["timing"]["sdpa_ms"],
+         "train_shape_ms": trained["timing"]["forward_lse_ms"]},
+        {"name": "flash_attention_bwd_cuda", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+         "replaces": "the gradient of src/repro/models/attention.py:33, taken at "
+                     "src/repro/train/train_step.py:34",
+         "launches": trained["full"]["launches"]["flash_attention_bwd_cuda"],
+         "max_abs_err": trained["max_abs_err"], "worst_err_over_tol": trained["worst"],
+         "within_tol": trained["record_ok"],
+         "ms": trained["timing"]["ms"], "plain_ms": trained["timing"]["plain_ms"],
+         "bound_ms": trained["timing"]["bound_ms"], "bound_by": trained["timing"]["bound_by"],
+         "library_ms": trained["timing"]["library_ms"],
+         "library_backend": trained["timing"]["library_backend"]},
     ], "batch": big["batch"], "scan_rows": sbig["rows"], "n": single["n"], "shards": slook["S"],
         "sharded_scan_rows": sscan["rows"], "attention_shape": lm["timing"]["shape"],
+        "attention_bwd_shape": trained["timing"]["shape"],
         "card": smi,
         "total_s": time.perf_counter() - T_START})
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -11,6 +11,8 @@ directory through `ShardedIndexService.save` / `load`).
 
 from __future__ import annotations
 
+import dataclasses
+
 import numpy as np
 import torch
 
@@ -145,3 +147,16 @@ def lm_params_from_reference(params, cfg, device=None) -> dict:
                     for name, a in blocks.items()} for i in range(layers)],
         "final_norm": _lm_tensor(params["final_norm"], dt, dev),
     }
+
+
+def opt_state_from_reference(state, cfg, device=None) -> dict:
+    """The reference's AdamW state (``m``, ``v`` and ``master`` stacked as
+    its parameters are, plus ``count``) as the port's: the same trees one
+    dict per layer, float32 on ``device`` (None = "cuda"), and ``count``
+    an int32 scalar tensor."""
+    dev = resolve_device(device)
+    f32 = dataclasses.replace(cfg, dtype="float32")
+    out = {name: lm_params_from_reference(state[name], f32, dev)
+           for name in ("m", "v", "master")}
+    out["count"] = torch.tensor(int(np.asarray(state["count"])), dtype=torch.int32, device=dev)
+    return out

@@ -8,7 +8,10 @@
 // (no repeat).  Scores are s = (q . k) * scale in float32, masked with
 // -1e30 (never -inf, so no row turns into NaN); tiles strictly above the
 // diagonal are skipped; the output is acc / max(l, 1e-30) stored in q's
-// dtype.
+// dtype.  Given a non-null `lse` (float32, (B, Hq, S)), each row's
+// log-sum-exp m + log(l), in the units of the scaled scores, is stored
+// beside it for the backward kernel (flash_attention_bwd.cu); the
+// inference path passes null and stores nothing more.
 //
 // What bounds it.  The causal prefill at B = 2, Hq = 32, S = 4096,
 // D = 128 does 0.27 TFLOP against 151 MB moved, far above the card's
@@ -100,7 +103,8 @@ template <int D>
 __global__ void __launch_bounds__(THREADS)
 flash_attention_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                            const float* __restrict__ v, float* __restrict__ o,
-                           int S, int Hq, int Hkv, float scale, int causal) {
+                           float* __restrict__ lse, int S, int Hq, int Hkv, float scale,
+                           int causal) {
   constexpr int D4 = D / 4;         // float4s in a row
   constexpr int NV = D4 / LANES;    // float4s a lane holds
   extern __shared__ float4 smem[];
@@ -205,12 +209,13 @@ flash_attention_f32_kernel(const float* __restrict__ q, const float* __restrict_
       store4(o + qbase + (size_t)qpos * D + 4 * (t + LANES * i),
              make_float4(a.x / lc, a.y / lc, a.z / lc, a.w / lc));
     }
+    if (lse != nullptr && t == 0) lse[((size_t)b * Hq + h) * S + qpos] = m + logf(lc);
   }
 }
 
 template <int D>
-int launch_f32(const void* q, const void* k, const void* v, void* o, int B, int Hq,
-               int Hkv, int S, float scale, int causal, cudaStream_t stream) {
+int launch_f32(const void* q, const void* k, const void* v, void* o, float* lse, int B,
+               int Hq, int Hkv, int S, float scale, int causal, cudaStream_t stream) {
   const size_t smem = 2 * BK * D * sizeof(float) + BQ * SROW * sizeof(float);
   auto kernel = flash_attention_f32_kernel<D>;
   cudaError_t err = cudaFuncSetAttribute(
@@ -219,7 +224,7 @@ int launch_f32(const void* q, const void* k, const void* v, void* o, int B, int 
   dim3 grid((S + BQ - 1) / BQ, Hq, B);
   kernel<<<grid, THREADS, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-      static_cast<float*>(o), S, Hq, Hkv, scale, causal);
+      static_cast<float*>(o), lse, S, Hq, Hkv, scale, causal);
   return (int)cudaGetLastError();
 }
 
@@ -432,7 +437,7 @@ __global__ void __launch_bounds__(THREADS, 1)
 flash_attention_bf16_kernel(const __grid_constant__ CUtensorMap qmap,
                             const __grid_constant__ CUtensorMap kmap,
                             const __grid_constant__ CUtensorMap vmap,
-                            __nv_bfloat16* __restrict__ o,
+                            __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
                             int B, int S, int Hq, int Hkv, float scale, int causal) {
   using L = Layout<D>;
   constexpr int DP = L::DP;
@@ -659,6 +664,11 @@ flash_attention_bf16_kernel(const __grid_constant__ CUtensorMap qmap,
             __floats2bfloat162_rn(oacc[4 * j + 2] / dB, oacc[4 * j + 3] / dB);
     }
   }
+  if (lse != nullptr && t == 0) {
+    // mA, mB: the rows' maxima, the same in every lane of the quad
+    if (rA < S) lse[(size_t)bh * S + rA] = mA + logf(dA);
+    if (rB < S) lse[(size_t)bh * S + rB] = mB + logf(dB);
+  }
 }
 
 // cuTensorMapEncodeTiled looked up through the runtime
@@ -701,8 +711,8 @@ bool encode(EncodeTiled fn, CUtensorMap* map, const void* ptr, int D, int S, lon
 }
 
 template <int D>
-int launch_bf16(const void* q, const void* k, const void* v, void* o, int B, int Hq,
-                int Hkv, int S, float scale, int causal, cudaStream_t stream) {
+int launch_bf16(const void* q, const void* k, const void* v, void* o, float* lse, int B,
+                int Hq, int Hkv, int S, float scale, int causal, cudaStream_t stream) {
   using L = Layout<D>;
   const long long blocks = (long long)((S + BQ - 1) / BQ) * B * Hq;
   if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
@@ -718,7 +728,7 @@ int launch_bf16(const void* q, const void* k, const void* v, void* o, int B, int
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, L::SMEM);
   if (err != cudaSuccess) return (int)err;
   kernel<<<(unsigned)blocks, THREADS, L::SMEM, stream>>>(
-      qm, km, vm, static_cast<__nv_bfloat16*>(o), B, S, Hq, Hkv, scale, causal);
+      qm, km, vm, static_cast<__nv_bfloat16*>(o), lse, B, S, Hq, Hkv, scale, causal);
   return (int)cudaGetLastError();
 }
 
@@ -736,22 +746,25 @@ int by_head_dim(int D, F f) {
 
 }  // namespace
 
-// dtype: 0 = float32 (CUDA cores), 1 = bfloat16 (tensor cores).  Returns
+// dtype: 0 = float32 (CUDA cores), 1 = bfloat16 (tensor cores).  `lse`
+// is null, or float32 (B, Hq, S) for the rows' log-sum-exp.  Returns
 // cudaGetLastError() after the launch (0 = launched).
 extern "C" int flash_attention_launch(const void* q, const void* k, const void* v,
-                                      void* o, int B, int Hq, int Hkv, int S, int D,
-                                      int dtype, float scale, int causal,
+                                      void* o, void* lse, int B, int Hq, int Hkv, int S,
+                                      int D, int dtype, float scale, int causal,
                                       void* stream) {
   if (B <= 0 || Hq <= 0 || Hkv <= 0 || S <= 0 || Hq % Hkv != 0)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  float* l = static_cast<float*>(lse);
   if (dtype == 0)
     return by_head_dim(D, [&](auto d) {
-      return launch_f32<decltype(d)::value>(q, k, v, o, B, Hq, Hkv, S, scale, causal, st);
+      return launch_f32<decltype(d)::value>(q, k, v, o, l, B, Hq, Hkv, S, scale, causal, st);
     });
   if (dtype == 1)
     return by_head_dim(D, [&](auto d) {
-      return tc::launch_bf16<decltype(d)::value>(q, k, v, o, B, Hq, Hkv, S, scale, causal, st);
+      return tc::launch_bf16<decltype(d)::value>(q, k, v, o, l, B, Hq, Hkv, S, scale, causal,
+                                                 st);
     });
   return (int)cudaErrorInvalidValue;
 }

@@ -1,5 +1,6 @@
-"""The flash-attention kernel (``csrc/flash_attention.cu``): build, load
-and the PyTorch wrapper.
+"""The flash-attention kernels (``csrc/flash_attention.cu`` and its
+gradient, ``csrc/flash_attention_bwd.cu``): build, load, the PyTorch
+wrappers and the autograd Function that joins them.
 
 ``flash_attention_cuda`` — causal or full GQA attention with an online
     softmax over (B, Hq, S, D) queries and (B, Hkv, S, D) keys and
@@ -8,41 +9,58 @@ and the PyTorch wrapper.
     divide its blocks; this one masks the ragged tail itself).  The
     dtype picks the instance: bfloat16 runs on the tensor cores (wgmma
     fed by TMA, P split into two bf16 halves), float32 on the CUDA
-    cores; neither stands in for the other.
+    cores; neither stands in for the other.  ``return_lse=True`` also
+    returns each row's log-sum-exp (float32, (B, Hq, S)).
+``flash_attention_bwd_cuda`` — its gradient (dq, dk, dv) from q, k, v,
+    the output, the log-sum-exp and the output's gradient, on the CUDA
+    cores in float32 for both dtypes.  The reference has no backward
+    kernel: it differentiates its plain loop.
 
-For a CUDA tensor the wrapper launches the kernel (or raises); for a CPU
-tensor it runs the plain version, `kernels.ref.mha_reference`.  Each
-launch adds one to ``LAUNCHES["flash_attention_cuda"]``.  The kernel has
-no backward: on the card, a call with grad mode on and an input that
-requires grad raises rather than return an output with no graph.
+D = 16 (the reduced configs' heads) is zero-padded to 32 around either
+kernel: the padded columns add exactly 0 to every dot product, and the
+scale stays 1/sqrt(16).
 
-The source is held to a tolerance against its twin, not bit for bit, so
-it builds with the compiler's default contraction (no ``-fmad=false``,
-which the RMI sources need).
+For CUDA tensors the wrappers launch their kernel (or raise); for CPU
+tensors they run the plain versions, `kernels.ref.mha_reference_lse` and
+`kernels.ref.mha_backward_reference`.  With grad mode on and an input
+that requires grad, `flash_attention_cuda` goes through
+`FlashAttention`, whose forward saves q, k, v, the output and the
+log-sum-exp and whose backward is ``flash_attention_bwd_cuda``: on the
+card both are kernels, and nothing reroutes a gradient to a plain twin.
+Each launch adds one to ``LAUNCHES[name]``.
+
+The sources are held to a tolerance against their twins, not bit for
+bit, so they build with the compiler's default contraction (no
+``-fmad=false``, which the RMI sources need).  Each is its own library,
+so the forward's build hash does not depend on the backward's source.
 """
 
 from __future__ import annotations
 
 import ctypes
 import math
-from typing import Dict
+from typing import Dict, Tuple
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.kernels import nvcc, ref
 
 SOURCE = nvcc.CSRC / "flash_attention.cu"
+BWD_SOURCE = nvcc.CSRC / "flash_attention_bwd.cu"
 FLAGS = tuple(f for f in nvcc.NVCC_FLAGS if f != "-fmad=false")
 HEAD_DIMS = (32, 64, 128)
+_PADDED = {16: 32}             # head dims run zero-padded to a kernel's
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
-# launches of the wrapper; a plain integer, bumped only where the
-# kernel is launched
-LAUNCHES: Dict[str, int] = {"flash_attention_cuda": 0}
+# launches of the wrappers; plain integers, bumped only where a kernel
+# is launched
+LAUNCHES: Dict[str, int] = {"flash_attention_cuda": 0, "flash_attention_bwd_cuda": 0}
 
 
 def reset_launch_counts() -> None:
-    LAUNCHES["flash_attention_cuda"] = 0
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
 
 
 def library_path():
@@ -55,10 +73,16 @@ def build():
     return nvcc.build(SOURCE, FLAGS)
 
 
+def build_backward():
+    """Compile the attention-gradient library unless this source hash is
+    built; returns its path."""
+    return nvcc.build(BWD_SOURCE, FLAGS)
+
+
 def declare(lib) -> None:
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.flash_attention_launch.argtypes = [
-        p, p, p, p,                 # q, k, v, out
+        p, p, p, p, p,              # q, k, v, out, lse (null: not stored)
         i, i, i, i, i,              # B, Hq, Hkv, S, D
         i, ctypes.c_float, i,       # dtype, scale, causal
         p,                          # stream
@@ -66,16 +90,20 @@ def declare(lib) -> None:
     lib.flash_attention_launch.restype = i
 
 
-def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                         causal: bool = True) -> torch.Tensor:
-    """(B, Hq, S, D) attention output in q's dtype."""
-    if q.device.type == "cpu":
-        return ref.mha_reference(q, k, v, causal=causal)
-    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
-        raise RuntimeError(
-            "flash_attention_cuda has no backward kernel: an input requires grad "
-            "under grad mode (run it under torch.no_grad(), or on the CPU)")
-    dev = q.device
+def declare_backward(lib) -> None:
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.flash_attention_bwd_launch.argtypes = [
+        p, p, p, p, p, p,           # q, k, v, out, d_out, lse
+        p, p, p, p,                 # di (scratch), dq, dk, dv
+        i, i, i, i, i,              # B, Hq, Hkv, S, D
+        i, ctypes.c_float, i,       # dtype, scale, causal
+        p,                          # stream
+    ]
+    lib.flash_attention_bwd_launch.restype = i
+
+
+def _check_qkv(q, k, v) -> Tuple[int, int, int, int, int]:
+    """(B, Hq, Hkv, S, D) of a call the kernels take; raises otherwise."""
     if q.ndim != 4 or k.ndim != 4 or v.ndim != 4:
         raise ValueError("q, k and v must be 4-D (B, H, S, D)")
     b, hq, s, d = q.shape
@@ -83,25 +111,123 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if k.shape != (b, hkv, s, d) or v.shape != k.shape:
         raise ValueError(f"k and v must be (B, Hkv, S, D) = {(b, hkv, s, d)}, "
                          f"got {tuple(k.shape)} and {tuple(v.shape)}")
-    if d not in HEAD_DIMS:
-        raise ValueError(f"head dim {d} not in {HEAD_DIMS}")
+    if d not in HEAD_DIMS and d not in _PADDED:
+        raise ValueError(f"head dim {d} not in {HEAD_DIMS + tuple(_PADDED)}")
     if hkv < 1 or hq % hkv:
         raise ValueError(f"GQA requires Hq % Hkv == 0 (Hq={hq}, Hkv={hkv})")
     if q.dtype not in _DTYPES:
         raise TypeError(f"q has dtype {q.dtype}; the kernel takes float32 or bfloat16")
     if b > 65535 or hq > 65535 or s >= 2**31 - 64:
         raise ValueError("B and Hq must be <= 65535 and S < 2**31 - 64")
-    ptrs = [nvcc.check_tensor(a, nm, q.dtype, dev, ndim=4)
-            for a, nm in ((q, "q"), (k, "k"), (v, "v"))]
+    return b, hq, hkv, s, d
+
+
+def _pointers(tensors, names, dtype, dev, ndim=4):
+    ptrs = [nvcc.check_tensor(t, n, dtype, dev, ndim=ndim) for t, n in zip(tensors, names)]
     if any(p % 16 for p in ptrs):
-        raise ValueError("q, k and v must start on a 16-byte boundary")
-    out = torch.empty_like(q)
-    if out.numel() == 0:
-        return out
+        raise ValueError(f"{', '.join(names)} must start on a 16-byte boundary")
+    return ptrs
+
+
+def _padded(tensors, d: int):
+    """The tensors with D zero-padded to the kernel's head dim (as they
+    are when D is one of the kernel's)."""
+    if d not in _PADDED:
+        return tuple(tensors)
+    return tuple(F.pad(t, (0, _PADDED[d] - d)) for t in tensors)
+
+
+def _forward(q, k, v, causal: bool, return_lse: bool):
+    """One launch of the forward kernel (its plain version on the CPU);
+    ``(out, lse)`` with ``return_lse``, else ``out``."""
+    if q.device.type == "cpu":
+        if return_lse:
+            return ref.mha_reference_lse(q, k, v, causal=causal)
+        return ref.mha_reference(q, k, v, causal=causal)
+    dev = q.device
+    b, hq, hkv, s, d = _check_qkv(q, k, v)
+    _pointers((q, k, v), ("q", "k", "v"), q.dtype, dev)
+    lse = torch.empty((b, hq, s), dtype=torch.float32, device=dev) if return_lse else None
+    if q.numel() == 0:
+        out = torch.empty_like(q)
+        return (out, lse) if return_lse else out
+    qp, kp, vp = _padded((q, k, v), d)
+    out = torch.empty_like(qp)
     err = nvcc.load(SOURCE, declare, FLAGS).flash_attention_launch(
-        *ptrs, out.data_ptr(), b, hq, hkv, s, d, _DTYPES[q.dtype],
-        1.0 / math.sqrt(d), int(bool(causal)),
+        qp.data_ptr(), kp.data_ptr(), vp.data_ptr(), out.data_ptr(),
+        0 if lse is None else lse.data_ptr(), b, hq, hkv, s, qp.shape[3],
+        _DTYPES[q.dtype], 1.0 / math.sqrt(d), int(bool(causal)),
         torch.cuda.current_stream(dev).cuda_stream)
     nvcc.raise_on_error(err, "flash_attention")
     LAUNCHES["flash_attention_cuda"] += 1
-    return out
+    if qp is not q:
+        out = out[..., :d].contiguous()
+    return (out, lse) if return_lse else out
+
+
+class FlashAttention(torch.autograd.Function):
+    """Attention with its gradient: the forward kernel (saving q, k, v,
+    the output and the log-sum-exp), then the backward kernel; on CPU
+    tensors the plain forward and the plain backward."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal):
+        out, lse = _forward(q, k, v, bool(causal), True)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.causal = bool(causal)
+        return out
+
+    @staticmethod
+    def backward(ctx, d_out):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd_cuda(q, k, v, out, lse, d_out.contiguous(),
+                                              causal=ctx.causal)
+        return dq, dk, dv, None
+
+
+def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                         causal: bool = True, return_lse: bool = False):
+    """(B, Hq, S, D) attention output in q's dtype; with ``return_lse``
+    also the rows' log-sum-exp, float32 (B, Hq, S).  Under grad mode, an
+    input that requires grad sends the call through `FlashAttention`,
+    so the output carries the backward kernel (the plain backward on the
+    CPU)."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        if return_lse:
+            raise ValueError("return_lse is not differentiable: call it under torch.no_grad()")
+        return FlashAttention.apply(q, k, v, causal)
+    return _forward(q, k, v, bool(causal), return_lse)
+
+
+def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                             out: torch.Tensor, lse: torch.Tensor, d_out: torch.Tensor, *,
+                             causal: bool = True):
+    """(dq, dk, dv) in q's dtype: the gradient of the attention whose
+    output is ``out`` and row log-sum-exp ``lse`` (float32, (B, Hq, S)),
+    given the output's gradient ``d_out``."""
+    if q.device.type == "cpu":
+        return ref.mha_backward_reference(q, k, v, out, lse, d_out, causal=causal)
+    dev = q.device
+    b, hq, hkv, s, d = _check_qkv(q, k, v)
+    if out.shape != q.shape or d_out.shape != q.shape:
+        raise ValueError(f"out and d_out must be {tuple(q.shape)}, got "
+                         f"{tuple(out.shape)} and {tuple(d_out.shape)}")
+    if lse.shape != (b, hq, s):
+        raise ValueError(f"lse must be {(b, hq, s)}, got {tuple(lse.shape)}")
+    _pointers((q, k, v, out, d_out), ("q", "k", "v", "out", "d_out"), q.dtype, dev)
+    _pointers((lse,), ("lse",), torch.float32, dev, ndim=3)
+    if q.numel() == 0:
+        return torch.zeros_like(q), torch.zeros_like(k), torch.zeros_like(v)
+    qp, kp, vp, op, dop = _padded((q, k, v, out, d_out), d)
+    dq, dk, dv = torch.empty_like(qp), torch.empty_like(kp), torch.empty_like(vp)
+    di = torch.empty((b, hq, s), dtype=torch.float32, device=dev)
+    err = nvcc.load(BWD_SOURCE, declare_backward, FLAGS).flash_attention_bwd_launch(
+        qp.data_ptr(), kp.data_ptr(), vp.data_ptr(), op.data_ptr(), dop.data_ptr(),
+        lse.data_ptr(), di.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+        b, hq, hkv, s, qp.shape[3], _DTYPES[q.dtype], 1.0 / math.sqrt(d),
+        int(bool(causal)), torch.cuda.current_stream(dev).cuda_stream)
+    nvcc.raise_on_error(err, "flash_attention_bwd")
+    LAUNCHES["flash_attention_bwd_cuda"] += 1
+    if qp is not q:
+        dq, dk, dv = (t[..., :d].contiguous() for t in (dq, dk, dv))
+    return dq, dk, dv

@@ -681,13 +681,18 @@ def hash_probe_op(hm, index, keys, q_raw, *, device=None) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 def attention_op(q, k, v, *, causal=True, use_kernel=True) -> torch.Tensor:
-    """(B, Hq, S, D) GQA attention: `flash_attention_cuda` for tensors on
-    the card (it masks ragged tiles itself, so every S goes to it), the
-    plain `ref.mha_reference` on the CPU or with ``use_kernel=False``."""
+    """(B, Hq, S, D) GQA attention through `flash_attention_cuda`: the
+    kernel for tensors on the card (it masks ragged tiles itself, so
+    every S goes to it), the plain `ref.mha_reference` on the CPU.  Under
+    grad mode with an input that requires grad the call goes through the
+    autograd Function (`flash_attention.FlashAttention`): the forward
+    and backward kernels on the card, their plain versions on the CPU.
+    ``use_kernel=False`` runs `ref.mha_reference` on any device, through
+    torch autograd."""
     kernel = use_kernel and _on_card(q)
     with dispatch_span("attention", kernel=kernel, strategy="cuda",
                        sig=(_shape(q), _shape(k), str(q.dtype), causal)):
-        if not kernel:
+        if not use_kernel:
             return ref.mha_reference(q, k, v, causal=causal)
         return flash_attention_cuda(q.contiguous(), k.contiguous(), v.contiguous(),
                                     causal=causal)

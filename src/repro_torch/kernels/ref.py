@@ -416,13 +416,62 @@ def mha_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     """(B, Hq, S, D) GQA attention, float32 softmax, no tiling: the
     flash-attention kernel's plain version (the reference's
     `mha_reference`; it holds the (S, S) scores in memory)."""
-    b, hq, s, d = q.shape
-    group = hq // k.shape[1]
-    kr = torch.repeat_interleave(k, group, dim=1)
-    vr = torch.repeat_interleave(v, group, dim=1)
+    return _attend(_masked_scores(q, k, causal), q, k, v)
+
+
+def mha_reference_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                      causal: bool = True):
+    """`mha_reference`'s output and each row's log-sum-exp of the scaled,
+    masked scores (float32, (B, Hq, S)): the plain version of
+    `flash_attention_cuda(..., return_lse=True)`."""
+    s_ = _masked_scores(q, k, causal)
+    return _attend(s_, q, k, v), torch.logsumexp(s_, dim=-1)
+
+
+def _masked_scores(q: torch.Tensor, k: torch.Tensor, causal: bool) -> torch.Tensor:
+    """(B, Hq, S, S) float32 scores (q . k) / sqrt(D), masked with -1e30."""
+    s, d = q.shape[2], q.shape[3]
+    kr = torch.repeat_interleave(k, q.shape[1] // k.shape[1], dim=1)
     s_ = torch.einsum("bhqd,bhkd->bhqk", q.float(), kr.float()) / np.sqrt(d)
     if causal:
         mask = torch.tril(torch.ones((s, s), dtype=torch.bool, device=q.device))
         s_ = torch.where(mask[None, None], s_, -1e30)
+    return s_
+
+
+def _attend(s_: torch.Tensor, q: torch.Tensor, k: torch.Tensor,
+            v: torch.Tensor) -> torch.Tensor:
+    """softmax(scores) V in float32, in q's dtype."""
+    vr = torch.repeat_interleave(v, q.shape[1] // k.shape[1], dim=1)
     p = torch.softmax(s_, dim=-1)
     return torch.einsum("bhqk,bhkd->bhqd", p, vr.float()).to(q.dtype)
+
+
+def mha_backward_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                           out: torch.Tensor, lse: torch.Tensor, d_out: torch.Tensor, *,
+                           causal: bool = True):
+    """(dq, dk, dv) in q's dtype, the plain version of
+    `flash_attention_bwd_cuda`: the explicit formulas in float32 from the
+    same inputs, with P = exp(s - lse), dV = P^T dO, dP = dO V^T,
+    dS = P * (dP - rowsum(dO * O)), dQ = dS K / sqrt(D) and
+    dK = dS^T Q / sqrt(D), the key and value gradients summed over each
+    GQA group."""
+    b, hq, s, d = q.shape
+    hkv = k.shape[1]
+    group = hq // hkv
+    scale = 1.0 / np.sqrt(d)
+    p = torch.exp(_masked_scores(q, k, causal) - lse.float()[..., None])
+    dof = d_out.float()
+    kr = torch.repeat_interleave(k, group, dim=1).float()
+    vr = torch.repeat_interleave(v, group, dim=1).float()
+    dv = torch.einsum("bhqk,bhqd->bhkd", p, dof)
+    dp = torch.einsum("bhqd,bhkd->bhqk", dof, vr)
+    di = (dof * out.float()).sum(dim=-1)
+    ds = p * (dp - di[..., None])
+    dq = torch.einsum("bhqk,bhkd->bhqd", ds, kr) * scale
+    dk = torch.einsum("bhqk,bhqd->bhkd", ds, q.float()) * scale
+
+    def by_group(t):
+        return t.reshape(b, hkv, group, s, d).sum(dim=2)
+
+    return dq.to(q.dtype), by_group(dk).to(k.dtype), by_group(dv).to(v.dtype)

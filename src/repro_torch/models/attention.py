@@ -7,6 +7,10 @@ tensors on the card it goes through `kernels.ops.attention_op`, the
 hand-written flash-attention kernel, which computes the same function
 (the reference's "TPU-tiled twin" of this loop, `flash_attention`); a
 call the kernel cannot compute (a query offset, or Sq != Sk) raises.
+Under grad the card's call carries its gradient through the kernel's
+backward (`kernels.flash_attention.FlashAttention`); on the CPU torch
+autograd differentiates the loop, as the reference differentiates its
+own.
 
 Decode is a single-query einsum over the cache with float32 scores,
 plain PyTorch: the reference has no kernel there either.

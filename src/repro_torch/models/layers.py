@@ -1,23 +1,45 @@
-"""Shared neural-net layers: norms, RoPE, SwiGLU, embeddings, logits.
+"""Shared neural-net layers: norms, RoPE, SwiGLU, embeddings, logits,
+the loss and the remat policy.
 
 Plain functions over explicit parameter tensors, as in the reference
 (`repro/models/layers.py`), with each rounding where the reference
 rounds: `rmsnorm` casts back to x's dtype before the scale, and
-`apply_rope` casts cos and sin to x's dtype before the multiply.
-The reference's training and sharding hints (`name_ckpt`, `pin_dp`,
-`remat_policy_of`) and `cross_entropy` wait for the training slice.
+`apply_rope` casts cos and sin to x's dtype before the multiply.  The
+reference's remat policies become `torch.utils.checkpoint` around
+a whole block or its two halves (`remat`); its `pin_dp` sharding hint is
+a no-op without a mesh and waits for the sharding slice (ROADMAP queue
+A item 7).
 """
 
 from __future__ import annotations
 
 import math
+from typing import Callable, Dict, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 
 def dtype_of(name: str) -> torch.dtype:
     return {"bfloat16": torch.bfloat16, "float32": torch.float32}[name]
+
+
+def remat_policy_of(cfg) -> str:
+    """What a rematerialised block keeps (reference `remat_policy_of`):
+    ``"full"`` saves nothing inside a block, ``"block_io"`` saves the
+    attention and FFN outputs (the reference's names ``attn_out`` and
+    ``ffn_out``)."""
+    if cfg.remat_policy not in ("full", "block_io"):
+        raise ValueError(f"unknown remat policy: {cfg.remat_policy}")
+    return cfg.remat_policy
+
+
+def remat(fn: Callable) -> Callable:
+    """``fn`` recomputed in the backward pass instead of keeping its
+    activations: non-reentrant `torch.utils.checkpoint`, which saves
+    only ``fn``'s inputs."""
+    return lambda *args: checkpoint(fn, *args, use_reentrant=False)
 
 
 # ---------------------------------------------------------------------------
@@ -84,3 +106,25 @@ def embed(tokens: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
 def logits_from_hidden(h: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
     """Tied output head: h (..., D) @ table^T (V, D) -> (..., V)."""
     return h @ table.T
+
+
+def cross_entropy(
+    logits: torch.Tensor, labels: torch.Tensor, mask: torch.Tensor | None = None,
+    z_loss: float = 1e-4,
+) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Stable cross-entropy in float32 with a z-loss, the mean over the
+    masked tokens (the denominator clamped at 1); returns the loss and
+    the ``loss`` and ``nll`` metrics.  The label's logit is a gather
+    where the reference contracts with a one-hot: the one-hot sum adds
+    exact zeros, so the result is the same."""
+    lf = logits.float()
+    mx = lf.amax(dim=-1, keepdim=True).detach()
+    sumexp = torch.exp(lf - mx).sum(dim=-1)
+    lse = torch.log(sumexp) + mx[..., 0]
+    ll = torch.gather(lf, -1, labels.long()[..., None])[..., 0]
+    nll = lse - ll
+    per_tok = nll + z_loss * lse ** 2
+    m = torch.ones_like(nll) if mask is None else mask.float()
+    denom = torch.clamp(m.sum(), min=1.0)
+    loss = (per_tok * m).sum() / denom
+    return loss, {"loss": loss, "nll": (nll * m).sum() / denom}

@@ -2,10 +2,10 @@
 are cfg-bound functions, the surface that serving code touches (the
 reference's `repro/models/registry.py`).
 
-The port holds the dense family's serving path.  ``device`` (None =
-"cuda") is where `init` draws parameters and `init_cache` allocates the
-cache; the other families raise `NotImplementedError` naming the
-ROADMAP item that ports them, and so does `loss` (the training slice).
+The port holds the dense family's training and serving paths.
+``device`` (None = "cuda") is where `init` draws parameters and
+`init_cache` allocates the cache; the other families raise
+`NotImplementedError` naming the ROADMAP item that ports them.
 """
 
 from __future__ import annotations
@@ -21,7 +21,7 @@ from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import transformer
 
 _NOT_PORTED = {
-    "moe": "the MoE FFN (models/moe.py), ROADMAP queue A after the training slice",
+    "moe": "the MoE FFN (models/moe.py), ROADMAP queue A item 5",
     "ssm": "the ssm family (models/xlstm_model.py), ROADMAP queue A",
     "hybrid": "the hybrid family (models/hybrid.py), ROADMAP queue A",
     "vlm": "the vlm family (models/vlm.py), ROADMAP queue A",
@@ -50,12 +50,6 @@ def _lm_batch_spec(cfg: ArchConfig, shape: ShapeConfig) -> Dict[str, Any]:
     return {"token": ((b,), torch.int32)}  # decode
 
 
-def _no_loss(params, batch):
-    raise NotImplementedError(
-        "training (loss_fn, forward_train, train/*) is not ported yet: "
-        "ROADMAP queue A, the training slice")
-
-
 def get_model(cfg: ArchConfig, device: DeviceLike = None) -> ModelAPI:
     if cfg.family in _NOT_PORTED:
         raise NotImplementedError(f"{cfg.name}: {_NOT_PORTED[cfg.family]}")
@@ -73,7 +67,7 @@ def get_model(cfg: ArchConfig, device: DeviceLike = None) -> ModelAPI:
         cfg=cfg,
         device=dev,
         init=init,
-        loss=_no_loss,
+        loss=functools.partial(mod.loss_fn, cfg),
         prefill=lambda p, b: mod.prefill(cfg, p, b["tokens"]),
         decode=functools.partial(mod.decode_step, cfg),
         init_cache=lambda batch, max_len: mod.init_cache(cfg, batch, max_len, dev),

@@ -1,19 +1,21 @@
-"""Decoder-only transformer, dense GQA path: parameters, prefill and the
-single-token decode over a static-size KV cache.
+"""Decoder-only transformer, dense GQA path: parameters, the training
+forward and loss, prefill and the single-token decode over a static-size
+KV cache.
 
 Covers yi-6b and yi-9b (the dense family).  Parameters are a plain dict:
 ``embed`` (V, D), ``final_norm`` (D,) and ``blocks``, one dict per layer
 with the reference's (in, out) weight layout, so ``h @ wq`` reads as in
 `repro/models/transformer.py`.  The reference stacks the layers and
 scans over them; here a Python loop walks the list, and `decode_step`
-writes each layer's new KV entry into the cache in place.  The MoE FFN
-and the training path (`forward_train`, `loss_fn`) wait for later
-slices (ROADMAP queue A).
+writes each layer's new KV entry into the cache in place.  Training
+(`forward_train`, `loss_fn`) rematerialises each block as ``cfg.remat``
+and ``cfg.remat_policy`` say (`layers.remat`).  The MoE FFN waits for
+ROADMAP queue A item 5.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, List, Tuple
+from typing import Any, Callable, Dict, List, Tuple
 
 import torch
 
@@ -92,10 +94,58 @@ def _attn_train(cfg, p, x, positions):
 def _ffn(cfg, p, x):
     if cfg.num_experts:
         raise NotImplementedError(
-            "the MoE FFN (models/moe.py) is not ported yet: ROADMAP queue A, "
-            "after the training slice")
+            "the MoE FFN (models/moe.py) is not ported yet: ROADMAP queue A item 5")
     h = L.rmsnorm(x, p["ln2"])
     return x + L.swiglu(h, p["w_gate"], p["w_up"], p["w_down"])
+
+
+def block_train(cfg, p, x, positions):
+    """One layer of the training forward: (x', aux), aux the MoE
+    auxiliary loss (0 for the dense FFN)."""
+    x, _ = _attn_train(cfg, p, x, positions)
+    return _ffn(cfg, p, x), torch.zeros((), dtype=torch.float32, device=x.device)
+
+
+def _train_block(cfg) -> Callable:
+    """`block_train` under ``cfg``'s remat policy: ``"full"`` recomputes
+    the whole block, ``"block_io"`` each half, keeping the attention and
+    FFN outputs."""
+    if not cfg.remat:
+        return lambda p, x, positions: block_train(cfg, p, x, positions)
+    if L.remat_policy_of(cfg) == "full":
+        return L.remat(lambda p, x, positions: block_train(cfg, p, x, positions))
+    attn = L.remat(lambda p, x, positions: _attn_train(cfg, p, x, positions)[0])
+    ffn = L.remat(lambda p, x: _ffn(cfg, p, x))
+
+    def block(p, x, positions):
+        x = ffn(p, attn(p, x, positions))
+        return x, torch.zeros((), dtype=torch.float32, device=x.device)
+    return block
+
+
+def forward_train(cfg, params: Params, tokens: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """tokens (B, S) -> logits (B, S, V); also returns the total MoE aux
+    loss (float32 0 for the dense family)."""
+    x = L.embed(tokens, params["embed"])
+    positions = torch.arange(tokens.shape[1], device=tokens.device)
+    block = _train_block(cfg)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for p in params["blocks"]:
+        x, a = block(p, x, positions)
+        aux = aux + a
+    x = L.rmsnorm(x, params["final_norm"])
+    return L.logits_from_hidden(x, params["embed"]), aux
+
+
+def loss_fn(cfg, params: Params, batch) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """(loss, metrics): the cross-entropy with its z-loss plus
+    ``cfg.moe_aux_weight`` times the aux loss; metrics ``loss``, ``nll``
+    and ``aux``."""
+    logits, aux = forward_train(cfg, params, batch["tokens"])
+    loss, metrics = L.cross_entropy(logits, batch["labels"], batch.get("mask"))
+    total = loss + cfg.moe_aux_weight * aux
+    metrics["aux"] = aux
+    return total, metrics
 
 
 # ---------------------------------------------------------------------------

@@ -7,9 +7,13 @@ bfloat16); the model's `chunked_attention` (padding, query offset,
 non-causal), `decode_attention` and `update_kv_cache` against the
 reference's.  The kernel's numerics (bf16 tensor-core products with P
 split into two bf16 halves) are emulated in plain torch and held to the
-bound `chip_smoke.py` holds the card to.  The `cuda`-marked tests hold
-the kernel against its twin on the card and check that it refuses
-inputs that require grad (it has no backward).
+bound `chip_smoke.py` holds the card to.  The gradient: the autograd
+Function (`flash_attention.FlashAttention`) that `ops.attention_op` and
+the wrapper take under grad, on the CPU its plain forward and
+`ref.mha_backward_reference`, against `jax.vjp` of the reference's
+`chunked_attention` and `mha_reference`, and the plain backward against
+torch autograd through the plain forward.  The `cuda`-marked tests hold
+both kernels against their twins on the card.
 """
 
 import numpy as np
@@ -101,8 +105,8 @@ def test_attention_op_dispatches_plain_on_the_cpu_and_builds_nothing():
     ops.attention_op(q, k, v, use_kernel=False)
     rows = [r for r in ops.dispatch_summary()["rows"] if r["op"] == "attention"]
     assert [(r["path"], r["count"]) for r in rows] == [("plain", 2)]
-    assert fa.LAUNCHES == {"flash_attention_cuda": 0}
-    assert all(source != fa.SOURCE for source, _ in nvcc._LIBS)
+    assert fa.LAUNCHES == {"flash_attention_cuda": 0, "flash_attention_bwd_cuda": 0}
+    assert all(source not in (fa.SOURCE, fa.BWD_SOURCE) for source, _ in nvcc._LIBS)
 
 
 @pytest.mark.parametrize("sq,sk,chunk,q_offset,causal", [
@@ -279,9 +283,9 @@ def test_tensor_core_numerics_stay_within_one_bf16_rounding(split):
 
 
 def test_chunked_attention_on_the_cpu_stays_differentiable():
-    """C16: the card path has no backward and refuses grad; the CPU path
-    is the reference's loop and gives q, k and v the reference's
-    gradients."""
+    """C16: the CPU path is the reference's loop and gives q, k and v the
+    reference's gradients (the card's goes through the backward
+    kernel)."""
     import jax
 
     rng = np.random.default_rng(16)
@@ -300,31 +304,171 @@ def test_chunked_attention_on_the_cpu_stays_differentiable():
 
 @pytest.mark.parametrize("which", ["q", "k", "v"])
 def test_wrapper_refuses_an_input_that_requires_grad_before_launching(which):
-    """C16 on a stand-in device (meta): under grad mode an input that
-    requires grad raises before anything is built or launched."""
-    args = {n: torch.empty((1, 4 if n == "q" else 2, 8, 32), device="meta") for n in "qkv"}
-    args[which].requires_grad_(True)
-    with pytest.raises(RuntimeError, match="no backward"):
-        fa.flash_attention_cuda(args["q"], args["k"], args["v"])
+    """C16, closed: under grad mode an input that requires grad sends the
+    wrapper and the op through the autograd Function (its output carries
+    the Function's backward), and on the CPU nothing is built or
+    launched."""
+    from repro_torch.kernels import nvcc
+    fa.reset_launch_counts()
+    _, (q, k, v) = _qkv((1, 4, 2, 8, 32), "float32")
+    args = {"q": q, "k": k, "v": v}
+    args[which] = args[which].clone().requires_grad_(True)
+    for fn in (fa.flash_attention_cuda, ops.attention_op):
+        out = fn(args["q"], args["k"], args["v"])
+        assert type(out.grad_fn).__name__ == "FlashAttentionBackward"
+        out.sum().backward()
+        assert args[which].grad is not None
+    with torch.no_grad():
+        assert fa.flash_attention_cuda(args["q"], args["k"], args["v"]).grad_fn is None
+    assert fa.LAUNCHES == {"flash_attention_cuda": 0, "flash_attention_bwd_cuda": 0}
+    assert all(source not in (fa.SOURCE, fa.BWD_SOURCE) for source, _ in nvcc._LIBS)
+
+
+# the Function on the CPU against jax.vjp of the reference: one case of
+# each dtype / mask / group / length in tier 1, the full matrix under slow
+_GRAD_TIER1 = {("float32", True, 1, 8), ("float32", False, 4, 77), ("bfloat16", True, 4, 256),
+               ("bfloat16", False, 1, 77)}
+GRAD_CASES = [
+    pytest.param(dtype, causal, group, s,
+                 marks=() if (dtype, causal, group, s) in _GRAD_TIER1 else pytest.mark.slow,
+                 id=f"{dtype}-{'causal' if causal else 'full'}-g{group}-s{s}")
+    for dtype in ("float32", "bfloat16") for causal in (True, False)
+    for group in (1, 4) for s in (8, 77, 256)
+]
+
+
+@pytest.mark.parametrize("dtype,causal,group,s", GRAD_CASES)
+def test_attention_function_gradients_match_reference_vjp(dtype, causal, group, s):
+    import jax
+
+    (jq, jk, jv), (q, k, v) = _qkv((1, 2 * group, 2, s, 32), dtype, seed=s + group)
+    rng = np.random.default_rng(7)
+    g = rng.standard_normal(q.shape).astype(np.float32)
+    jg = jnp.asarray(g, JNP[dtype])
+    tg = torch.from_numpy(np.array(jg.astype(jnp.float32))).to(TORCH[dtype])
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    out = ops.attention_op(*leaves, causal=causal)
+    assert type(out.grad_fn).__name__ == "FlashAttentionBackward"
+    got = torch.autograd.grad(out, leaves, tg)
+    tol = 1e-5 if dtype == "float32" else 2e-2
+    for fn in (lambda a, b, c: jax_attn.chunked_attention(a, b, c, causal=causal, chunk=64),
+               lambda a, b, c: jax_ref.mha_reference(a, b, c, causal=causal)):
+        _, vjp = jax.vjp(fn, jq, jk, jv)
+        for t, w in zip(got, vjp(jg)):
+            w = np.asarray(w, np.float32)
+            assert t.dtype == TORCH[dtype]
+            assert float(np.abs(_f32(t) - w).max()) <= tol * float(np.abs(w).max())
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_plain_backward_equals_autograd_through_the_plain_forward(causal):
+    _, (q, k, v) = _qkv((2, 8, 2, 40, 32), "float32", seed=5)
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    out = ref.mha_reference(*leaves, causal=causal)
+    g = torch.from_numpy(np.random.default_rng(5).standard_normal(out.shape).astype(np.float32))
+    want = torch.autograd.grad(out, leaves, g)
+    o, lse = ref.mha_reference_lse(q, k, v, causal=causal)
+    assert torch.equal(o, out.detach())
+    got = ref.mha_backward_reference(q, k, v, o, lse, g, causal=causal)
+    for t, w in zip(got, want):
+        assert float((t - w).abs().max()) <= 1e-5 * float(w.abs().max())
+
+
+def test_backward_wrapper_rejects_what_the_kernel_does_not_take():
+    meta = dict(device="meta")
+    q = torch.empty((1, 4, 8, 32), **meta)
+    k = torch.empty((1, 2, 8, 32), **meta)
+    lse = torch.empty((1, 4, 8), **meta)
+    with pytest.raises(ValueError, match="out and d_out"):
+        fa.flash_attention_bwd_cuda(q, k, k, q[:, :2], lse, q)
+    with pytest.raises(ValueError, match="lse must be"):
+        fa.flash_attention_bwd_cuda(q, k, k, q, lse[..., :4], q)
+    with pytest.raises(TypeError, match="lse has dtype"):
+        fa.flash_attention_bwd_cuda(q, k, k, q, lse.to(torch.bfloat16), q)
+    with pytest.raises(ValueError, match="head dim"):
+        x = torch.empty((1, 4, 8, 48), **meta)
+        fa.flash_attention_bwd_cuda(x, x, x, x, lse, x)
+
+
+def test_backward_that_fails_to_build_raises_and_nothing_reroutes(monkeypatch):
+    """On a stand-in for card tensors (meta): a backward library that
+    does not build raises out of the autograd backward, and the plain
+    twin is never called in its place."""
+    import subprocess
+    from repro_torch.kernels import nvcc
+
+    def failing_build(source, flags=nvcc.NVCC_FLAGS):
+        raise subprocess.CalledProcessError(1, ["nvcc", str(source)])
+
+    twin_calls = []
+    monkeypatch.setattr(nvcc, "_LIBS", {})
+    monkeypatch.setattr(nvcc, "build", failing_build)
+    monkeypatch.setattr(ref, "mha_backward_reference",
+                        lambda *a, **kw: twin_calls.append(1))
+    # the forward stands in too: it returns a meta output and LSE
+    monkeypatch.setattr(fa, "_forward", lambda q, k, v, causal, lse: (
+        torch.empty_like(q), torch.empty(q.shape[:3], device=q.device)))
+    q, k, v = (torch.empty((1, h, 8, 32), device="meta", requires_grad=True)
+               for h in (4, 2, 2))
+    out = fa.flash_attention_cuda(q, k, v)
+    with pytest.raises(subprocess.CalledProcessError):
+        out.sum().backward()
+    with pytest.raises(subprocess.CalledProcessError):
+        fa.flash_attention_bwd_cuda(q.detach(), k.detach(), v.detach(), q.detach(),
+                                    torch.empty((1, 4, 8), device="meta"), q.detach())
+    assert twin_calls == []
+    assert fa.LAUNCHES["flash_attention_bwd_cuda"] == 0
+
+
+def test_backward_source_names_what_it_computes_and_uses_no_atomics():
+    src = fa.BWD_SOURCE.read_text()
+    assert "src/repro/models/attention.py:33" in src
+    assert "src/repro/train/train_step.py:34" in src
+    assert "atomic" not in src.replace("no atomics", "")
+    for kernel in ("attention_bwd_prepass", "attention_dkdv_kernel", "attention_dq_kernel"):
+        assert f"{kernel}(" in src
+    # its own library: the forward's build hash does not depend on it
+    from repro_torch.kernels import nvcc
+    assert fa.library_path() == nvcc.library_path(fa.SOURCE, fa.FLAGS)
+    assert nvcc.library_path(fa.BWD_SOURCE, fa.FLAGS).name.startswith("flash_attention_bwd-")
+
+
+def test_padded_head_dim_runs_through_the_kernel_path():
+    """D = 16 (the reduced configs' heads) is zero-padded to 32 for the
+    kernels: the padded call computes the same function."""
+    _, (q, k, v) = _qkv((1, 4, 2, 20, 16), "float32", seed=2)
+    qp, kp, vp = fa._padded((q, k, v), 16)
+    assert qp.shape[-1] == 32 and bool((qp[..., 16:] == 0).all())
+    # the padded columns add nothing to a score (the kernel keeps the
+    # true scale, 1/sqrt(16))
+    s16 = ref._masked_scores(q, k, False)
+    s32 = ref._masked_scores(qp, kp, False) * np.sqrt(32) / np.sqrt(16)
+    assert torch.allclose(s16, s32, rtol=1e-6, atol=1e-6)
 
 
 @pytest.mark.cuda
 def test_card_attention_refuses_grad_and_runs_under_no_grad():
+    """C16, closed, on the card: the wrapper and `chunked_attention`
+    carry a gradient through the backward kernel, equal to the plain
+    twin's at the kernel's tolerances; under no_grad the output has no
+    graph."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA card")
     dev = torch.device("cuda")
-    _, qkv = _qkv((1, 4, 2, 64, 32), "bfloat16")
-    qkv = [t.to(dev) for t in qkv]
-    calls = (fa.flash_attention_cuda, attention.chunked_attention)
-    for fn in calls:
-        for which in range(3):
-            args = list(qkv)
-            args[which] = args[which].clone().requires_grad_(True)
-            with pytest.raises(RuntimeError, match="no backward"):
-                fn(*args)
-            with torch.no_grad():
-                out = fn(*args)
+    for dtype, tol in (("bfloat16", 2e-2), ("float32", 1e-4)):
+        _, qkv = _qkv((1, 4, 2, 64, 32), dtype)
+        qkv = [t.to(dev) for t in qkv]
+        o, lse = ref.mha_reference_lse(*qkv)
+        g = torch.randn(o.shape, device=dev).to(o.dtype)
+        want = ref.mha_backward_reference(*qkv, o, lse, g)
+        for fn in (fa.flash_attention_cuda, attention.chunked_attention):
+            fa.reset_launch_counts()
+            leaves = [t.clone().requires_grad_(True) for t in qkv]
+            got = torch.autograd.grad(fn(*leaves), leaves, g)
             torch.cuda.synchronize()
-            want = ref.mha_reference(*qkv)
-            assert not out.requires_grad
-            assert torch.allclose(out.float(), want.float(), atol=2e-2, rtol=2e-2)
+            assert fa.LAUNCHES == {"flash_attention_cuda": 1, "flash_attention_bwd_cuda": 1}
+            for t, w in zip(got, want):
+                assert float((t.float() - w.float()).abs().max()) <= tol * float(
+                    w.float().abs().max())
+            with torch.no_grad():
+                assert not fn(*leaves).requires_grad

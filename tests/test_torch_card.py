@@ -20,6 +20,11 @@ so they run where the card is:
   under the three strategies, ranks equal to the CPU's), the B-Tree
   (equal to ``np.searchsorted``), the learned Bloom's GRU logits, and
   the pipeline's document lookup (equal to the oracle).
+* The attention gradient (B9's backward kernel): against
+  `ref.mha_backward_reference` on a small matrix, bit-identical on a
+  repeat launch, and one reduced yi-6b train step on the card (both
+  attention kernels, D = 16 zero-padded to 32) against the same step on
+  the CPU.
 
 Without a card every test here skips, except
 `test_build_failure_raises_before_the_failover`,
@@ -365,3 +370,64 @@ def test_document_lookup_on_card_equals_the_oracle():
     offsets = np.random.default_rng(5).integers(0, 10_000_000, 1 << 20)
     want = np.searchsorted(corpus.doc_starts, offsets, side="right") - 1
     assert np.array_equal(corpus.lookup_documents(offsets), want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [("float32", 1e-4), ("bfloat16", 2e-2)])
+def test_attention_backward_kernel_matches_twin_and_repeats_bit_for_bit(dtype, tol):
+    from repro_torch.kernels import flash_attention as fa
+    _card()
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(0)
+    dt = getattr(torch, dtype)
+    for b, hq, hkv, s, d in ((1, 4, 2, 77, 32), (2, 8, 2, 130, 64), (1, 8, 1, 64, 128)):
+        for causal in (True, False):
+            q, k, v = (torch.randn((b, h, s, d), generator=g, device=dev).to(dt)
+                       for h in (hq, hkv, hkv))
+            out, lse = fa.flash_attention_cuda(q, k, v, causal=causal, return_lse=True)
+            d_out = torch.randn(out.shape, generator=g, device=dev).to(dt)
+            got = fa.flash_attention_bwd_cuda(q, k, v, out, lse, d_out, causal=causal)
+            again = fa.flash_attention_bwd_cuda(q, k, v, out, lse, d_out, causal=causal)
+            want = ref.mha_backward_reference(q, k, v, out, lse, d_out, causal=causal)
+            torch.cuda.synchronize()
+            for x, y, w in zip(got, again, want):
+                assert x.dtype == dt and torch.equal(x, y)
+                err = float((x.float() - w.float()).abs().max())
+                assert err <= tol * float(w.float().abs().max()), (b, hq, hkv, s, d, causal)
+
+
+@pytest.mark.cuda
+def test_reduced_train_step_on_card_matches_the_cpu():
+    """The reduced yi-6b (float32, TF32 off) on the card, through both
+    attention kernels, against the CPU's plain loop: the loss within
+    1e-5 relative and every gradient within 1e-4 x its leaf's max; one
+    `make_train_step` step launches the forward kernel twice a layer
+    (forward and remat recompute) and the backward kernel once."""
+    import dataclasses
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import get_model
+    from repro_torch.train import OptimizerConfig, adamw_init, make_train_step
+    from repro_torch.train.optimizer import tree_leaves, tree_map
+    from repro_torch.train.train_step import loss_and_grads
+    _card()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dataclasses.replace(get_arch("yi-6b", reduced=True), dtype="float32")
+    toks = np.random.default_rng(0).integers(0, cfg.vocab_size, (2, 33)).astype(np.int32)
+    out = {}
+    for name in ("cpu", "cuda"):
+        api = get_model(cfg, name)
+        params = get_model(cfg, "cpu").init(torch.Generator().manual_seed(0))
+        params = tree_map(lambda t: t.to(name), params)
+        batch = {"tokens": torch.as_tensor(toks[:, :-1], device=name),
+                 "labels": torch.as_tensor(toks[:, 1:], device=name)}
+        loss, _, grads = loss_and_grads(api.loss, params, batch)
+        step = make_train_step(api.loss, OptimizerConfig(lr=1e-3, warmup_steps=1))
+        fa.reset_launch_counts()
+        step(params, adamw_init(params), batch)
+        out[name] = (float(loss), [g.cpu() for g in tree_leaves(grads)], dict(fa.LAUNCHES))
+    assert out["cuda"][2] == {"flash_attention_cuda": 2 * cfg.num_layers,
+                              "flash_attention_bwd_cuda": cfg.num_layers}
+    assert abs(out["cuda"][0] - out["cpu"][0]) <= 1e-5 * abs(out["cpu"][0])
+    for x, y in zip(out["cuda"][1], out["cpu"][1]):
+        assert float((x - y).abs().max()) <= 1e-4 * float(y.abs().max())

@@ -73,6 +73,7 @@ print(bad)
 
 @pytest.mark.parametrize("script,argv", [
     ("chip_smoke", []), ("scan_pair", ["--parent", "."]), ("lookup_pair", ["--parent", "."]),
+    ("attention_pair", ["--parent", "."]),
 ])
 def test_card_scripts_import_no_jax_and_refuse_without_a_card(script, argv):
     """The scripts run on the card import neither JAX nor the reference
@@ -217,7 +218,9 @@ def test_lm_modules_import_without_jax():
                  "repro_torch.models.layers", "repro_torch.models.attention",
                  "repro_torch.models.transformer", "repro_torch.models.registry",
                  "repro_torch.kernels.flash_attention", "repro_torch.serve.kvcache",
-                 "repro_torch.serve.engine", "repro_torch.launch.serve"):
+                 "repro_torch.serve.engine", "repro_torch.launch.serve",
+                 "repro_torch.train", "repro_torch.train.optimizer",
+                 "repro_torch.train.train_step", "repro_torch.launch.train"):
         assert name in out[2:], name
 
 
@@ -236,3 +239,14 @@ def test_serve_refuses_without_a_card_unless_asked_for_the_cpu(monkeypatch, caps
     out = serve.main(argv + ["--device", "cpu"])
     assert out["completed"] == 2 and out["tokens"] == 6 and out["kv_pages_in_use"] == 0
     assert '"completed": 2' in capsys.readouterr().out
+
+
+def test_train_refuses_without_a_card_unless_asked_for_the_cpu(monkeypatch):
+    from repro_torch.launch import train
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    argv = ["--arch", "yi-6b", "--reduced", "--steps", "1", "--global-batch", "2",
+            "--seq", "16"]
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        train.main(argv)
+    out = train.main(argv + ["--device", "cpu"])
+    assert out["first_loss"] == out["last_loss"] and np.isfinite(out["first_loss"])
