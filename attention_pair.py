@@ -1,23 +1,30 @@
 #!/usr/bin/env python3
-"""The flash-attention forward kernel (B9) of this tree against an
-earlier tree's, in turns, in one process on one card.
+"""The flash-attention kernels (B9 and its backward) of this tree against
+an earlier tree's, in turns, in one process on one card.
 
     python3 attention_pair.py --parent DIR
 
-DIR holds an earlier checkout (``git archive 7ac87eb`` unpacked) whose
-``src/repro_torch/kernels/csrc/flash_attention.cu`` has that commit's
-launch signature, without the log-sum-exp pointer (`PARENT_ARGTYPES`).
-Both sources are built with this tree's attention flags, and ptxas's
-registers and spills are printed for each instance.
+DIR holds an earlier checkout (``git archive a6d1ace`` unpacked) whose
+``src/repro_torch/kernels/csrc/flash_attention.cu`` and
+``flash_attention_bwd.cu`` have that commit's launch signatures
+(`PARENT_ARGTYPES`, `PARENT_BWD_ARGTYPES`: the backward without the
+bfloat16 design's scratch).  All four sources are built with this tree's
+attention flags, and ptxas's registers and spills are printed for each
+instance.
 
 Inputs, made from ``--seed``: bf16 causal attention at yi-6b's heads
-(32 query heads, 4 KV heads of 128) and S = 4,096, at the prefill batch
-(B = 2) and the training microbatch (B = 1).  Both kernels' outputs are
-held bit for bit against each other (the inference call passes no
-log-sum-exp pointer); times are CUDA events over 50 launches, kernels in
-turns (parent, change, change, parent, parent, change).  Prints JSON
-lines; the last is ``{"ok": true, ...}``.  Without a card it exits
-non-zero before printing any result.
+(32 query heads, 4 KV heads of 128) and S = 4,096.  The forward, at the
+prefill batch (B = 2) and the training microbatch (B = 1): both kernels'
+outputs held bit for bit against each other (the inference call passes
+no log-sum-exp pointer).  The backward, at the training microbatch: both
+gradients from the same output, log-sum-exp and output gradient, held
+to each other at `chip_smoke.py`'s bf16 tolerance (max |Δ| <= 2e-2 x
+max |parent|, relative L2 <= 1e-2), not bit for bit (the designs sum in
+other orders).  Times are CUDA events, kernels in turns (parent, change,
+change, parent, parent, change); the change's backward is also split by
+launch (its four kernels' mean device time under `torch.profiler`).  Prints JSON lines; the last is
+``{"ok": true, ...}``.  Without a card it exits non-zero before printing
+any result.
 """
 
 from __future__ import annotations
@@ -27,19 +34,52 @@ import ctypes
 import json
 import math
 import pathlib
+import re
 import subprocess
 import sys
+from concurrent.futures import ThreadPoolExecutor
 
 import chip_smoke as cs
 
 SHAPES = ((2, 32, 4, 4096, 128), (1, 32, 4, 4096, 128))   # (B, Hq, Hkv, S, D)
-_P, _I = ctypes.c_void_p, ctypes.c_int
-# q, k, v, out, B, Hq, Hkv, S, D, dtype, scale, causal, stream
-PARENT_ARGTYPES = [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, ctypes.c_float, _I, _P]
+BWD_SHAPE = cs.TRAIN_ATTN_SHAPE
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+# q, k, v, out, lse, B, Hq, Hkv, S, D, dtype, scale, causal, stream
+PARENT_ARGTYPES = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _P]
+# q, k, v, out, d_out, lse, di, dq, dk, dv, B, Hq, Hkv, S, D, dtype, scale, causal, stream
+PARENT_BWD_ARGTYPES = [_P] * 10 + [_I] * 6 + [_F, _I, _P]
+TURNS = ("parent", "change", "change", "parent", "parent", "change")
 
 
 def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
+
+
+def _in_turns(parent, change, reps):
+    times = {"parent": [], "change": []}
+    for who in TURNS:
+        times[who].append(cs.time_ms(parent if who == "parent" else change,
+                                     reps=reps[who], warmup=3))
+    return times
+
+
+def _by_launch(fn, reps):
+    """Mean device ms a call of each kernel ``fn`` launches, from
+    `torch.profiler`'s CUDA activity over ``reps`` calls."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        if e.device_time_total > 0:
+            m = re.search(r"attention_\w+(?:<\d+>)?", e.key)
+            out[m.group(0) if m else e.key[:60]] = e.device_time_total / 1e3 / reps
+    return out
 
 
 def main(argv=None) -> int:
@@ -54,21 +94,29 @@ def main(argv=None) -> int:
         print("attention_pair: CUDA is not available", file=sys.stderr)
         return 2
     from repro_torch.kernels import flash_attention as fa
-    from repro_torch.kernels import nvcc
+    from repro_torch.kernels import nvcc, ref
 
-    parent_src = args.parent / "src/repro_torch/kernels/csrc/flash_attention.cu"
-    if not parent_src.is_file():
-        print(f"attention_pair: no {parent_src}", file=sys.stderr)
-        return 2
+    csrc = args.parent / "src/repro_torch/kernels/csrc"
+    parent_src, parent_bwd_src = csrc / "flash_attention.cu", csrc / "flash_attention_bwd.cu"
+    for src in (parent_src, parent_bwd_src):
+        if not src.is_file():
+            print(f"attention_pair: no {src}", file=sys.stderr)
+            return 2
     dev = torch.device(cs.DEVICE)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
-    lib = ctypes.CDLL(str(nvcc.build(parent_src, fa.FLAGS)))
+    sources = {"parent": parent_src, "change": fa.SOURCE, "parent_bwd": parent_bwd_src,
+               "change_bwd": fa.BWD_SOURCE}
+    with ThreadPoolExecutor(len(sources)) as pool:
+        list(pool.map(lambda src: nvcc.build(src, fa.FLAGS), sources.values()))
+    lib = ctypes.CDLL(str(nvcc.library_path(parent_src, fa.FLAGS)))
     lib.flash_attention_launch.argtypes = PARENT_ARGTYPES
     lib.flash_attention_launch.restype = _I
-    fa.build()
-    for name, src in (("parent", parent_src), ("change", fa.SOURCE)):
+    bwd_lib = ctypes.CDLL(str(nvcc.library_path(parent_bwd_src, fa.FLAGS)))
+    bwd_lib.flash_attention_bwd_launch.argtypes = PARENT_BWD_ARGTYPES
+    bwd_lib.flash_attention_bwd_launch.restype = _I
+    for name, src in sources.items():
         log = nvcc.library_path(src, fa.FLAGS).with_suffix(".log")
         emit({"phase": "build", "tree": name, "ptxas": cs.ptxas_entries(log)})
 
@@ -82,7 +130,7 @@ def main(argv=None) -> int:
 
         def parent():
             err = lib.flash_attention_launch(
-                q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, hq, hkv, s, d,
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), 0, b, hq, hkv, s, d,
                 1, 1.0 / math.sqrt(d), 1, stream)
             nvcc.raise_on_error(err, "parent flash_attention")
 
@@ -90,17 +138,57 @@ def main(argv=None) -> int:
             return fa.flash_attention_cuda(q, k, v, causal=True)
 
         parent()
-        cs.check(torch.equal(out, change()), f"parent and change differ at {b, hq, hkv, s, d}")
-        times = {"parent": [], "change": []}
-        for who in ("parent", "change", "change", "parent", "parent", "change"):
-            times[who].append(cs.time_ms(parent if who == "parent" else change,
-                                         reps=50, warmup=5))
+        bits_equal = bool(torch.equal(out, change()))
+        cs.check(bits_equal, f"parent and change differ at {b, hq, hkv, s, d}")
+        times = _in_turns(parent, change, {"parent": 50, "change": 50})
         row = {"kernel": "flash_attention_cuda", "shape": [b, hq, hkv, s, d],
-               "dtype": "bfloat16", "causal": True, "parent_ms": times["parent"],
-               "change_ms": times["change"],
+               "dtype": "bfloat16", "causal": True, "bits_equal": bits_equal,
+               "parent_ms": times["parent"], "change_ms": times["change"],
                "ratio": sum(times["change"]) / sum(times["parent"])}
         emit(row)
         rows.append(row)
+
+    b, hq, hkv, s, d = BWD_SHAPE
+    q, k, v = (torch.randn((b, h, s, d), generator=g, device=dev).to(torch.bfloat16)
+               for h in (hq, hkv, hkv))
+    with torch.no_grad():
+        out, lse = fa.flash_attention_cuda(q, k, v, causal=True, return_lse=True)
+    d_out = torch.randn(out.shape, generator=g, device=dev).to(torch.bfloat16)
+    grads = [torch.empty_like(t) for t in (q, k, v)]
+    di = torch.empty((b, hq, s), dtype=torch.float32, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+
+    def parent_bwd():
+        err = bwd_lib.flash_attention_bwd_launch(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), d_out.data_ptr(),
+            lse.data_ptr(), di.data_ptr(), *(t.data_ptr() for t in grads), b, hq, hkv, s, d,
+            1, 1.0 / math.sqrt(d), 1, stream)
+        nvcc.raise_on_error(err, "parent flash_attention_bwd")
+
+    def change_bwd():
+        return fa.flash_attention_bwd_cuda(q, k, v, out, lse, d_out, causal=True)
+
+    parent_bwd()
+    got = change_bwd()
+    torch.cuda.synchronize()
+    tol, rel_tol = cs.ATTN_BWD_TOL["bfloat16"], cs.ATTN_BWD_REL_L2
+    held = {}
+    for tag, x, w in zip(("dq", "dk", "dv"), got, grads):
+        x, w = x.float(), w.float()
+        held[tag] = {"max_abs_err": float((x - w).abs().max()),
+                     "max_abs_parent": float(w.abs().max()),
+                     "rel_l2": float((x - w).norm() / w.norm())}
+        cs.check(held[tag]["max_abs_err"] <= tol * held[tag]["max_abs_parent"]
+                 and held[tag]["rel_l2"] <= rel_tol,
+                 f"backward parent and change differ in {tag}: {held[tag]}")
+    times = _in_turns(parent_bwd, change_bwd, {"parent": 5, "change": 20})
+    row = {"kernel": "flash_attention_bwd_cuda", "shape": [b, hq, hkv, s, d],
+           "dtype": "bfloat16", "causal": True, "vs_parent": held,
+           "parent_ms": times["parent"], "change_ms": times["change"],
+           "ratio": sum(times["change"]) / sum(times["parent"]),
+           "change_launch_ms": _by_launch(change_bwd, reps=5)}
+    emit(row)
+    rows.append(row)
     print(smi, flush=True)
     emit({"ok": True, "card": smi, "torch": torch.__version__,
           "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

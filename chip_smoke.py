@@ -2073,6 +2073,13 @@ ATTN_BWD_DIMS = (32, 64, 128)
 ATTN_BWD_GROUPS = (1, 4, 8)
 ATTN_BWD_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 ATTN_BWD_REL_L2 = 1e-2
+# the bf16 design's own bound: with P and dS split into bf16 halves every
+# gradient stays within ~1e-4 relative L2 of the twin (a single bf16 P
+# and dS lands at ~2.6e-3; tests/test_torch_attention.py)
+ATTN_BWD_SPLIT_REL_L2 = 1e-3
+# B9's backward at the training shape before its tensor-core design (the
+# CUDA-core kernel; NVIDIA H100 80GB HBM3, 700.00 W; PERF.md §6)
+ATTN_BWD_EARLIER_MS = 16.16
 ATTN_LSE_TOL = 1e-5
 TRAIN_ATTN_SHAPE = (1, 32, 4, 4096, 128)   # (B, Hq, Hkv, S, D) of one training microbatch
 SERVE_ARGV = ["--arch", LM_ARCH, "--requests", "16", "--max-new", "32",
@@ -2140,17 +2147,37 @@ def ptxas_entries(log_path):
     return out
 
 
+BWD_KERNELS = ("attention_bwd_prepass", "attention_bwd_prepass_pairs", "attention_dkdv_kernel",
+               "attention_dq_kernel", "attention_dkdv_bf16_kernel", "attention_group_sum",
+               "attention_dq_bf16_kernel")
+
+
+def _bwd_instance(mangled):
+    """`attention_dkdv_bf16_kernel<128>`, `attention_group_sum` ... of a
+    mangled entry name (each name carries its length before it)."""
+    for base in BWD_KERNELS:
+        at = mangled.find(f"{len(base)}{base}")
+        if at >= 0:
+            d = re.match(r"ILi(\d+)E", mangled[at + len(f"{len(base)}{base}"):])
+            return f"{base}<{d.group(1)}>" if d else base
+    return mangled
+
+
 def attention_ptxas():
     """ptxas's report on the two attention libraries: every instance's
-    registers and spills, and the bf16 D = 128 forward's (168 registers,
-    no spills, before its log-sum-exp output)."""
+    registers and spills (``backward``: the gradient's, by instance), the
+    bf16 D = 128 forward's (168 registers, no spills, before its
+    log-sum-exp output) and the bf16 D = 128 backward kernels'."""
     from repro_torch.kernels import flash_attention as fa, nvcc
     entries = {}
     for src in (fa.SOURCE, fa.BWD_SOURCE):
         entries.update(ptxas_entries(nvcc.library_path(src, fa.FLAGS).with_suffix(".log")))
     fwd = next((v for k, v in entries.items()
                 if "flash_attention_bf16_kernelILi128E" in k), None)
-    return {"entries": entries, "bf16_d128_forward": fwd}
+    backward = {_bwd_instance(k): v for k, v in entries.items() if "attention_bwd_cu" in k}
+    bwd = {k: v for k, v in backward.items() if "bf16_kernel<128>" in k}
+    return {"entries": entries, "backward": backward, "bf16_d128_forward": fwd,
+            "bf16_d128_backward": bwd}
 
 
 def attention_bwd_bound(b, hq, hkv, s, d, elem_bytes, causal=True):
@@ -2169,7 +2196,8 @@ def attention_bwd_bound(b, hq, hkv, s, d, elem_bytes, causal=True):
 
 def _bwd_errors(got, want, s, name):
     """Each gradient's max |kernel - twin| against tol x max |twin| (and,
-    for bf16, its relative L2 error).  At S = 1 dq and dk are zero by
+    for bf16, its relative L2 error, against ATTN_BWD_REL_L2 and the
+    split design's ATTN_BWD_SPLIT_REL_L2).  At S = 1 dq and dk are zero by
     construction (one key: the scores' gradient vanishes) and both sides
     hold only rounding noise, so they are held against the scale of dv."""
     tol = ATTN_BWD_TOL[name]
@@ -2182,7 +2210,8 @@ def _bwd_errors(got, want, s, name):
         row = {"max_abs_err": err, "max_abs_twin": scale, "ok": err <= tol * scale}
         if name == "bfloat16":
             row["rel_l2"] = float((g - w).norm() / max(float(ref_t.norm()), 1e-30))
-            row["ok"] = row["ok"] and row["rel_l2"] <= ATTN_BWD_REL_L2
+            row["split_ok"] = row["rel_l2"] <= ATTN_BWD_SPLIT_REL_L2
+            row["ok"] = row["ok"] and row["rel_l2"] <= ATTN_BWD_REL_L2 and row["split_ok"]
         out[tag] = row
     return out
 
@@ -2241,7 +2270,9 @@ def time_attention_backward(dev, seed):
     never called by the port: autograd.grad through
     `scaled_dot_product_attention(..., enable_gqa=True)` less its forward)
     at the training shape, and the forward kernel with and without its
-    log-sum-exp there."""
+    log-sum-exp there; beside the bound, the bf16 design's floor (ten
+    products where the bound counts five) and the CUDA-core kernel's
+    time it replaced."""
     import torch
     import torch.nn.functional as F
     from torch.nn.attention import SDPBackend, sdpa_kernel
@@ -2257,7 +2288,7 @@ def time_attention_backward(dev, seed):
         d_out = torch.randn(out.shape, generator=g, device=dev).to(torch.bfloat16)
         row = {"shape": [b, hq, hkv, s, d], "dtype": "bfloat16", "causal": True,
                "ms": time_ms(lambda: flash_attention_bwd_cuda(q, k, v, out, lse, d_out),
-                             reps=5, warmup=1),
+                             reps=20, warmup=3),
                "plain_ms": time_ms(lambda: ref.mha_backward_reference(
                    q, k, v, out, lse, d_out), reps=2, warmup=1),
                "forward_ms": time_ms(lambda: flash_attention_cuda(q, k, v), reps=10),
@@ -2283,8 +2314,11 @@ def time_attention_backward(dev, seed):
             break
         except RuntimeError:
             continue
-    row.update(library_ms=library, library_backend=backend,
-               **attention_bwd_bound(b, hq, hkv, s, d, 2))
+    bound = attention_bwd_bound(b, hq, hkv, s, d, 2)
+    row.update(library_ms=library, library_backend=backend, **bound,
+               design_floor_ms=max(2 * bound["flops"] / BF16_FLOPS_PER_S * 1e3,
+                                   bound["bound_ms"]),
+               earlier_ms=ATTN_BWD_EARLIER_MS)
     del q, k, v, qs, ks, vs, out, lse, d_out
     torch.cuda.empty_cache()
     return row
@@ -3696,6 +3730,11 @@ def main(argv=None) -> int:
     fwd128 = attn_ptxas["bf16_d128_forward"] or {}
     check(fwd128.get("spill_stores") == 0 and fwd128.get("spill_loads") == 0,
           f"flash_attention_bf16_kernel<128> spills: {fwd128}")
+    # and the bf16 D = 128 backward kernels (dK/dV, dQ) none either
+    bwd128 = attn_ptxas["bf16_d128_backward"]
+    check(len(bwd128) == 2 and all(r.get("spill_stores") == 0 and r.get("spill_loads") == 0
+                                   for r in bwd128.values()),
+          f"the bf16 D = 128 backward kernels spill: {bwd128}")
 
     # ---- phase 2: kernels against plain versions ------------------------
     attn_record = []
@@ -3871,7 +3910,10 @@ def main(argv=None) -> int:
          "ms": trained["timing"]["ms"], "plain_ms": trained["timing"]["plain_ms"],
          "bound_ms": trained["timing"]["bound_ms"], "bound_by": trained["timing"]["bound_by"],
          "library_ms": trained["timing"]["library_ms"],
-         "library_backend": trained["timing"]["library_backend"]},
+         "library_backend": trained["timing"]["library_backend"],
+         "design_floor_ms": trained["timing"]["design_floor_ms"],
+         "earlier_ms": trained["timing"]["earlier_ms"],
+         "ptxas": attn_ptxas["backward"]},
     ], "batch": big["batch"], "scan_rows": sbig["rows"], "n": single["n"], "shards": slook["S"],
         "sharded_scan_rows": sscan["rows"], "attention_shape": lm["timing"]["shape"],
         "attention_bwd_shape": trained["timing"]["shape"],

@@ -12,9 +12,11 @@ wrappers and the autograd Function that joins them.
     cores; neither stands in for the other.  ``return_lse=True`` also
     returns each row's log-sum-exp (float32, (B, Hq, S)).
 ``flash_attention_bwd_cuda`` — its gradient (dq, dk, dv) from q, k, v,
-    the output, the log-sum-exp and the output's gradient, on the CUDA
-    cores in float32 for both dtypes.  The reference has no backward
-    kernel: it differentiates its plain loop.
+    the output, the log-sum-exp and the output's gradient.  bfloat16 runs
+    on the tensor cores (wgmma fed by TMA, P and dS split into two bf16
+    halves; dK and dV per query head in float32 scratch, then summed over
+    each GQA group), float32 on the CUDA cores.  The reference has no
+    backward kernel: it differentiates its plain loop.
 
 D = 16 (the reduced configs' heads) is zero-padded to 32 around either
 kernel: the padded columns add exactly 0 to every dot product, and the
@@ -94,7 +96,7 @@ def declare_backward(lib) -> None:
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.flash_attention_bwd_launch.argtypes = [
         p, p, p, p, p, p,           # q, k, v, out, d_out, lse
-        p, p, p, p,                 # di (scratch), dq, dk, dv
+        p, p, p, p,                 # scratch (float32, `_bwd_scratch_floats`), dq, dk, dv
         i, i, i, i, i,              # B, Hq, Hkv, S, D
         i, ctypes.c_float, i,       # dtype, scale, causal
         p,                          # stream
@@ -199,6 +201,16 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return _forward(q, k, v, bool(causal), return_lse)
 
 
+def _bwd_scratch_floats(dtype, b: int, hq: int, s: int, d: int) -> int:
+    """float32 scratch of the backward launch: each row's Di (float32);
+    for bfloat16 each row's (lse log2 e, Di) pair, every head's rows
+    padded to a multiple of 64, then dK and dV per query head before each
+    GQA group is summed."""
+    if dtype == torch.float32:
+        return b * hq * s
+    return 2 * b * hq * (-(-s // 64) * 64) + 2 * b * hq * s * d
+
+
 def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                              out: torch.Tensor, lse: torch.Tensor, d_out: torch.Tensor, *,
                              causal: bool = True):
@@ -220,10 +232,11 @@ def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return torch.zeros_like(q), torch.zeros_like(k), torch.zeros_like(v)
     qp, kp, vp, op, dop = _padded((q, k, v, out, d_out), d)
     dq, dk, dv = torch.empty_like(qp), torch.empty_like(kp), torch.empty_like(vp)
-    di = torch.empty((b, hq, s), dtype=torch.float32, device=dev)
+    scratch = torch.empty(_bwd_scratch_floats(q.dtype, b, hq, s, qp.shape[3]),
+                          dtype=torch.float32, device=dev)
     err = nvcc.load(BWD_SOURCE, declare_backward, FLAGS).flash_attention_bwd_launch(
         qp.data_ptr(), kp.data_ptr(), vp.data_ptr(), op.data_ptr(), dop.data_ptr(),
-        lse.data_ptr(), di.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+        lse.data_ptr(), scratch.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
         b, hq, hkv, s, qp.shape[3], _DTYPES[q.dtype], 1.0 / math.sqrt(d),
         int(bool(causal)), torch.cuda.current_stream(dev).cuda_stream)
     nvcc.raise_on_error(err, "flash_attention_bwd")

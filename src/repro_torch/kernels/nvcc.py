@@ -3,7 +3,8 @@ into a shared library with a plain C interface, loaded with ctypes.
 
 Each library is built at first use into ``build/repro_torch`` under the
 repository root (``REPRO_TORCH_BUILD_DIR`` overrides it), named by the
-hash of its source and the flags, so an edited source never loads a
+hash of its source, the ``.cuh`` headers it includes from its own
+directory and the flags, so an edited source or header never loads a
 stale build.  Every source takes ``NVCC_FLAGS`` unless its module passes
 its own (the attention source drops ``-fmad=false``: it is held to a
 tolerance, the RMI sources bit for bit).  The compiler's resource report (``-Xptxas -v``) lands
@@ -16,6 +17,7 @@ import ctypes
 import hashlib
 import os
 import pathlib
+import re
 import shutil
 import subprocess
 import threading
@@ -48,10 +50,24 @@ def _nvcc() -> str:
     return os.path.join(home, "bin", "nvcc")
 
 
+_INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+\.cuh)"', re.M)
+
+
+def _included_headers(source: pathlib.Path, seen=None) -> list:
+    """The ``.cuh`` files ``source`` includes (``#include "name.cuh"``,
+    beside it), and theirs, each once in the order first met."""
+    seen = [] if seen is None else seen
+    for name in _INCLUDE.findall(source.read_bytes()):
+        header = source.parent / name.decode()
+        if header.is_file() and header not in seen:
+            seen.append(header)
+            _included_headers(header, seen)
+    return seen
+
+
 def library_path(source: pathlib.Path, flags=NVCC_FLAGS) -> pathlib.Path:
-    digest = hashlib.sha256(
-        source.read_bytes() + " ".join(flags).encode()
-    ).hexdigest()[:16]
+    text = source.read_bytes() + b"".join(h.read_bytes() for h in _included_headers(source))
+    digest = hashlib.sha256(text + " ".join(flags).encode()).hexdigest()[:16]
     return build_dir() / f"{source.stem}-{digest}.so"
 
 

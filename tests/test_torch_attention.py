@@ -207,6 +207,9 @@ def test_kernel_source_names_what_it_replaces_and_builds_with_contraction():
     assert "src/repro/kernels/flash_attention.py:83" in src
     assert "-1e30f" in src and "1e-30f" in src
     # the bf16 instances: both products on the tensor cores, tiles by TMA
+    # (the Hopper pieces live in sm90.cuh, which the backward shares)
+    assert '#include "sm90.cuh"' in src
+    src += "".join(h.read_text() for h in nvcc._included_headers(fa.SOURCE))
     assert "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16" in src
     assert "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16" in src
     assert "cp.async.bulk.tensor.3d" in src and "cuTensorMapEncodeTiled" in src
@@ -280,6 +283,63 @@ def test_tensor_core_numerics_stay_within_one_bf16_rounding(split):
         assert out == 0
     else:
         assert out > 0.05 * got.numel()
+
+
+def _emulate_tensor_core_backward(q, k, v, out, lse, d_out, *, causal, split):
+    """The bf16 backward kernels' rounding points in plain torch: bf16
+    operands, float32 products and sums (a product of two bf16 values is
+    exact in float32), P and dS fed to the dV, dK and dQ products as
+    bf16(x) plus, with ``split``, bf16(x - bf16(x)) (dS from P's two
+    halves, as the dK/dV kernel forms it); dK and dV per query head, then
+    summed over each group; every output rounded to bf16 once."""
+    b, hq, s, d = q.shape
+    group = hq // k.shape[1]
+    scale = np.float32(1.0 / np.sqrt(d))
+    kr, vr = (torch.repeat_interleave(t, group, 1).float() for t in (k, v))
+    p = torch.exp(torch.einsum("bhqd,bhkd->bhqk", q.float(), kr) * scale - lse[..., None])
+    if causal:
+        p = torch.where(torch.tril(torch.ones((s, s), dtype=torch.bool)), p, torch.zeros(()))
+    dof = d_out.float()
+    di = (dof * out.float()).sum(-1, keepdim=True)
+    dp = torch.einsum("bhqd,bhkd->bhqk", dof, vr)
+
+    def halves(x):
+        hi = x.to(torch.bfloat16).float()
+        return hi + (x - hi).to(torch.bfloat16).float() if split else hi
+
+    pv = halves(p)
+    ds = halves((pv if split else p) * (dp - di))
+    dv = torch.einsum("bhqk,bhqd->bhkd", pv, dof)
+    dk = torch.einsum("bhqk,bhqd->bhkd", ds, q.float()) * scale
+    dq = torch.einsum("bhqk,bhkd->bhqd", ds, kr) * scale
+
+    def by_group(t):
+        return t.reshape(b, k.shape[1], group, s, d).sum(2)
+
+    return dq.to(q.dtype), by_group(dk).to(k.dtype), by_group(dv).to(v.dtype)
+
+
+@pytest.mark.parametrize("shape,causal", [((1, 4, 2, 256, 64), True), ((1, 4, 1, 77, 32), False)],
+                         ids=["1x4x2x256x64-causal", "1x4x1x77x32-full"])
+@pytest.mark.parametrize("split", [True, False], ids=["p-ds-split-hi-lo", "p-ds-single-bf16"])
+def test_tensor_core_backward_numerics_split_p_and_ds(shape, causal, split):
+    """Split P and dS keep every gradient within a relative L2 error of
+    5e-4 of the plain backward (float32 inside, its outputs rounded to
+    bf16 once) on the same bf16 inputs; a single bf16 P and dS (the
+    textbook kernel) lands above 1e-3, beside chip_smoke.py's bound of
+    1e-3 for the card."""
+    _, (q, k, v) = _qkv(shape, "bfloat16", seed=3)
+    out, lse = ref.mha_reference_lse(q.float(), k.float(), v.float(), causal=causal)
+    out = out.to(torch.bfloat16)
+    rng = np.random.default_rng(4)
+    d_out = torch.from_numpy(rng.standard_normal(q.shape).astype(np.float32)).to(torch.bfloat16)
+    want = ref.mha_backward_reference(q, k, v, out, lse, d_out, causal=causal)
+    got = _emulate_tensor_core_backward(q, k, v, out, lse, d_out, causal=causal, split=split)
+    rel = [float((g.float() - w.float()).norm() / w.float().norm()) for g, w in zip(got, want)]
+    if split:
+        assert max(rel) <= 5e-4, rel
+    else:
+        assert min(rel) > 1e-3, rel
 
 
 def test_chunked_attention_on_the_cpu_stays_differentiable():
@@ -425,12 +485,32 @@ def test_backward_source_names_what_it_computes_and_uses_no_atomics():
     assert "src/repro/models/attention.py:33" in src
     assert "src/repro/train/train_step.py:34" in src
     assert "atomic" not in src.replace("no atomics", "")
-    for kernel in ("attention_bwd_prepass", "attention_dkdv_kernel", "attention_dq_kernel"):
+    for kernel in ("attention_bwd_prepass", "attention_dkdv_kernel", "attention_dq_kernel",
+                   "attention_bwd_prepass_pairs", "attention_dkdv_bf16_kernel",
+                   "attention_group_sum", "attention_dq_bf16_kernel"):
         assert f"{kernel}(" in src
+    # the bf16 kernels: wgmma fed by TMA, through the forward's pieces
+    assert '#include "sm90.cuh"' in src and "tma_load(" in src and "mma_rs(" in src
     # its own library: the forward's build hash does not depend on it
     from repro_torch.kernels import nvcc
     assert fa.library_path() == nvcc.library_path(fa.SOURCE, fa.FLAGS)
     assert nvcc.library_path(fa.BWD_SOURCE, fa.FLAGS).name.startswith("flash_attention_bwd-")
+
+
+def test_library_hash_covers_included_headers(tmp_path):
+    """A source's library is named by its bytes and those of the headers
+    it includes: an edited header never loads a stale build."""
+    from repro_torch.kernels import nvcc
+    for name in (fa.BWD_SOURCE.name, "sm90.cuh"):
+        (tmp_path / name).write_bytes((fa.BWD_SOURCE.parent / name).read_bytes())
+    src = tmp_path / fa.BWD_SOURCE.name
+    assert nvcc._included_headers(src) == [tmp_path / "sm90.cuh"]
+    before = nvcc.library_path(src, fa.FLAGS)
+    assert before == nvcc.library_path(fa.BWD_SOURCE, fa.FLAGS)
+    header = tmp_path / "sm90.cuh"
+    header.write_text(header.read_text() + "\n// edited\n")
+    assert nvcc.library_path(src, fa.FLAGS) != before
+    assert nvcc.library_path(src, fa.FLAGS).name.startswith("flash_attention_bwd-")
 
 
 def test_padded_head_dim_runs_through_the_kernel_path():

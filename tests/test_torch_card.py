@@ -21,8 +21,9 @@ so they run where the card is:
   (equal to ``np.searchsorted``), the learned Bloom's GRU logits, and
   the pipeline's document lookup (equal to the oracle).
 * The attention gradient (B9's backward kernel): against
-  `ref.mha_backward_reference` on a small matrix, bit-identical on a
-  repeat launch, and one reduced yi-6b train step on the card (both
+  `ref.mha_backward_reference` on a small matrix (bf16, the tensor-core
+  kernels, also within 1e-3 relative L2), bit-identical on a repeat
+  launch, and one reduced yi-6b train step on the card (both
   attention kernels, D = 16 zero-padded to 32) against the same step on
   the CPU.
 
@@ -394,6 +395,10 @@ def test_attention_backward_kernel_matches_twin_and_repeats_bit_for_bit(dtype, t
                 assert x.dtype == dt and torch.equal(x, y)
                 err = float((x.float() - w.float()).abs().max())
                 assert err <= tol * float(w.float().abs().max()), (b, hq, hkv, s, d, causal)
+                if dtype == "bfloat16":
+                    # P and dS split into bf16 halves: within 1e-3 relative L2
+                    rel = float((x.float() - w.float()).norm() / w.float().norm())
+                    assert rel <= 1e-3, (b, hq, hkv, s, d, causal, rel)
 
 
 @pytest.mark.cuda
