@@ -21,10 +21,18 @@ gradients from the same output, log-sum-exp and output gradient, held
 to each other at `chip_smoke.py`'s bf16 tolerance (max |Δ| <= 2e-2 x
 max |parent|, relative L2 <= 1e-2), not bit for bit (the designs sum in
 other orders).  Times are CUDA events, kernels in turns (parent, change,
-change, parent, parent, change); the change's backward is also split by
-launch (its four kernels' mean device time under `torch.profiler`).  Prints JSON lines; the last is
-``{"ok": true, ...}``.  Without a card it exits non-zero before printing
-any result.
+change, parent, parent, change; both trees the same repetitions); the
+change's backward is also split by launch (its four kernels' mean device
+time under `torch.profiler`).
+
+The control of `chip_smoke.py`'s relative L2 bound on the bf16 gradient
+(`ATTN_BWD_SPLIT_REL_L2`): this tree's backward built as well with
+``-DATTN_BWD_SINGLE_BF16`` (P and dS fed to dV, dK and dQ as one bf16
+value, the lo products left out), both builds held against the plain
+twin at S = 77, 1,000 and the training shape; the row gives each
+gradient's relative L2 error beside the bound.  Prints JSON lines; the
+last is ``{"ok": true, ...}``.  Without a card it exits non-zero before
+printing any result.
 """
 
 from __future__ import annotations
@@ -49,6 +57,8 @@ PARENT_ARGTYPES = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _P]
 # q, k, v, out, d_out, lse, di, dq, dk, dv, B, Hq, Hkv, S, D, dtype, scale, causal, stream
 PARENT_BWD_ARGTYPES = [_P] * 10 + [_I] * 6 + [_F, _I, _P]
 TURNS = ("parent", "change", "change", "parent", "parent", "change")
+# (B, Hq, Hkv, S, D, causal) of the control, the last the training shape
+CONTROL_SHAPES = ((1, 4, 2, 77, 64, False), (1, 8, 2, 1000, 128, True), (*BWD_SHAPE, True))
 
 
 def emit(obj) -> None:
@@ -59,8 +69,50 @@ def _in_turns(parent, change, reps):
     times = {"parent": [], "change": []}
     for who in TURNS:
         times[who].append(cs.time_ms(parent if who == "parent" else change,
-                                     reps=reps[who], warmup=3))
+                                     reps=reps, warmup=3))
     return times
+
+
+def _control(dev, g, control_lib):
+    """Each gradient's relative L2 error against the plain twin, of this
+    tree's bf16 backward and of its single-bf16 build, at
+    `CONTROL_SHAPES`."""
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import nvcc, ref
+    rows = []
+    for b, hq, hkv, s, d, causal in CONTROL_SHAPES:
+        q, k, v = (torch.randn((b, h, s, d), generator=g, device=dev).to(torch.bfloat16)
+                   for h in (hq, hkv, hkv))
+        with torch.no_grad():
+            out, lse = fa.flash_attention_cuda(q, k, v, causal=causal, return_lse=True)
+        d_out = torch.randn(out.shape, generator=g, device=dev).to(torch.bfloat16)
+        split = fa.flash_attention_bwd_cuda(q, k, v, out, lse, d_out, causal=causal)
+        single = [torch.empty_like(t) for t in (q, k, v)]
+        scratch = torch.empty(fa._bwd_scratch_floats(q.dtype, b, hq, s, d),
+                              dtype=torch.float32, device=dev)
+        err = control_lib.flash_attention_bwd_launch(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), d_out.data_ptr(),
+            lse.data_ptr(), scratch.data_ptr(), *(t.data_ptr() for t in single),
+            b, hq, hkv, s, d, 1, 1.0 / math.sqrt(d), int(causal),
+            torch.cuda.current_stream(dev).cuda_stream)
+        nvcc.raise_on_error(err, "single-bf16 flash_attention_bwd")
+        want = ref.mha_backward_reference(q, k, v, out, lse, d_out, causal=causal)
+        torch.cuda.synchronize()
+
+        def rel_l2(got):
+            return {tag: float((x.float() - w.float()).norm() / w.float().norm())
+                    for tag, x, w in zip(("dq", "dk", "dv"), got, want)}
+
+        row = {"shape": [b, hq, hkv, s, d], "causal": causal,
+               "limit": cs.ATTN_BWD_SPLIT_REL_L2, "split_rel_l2": rel_l2(split),
+               "single_rel_l2": rel_l2(single)}
+        row["split_within"] = max(row["split_rel_l2"].values()) <= row["limit"]
+        row["single_over"] = min(row["single_rel_l2"].values()) > row["limit"]
+        cs.check(row["split_within"], f"bf16 backward over its relative L2 bound: {row}")
+        rows.append(row)
+        del q, k, v, out, lse, d_out, split, single, scratch, want
+    return rows
 
 
 def _by_launch(fn, reps):
@@ -108,14 +160,18 @@ def main(argv=None) -> int:
         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
     sources = {"parent": parent_src, "change": fa.SOURCE, "parent_bwd": parent_bwd_src,
                "change_bwd": fa.BWD_SOURCE}
-    with ThreadPoolExecutor(len(sources)) as pool:
-        list(pool.map(lambda src: nvcc.build(src, fa.FLAGS), sources.values()))
+    control_flags = (*fa.FLAGS, "-DATTN_BWD_SINGLE_BF16")
+    builds = [(src, fa.FLAGS) for src in sources.values()] + [(fa.BWD_SOURCE, control_flags)]
+    with ThreadPoolExecutor(len(builds)) as pool:
+        list(pool.map(lambda job: nvcc.build(*job), builds))
     lib = ctypes.CDLL(str(nvcc.library_path(parent_src, fa.FLAGS)))
     lib.flash_attention_launch.argtypes = PARENT_ARGTYPES
     lib.flash_attention_launch.restype = _I
     bwd_lib = ctypes.CDLL(str(nvcc.library_path(parent_bwd_src, fa.FLAGS)))
     bwd_lib.flash_attention_bwd_launch.argtypes = PARENT_BWD_ARGTYPES
     bwd_lib.flash_attention_bwd_launch.restype = _I
+    control_lib = ctypes.CDLL(str(nvcc.library_path(fa.BWD_SOURCE, control_flags)))
+    fa.declare_backward(control_lib)
     for name, src in sources.items():
         log = nvcc.library_path(src, fa.FLAGS).with_suffix(".log")
         emit({"phase": "build", "tree": name, "ptxas": cs.ptxas_entries(log)})
@@ -140,7 +196,7 @@ def main(argv=None) -> int:
         parent()
         bits_equal = bool(torch.equal(out, change()))
         cs.check(bits_equal, f"parent and change differ at {b, hq, hkv, s, d}")
-        times = _in_turns(parent, change, {"parent": 50, "change": 50})
+        times = _in_turns(parent, change, 50)
         row = {"kernel": "flash_attention_cuda", "shape": [b, hq, hkv, s, d],
                "dtype": "bfloat16", "causal": True, "bits_equal": bits_equal,
                "parent_ms": times["parent"], "change_ms": times["change"],
@@ -181,7 +237,7 @@ def main(argv=None) -> int:
         cs.check(held[tag]["max_abs_err"] <= tol * held[tag]["max_abs_parent"]
                  and held[tag]["rel_l2"] <= rel_tol,
                  f"backward parent and change differ in {tag}: {held[tag]}")
-    times = _in_turns(parent_bwd, change_bwd, {"parent": 5, "change": 20})
+    times = _in_turns(parent_bwd, change_bwd, 20)
     row = {"kernel": "flash_attention_bwd_cuda", "shape": [b, hq, hkv, s, d],
            "dtype": "bfloat16", "causal": True, "vs_parent": held,
            "parent_ms": times["parent"], "change_ms": times["change"],
@@ -189,11 +245,14 @@ def main(argv=None) -> int:
            "change_launch_ms": _by_launch(change_bwd, reps=5)}
     emit(row)
     rows.append(row)
+    del q, k, v, out, lse, d_out, grads, di, got
+    control = _control(dev, g, control_lib)
+    emit({"kernel": "flash_attention_bwd_cuda", "control": control})
     print(smi, flush=True)
     emit({"ok": True, "card": smi, "torch": torch.__version__,
           "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                      "count": torch.cuda.device_count()},
-          "rows": rows})
+          "rows": rows, "control": control})
     return 0
 
 

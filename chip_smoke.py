@@ -2147,20 +2147,14 @@ def ptxas_entries(log_path):
     return out
 
 
-BWD_KERNELS = ("attention_bwd_prepass", "attention_bwd_prepass_pairs", "attention_dkdv_kernel",
-               "attention_dq_kernel", "attention_dkdv_bf16_kernel", "attention_group_sum",
-               "attention_dq_bf16_kernel")
-
-
 def _bwd_instance(mangled):
     """`attention_dkdv_bf16_kernel<128>`, `attention_group_sum` ... of a
-    mangled entry name (each name carries its length before it)."""
-    for base in BWD_KERNELS:
-        at = mangled.find(f"{len(base)}{base}")
-        if at >= 0:
-            d = re.match(r"ILi(\d+)E", mangled[at + len(f"{len(base)}{base}"):])
-            return f"{base}<{d.group(1)}>" if d else base
-    return mangled
+    mangled entry name: the name after its length, up to the nested
+    name's end or its int template argument."""
+    m = re.search(r"\d(attention_[a-z0-9_]+)(?:ILi(\d+)E)?", mangled)
+    if not m:
+        return mangled
+    return f"{m[1]}<{m[2]}>" if m[2] else m[1]
 
 
 def attention_ptxas():
@@ -2288,7 +2282,7 @@ def time_attention_backward(dev, seed):
         d_out = torch.randn(out.shape, generator=g, device=dev).to(torch.bfloat16)
         row = {"shape": [b, hq, hkv, s, d], "dtype": "bfloat16", "causal": True,
                "ms": time_ms(lambda: flash_attention_bwd_cuda(q, k, v, out, lse, d_out),
-                             reps=20, warmup=3),
+                             reps=5, warmup=1),
                "plain_ms": time_ms(lambda: ref.mha_backward_reference(
                    q, k, v, out, lse, d_out), reps=2, warmup=1),
                "forward_ms": time_ms(lambda: flash_attention_cuda(q, k, v), reps=10),
@@ -3911,8 +3905,6 @@ def main(argv=None) -> int:
          "bound_ms": trained["timing"]["bound_ms"], "bound_by": trained["timing"]["bound_by"],
          "library_ms": trained["timing"]["library_ms"],
          "library_backend": trained["timing"]["library_backend"],
-         "design_floor_ms": trained["timing"]["design_floor_ms"],
-         "earlier_ms": trained["timing"]["earlier_ms"],
          "ptxas": attn_ptxas["backward"]},
     ], "batch": big["batch"], "scan_rows": sbig["rows"], "n": single["n"], "shards": slook["S"],
         "sharded_scan_rows": sscan["rows"], "attention_shape": lm["timing"]["shape"],

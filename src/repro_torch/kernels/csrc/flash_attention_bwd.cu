@@ -507,6 +507,15 @@ constexpr int STAGES = 4;          // streamed tiles held
 constexpr int AHEAD = STAGES - 2;  // tiles loaded ahead of the one in use
 constexpr int TC_THREADS = 256;    // two warpgroups of 64 rows
 constexpr int ROW_PAD = 64;        // each head's (lse, Di) rows padded to a multiple
+// whether P and dS feed dV, dK and dQ as both bf16 halves; built with
+// -DATTN_BWD_SINGLE_BF16 the lo products are left out, the textbook
+// single-bf16 design (a control of the card's relative L2 bound:
+// attention_pair.py)
+#ifdef ATTN_BWD_SINGLE_BF16
+constexpr bool LO_HALVES = false;
+#else
+constexpr bool LO_HALVES = true;
+#endif
 
 // dK/dV: K and V of 128 keys, then STAGES x (Q, dO) of QT queries, then
 // STAGES x the (lse log2 e, Di) pairs of those queries, then the barriers
@@ -711,7 +720,7 @@ attention_dkdv_bf16_kernel(const __grid_constant__ CUtensorMap qmap,
     for (int kk = 0; kk < QT / 16; ++kk) {
       const uint64_t dx = desc128(x + kk * 16 * 128, L::Q_CHUNK, 1024);
       mma_rs(acc, hi + 4 * kk, dx);
-      mma_rs(acc, lo + 4 * kk, dx);
+      if constexpr (LO_HALVES) mma_rs(acc, lo + 4 * kk, dx);
     }
   };
   // P^T = exp(S^T scale - lse) of the tile at queries q0 .., masked (only
@@ -944,7 +953,7 @@ attention_dq_bf16_kernel(const __grid_constant__ CUtensorMap qmap,
     for (int kk = 0; kk < KS / 16; ++kk) {
       const uint64_t dx = desc128(skt + kk * 16 * 128, L::KV_CHUNK, 1024);
       mma_rs(dqa, shi + 4 * kk, dx);
-      mma_rs(dqa, slo + 4 * kk, dx);
+      if constexpr (LO_HALVES) mma_rs(dqa, slo + 4 * kk, dx);
     }
   };
   // dS = P (dP - Di), P = exp(S scale - lse), masked (only on diagonal and
