@@ -82,7 +82,30 @@ is non-zero:
                optimizer split (CUDA events) and peak memory; (d)
                `launch.train` on the reduced yi-6b, 12 steps
                checkpointed every 5, then resumed to 16.  Released
-               before phase 3;
+               before lm_moe;
+  lm_moe     — the MoE family at full width (bf16, random weights from a
+               seeded generator on the card), each model released before
+               the next: (a) olmoe-1b-7b (16 layers, 64 experts top-8,
+               the `cdf` dispatch), `prefill` of 2 x 4,096 tokens three
+               times (one attention launch a layer, no plain attention),
+               tokens/s and peak memory; (b) layer 0's dispatch at that
+               shape, `cdf` and `sort`, on the card against the CPU from
+               the same routing (buffers, dest, st, keep bit for bit),
+               `moe_ffn` within 2e-2 x max and a relative L2 of 1e-2 of
+               the float32 products under the same dispatch, and
+               bit-identical on a repeat; (c) prefill against 64
+               sequential `decode_step`s at full depth with capacity
+               factor E/k (nothing drops; ROADMAP queue C 24): same top-1,
+               max |Δlogit| <= 0.05 max |logit|; (d) each layer's drop
+               fraction under `cdf` and `sort` on olmoe's own scores, and
+               `benchmarks/moe_dispatch.py`'s table (E 32, K 4, T 65,536;
+               sort, cdf, random) through the port's `cdf_dispatch_slots`
+               on the card; (e) `launch.serve --arch olmoe-1b-7b` (16
+               requests of 32 new tokens, 8 slots, max_len 512; the page
+               table held against the binary baseline at tick 20); (f)
+               moonshot-v1-16b-a3b (48 layers, 64 experts top-6, `sort`)
+               prefill as (a); (g) the reduced olmoe's loss, aux loss and
+               gradients on the card against the CPU (float32);
   3. main path — `IndexService(strategy="cuda_fused", bloom_fpr=0.01)`
                over gen_maps(n) with a zero payload: every stored key at
                its float32 lower bound, then 300k inserts (values
@@ -2324,6 +2347,11 @@ def _lm_tokens(rng, cfg, b, s, dev):
                            device=dev)
 
 
+def _param_count(params):
+    return sum(t.numel() for t in [params["embed"], params["final_norm"]]
+               + [w for blk in params["blocks"] for w in blk.values()])
+
+
 def _prefill_vs_decode(api, params, tokens):
     """Prefill's last-position logits and those after feeding the same
     tokens one decode_step at a time."""
@@ -2386,8 +2414,7 @@ def run_lm(args, dev, card):
     params = api.init(torch.Generator(device=dev).manual_seed(args.seed))
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
-    n_params = sum(t.numel() for t in [params["embed"], params["final_norm"]]
-                   + [w for blk in params["blocks"] for w in blk.values()])
+    n_params = _param_count(params)
     tokens = _lm_tokens(rng, cfg, b, s, dev)
 
     # ---- the main path: prefill, every layer through the kernel --------
@@ -2567,11 +2594,11 @@ def count_plain_attention():
             setattr(mod, name, fn)
 
 
-def check_model_gradient(dev, seed):
-    """(b): the reduced yi-6b's loss and gradients (float32, TF32 off) on
-    the card, through both attention kernels, against the CPU's plain
-    loop: the loss within 1e-5 relative, each leaf within 1e-4 x its
-    max."""
+def check_model_gradient(dev, seed, arch=LM_ARCH):
+    """(b): the reduced ``arch``'s loss and gradients (float32, TF32 off)
+    on the card, through both attention kernels, against the CPU's plain
+    loop: the loss within 1e-5 relative, the MoE aux loss within 1e-6
+    relative, each leaf within 1e-4 x its max."""
     import dataclasses
     import torch
     from repro_torch.configs import get_arch
@@ -2580,7 +2607,7 @@ def check_model_gradient(dev, seed):
     from repro_torch.train.train_step import loss_and_grads
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    cfg = dataclasses.replace(get_arch(LM_ARCH, reduced=True), dtype="float32")
+    cfg = dataclasses.replace(get_arch(arch, reduced=True), dtype="float32")
     toks = np.random.default_rng((seed, 3)).integers(0, cfg.vocab_size, (4, 65))
     params = get_model(cfg, "cpu").init(torch.Generator().manual_seed(seed))
     got = {}
@@ -2588,19 +2615,23 @@ def check_model_gradient(dev, seed):
     for where in ("cpu", dev):
         batch = {"tokens": torch.as_tensor(toks[:, :-1], dtype=torch.int32, device=where),
                  "labels": torch.as_tensor(toks[:, 1:], dtype=torch.int32, device=where)}
-        loss, _, grads = loss_and_grads(get_model(cfg, where).loss,
-                                        tree_map(lambda t: t.to(where), params), batch)
-        got[str(where)] = (float(loss), [g.float().cpu() for g in tree_leaves(grads)])
+        loss, metrics, grads = loss_and_grads(get_model(cfg, where).loss,
+                                              tree_map(lambda t: t.to(where), params), batch)
+        got[str(where)] = (float(loss), [g.float().cpu() for g in tree_leaves(grads)],
+                           float(metrics["aux"]))
     launches = read_counts()
-    (loss_cpu, grads_cpu), (loss_card, grads_card) = got["cpu"], got[str(dev)]
+    (loss_cpu, grads_cpu, aux_cpu), (loss_card, grads_card, aux_card) = (got["cpu"],
+                                                                         got[str(dev)])
     leaf_err = max(float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
                    for a, b in zip(grads_card, grads_cpu))
     out = {"arch": cfg.name, "dtype": "float32", "tf32": False, "loss_cpu": loss_cpu,
            "loss_card": loss_card, "loss_rel_err": abs(loss_card - loss_cpu) / abs(loss_cpu),
-           "max_leaf_err_over_max": leaf_err,
+           "max_leaf_err_over_max": leaf_err, "aux_cpu": aux_cpu, "aux_card": aux_card,
+           "aux_rel_err": abs(aux_card - aux_cpu) / max(abs(aux_cpu), 1e-30),
            "attention_launches": launches["flash_attention_cuda"],
            "attention_bwd_launches": launches["flash_attention_bwd_cuda"]}
     out["ok"] = (out["loss_rel_err"] <= 1e-5 and leaf_err <= 1e-4
+                 and out["aux_rel_err"] <= 1e-6
                  and out["attention_launches"] == 2 * cfg.num_layers
                  and out["attention_bwd_launches"] == cfg.num_layers)
     return out
@@ -2637,8 +2668,7 @@ def run_full_width_training(args, dev, card):
     pipeline = DataPipeline(corpus, global_batch=TRAIN_BATCH, seq_len=seq)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
-    n_params = sum(t.numel() for t in [params["embed"], params["final_norm"]]
-                   + [w for blk in params["blocks"] for w in blk.values()])
+    n_params = _param_count(params)
 
     opt_events = []
     real_update = ts.adamw_update
@@ -2779,6 +2809,334 @@ def run_lm_train(args, dev, card):
     return {"worst": worst, "record_ok": all(r["within_tol"] for r in record),
             "max_abs_err": max(r[t]["max_abs_err"] for r in record for t in ("dq", "dk", "dv")),
             "timing": timing, "full": full, "seconds": time.perf_counter() - t_phase}
+
+
+# ---------------------------------------------------------------------------
+# lm_moe: the MoE family (olmoe-1b-7b, moonshot-v1-16b-a3b) at full width
+# ---------------------------------------------------------------------------
+
+MOE_ARCH, MOE_BIG_ARCH = "olmoe-1b-7b", "moonshot-v1-16b-a3b"
+MOE_CHECK_SEQ = 64               # (c): prompts fed to sequential decode
+MOE_REL_L2 = 1e-2                # (b): bf16 against the float32 products, same dispatch
+MOE_SYNTH = dict(e=32, k=4, t=65_536, capacity_factors=(1.0, 1.25, 1.5))  # (d)
+MOE_SERVE_ARGV = ["--arch", MOE_ARCH] + SERVE_ARGV[2:]
+
+
+def moe_prefill(api, params, tokens, calls=3):
+    """`calls` prefills with the launch counts and the dispatch ledger
+    zeroed first: (seconds, attention launches, ledger rows that reached
+    plain attention, peak bytes, logits, cache)."""
+    import torch
+    from repro_torch.kernels import ops
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_dispatch_stats()
+    reset_counts()
+    times = []
+    for _ in range(calls):
+        t0 = time.perf_counter()
+        logits, cache = api.prefill(params, {"tokens": tokens})
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    plain = [r for r in ops.dispatch_summary()["rows"]
+             if r["op"] == "attention" and r["path"] != "kernel"]
+    return (times, read_counts()["flash_attention_cuda"], plain,
+            torch.cuda.max_memory_allocated(), logits, cache)
+
+
+def check_moe_prefill(cfg, b, s, out, tag):
+    """The prefill's checks: one attention launch a layer a call, no plain
+    attention, finite logits, the cache's shape."""
+    import torch
+    from repro_torch.models import transformer
+    times, launches, plain, _, logits, cache = out
+    check(launches == len(times) * cfg.num_layers,
+          f"{tag}: {launches} attention launches, want {len(times)} x {cfg.num_layers}")
+    check(not plain, f"{tag}: prefill reached plain attention: {plain}")
+    check(tuple(logits.shape) == (b, cfg.padded_vocab)
+          and bool(torch.isfinite(logits).all()), f"{tag}: prefill logits not finite")
+    check(tuple(cache["k"].shape) == (cfg.num_layers, b, cfg.num_kv_heads, s,
+                                      transformer._head_dim(cfg))
+          and cache["len"] == s, f"{tag}: prefill cache shape")
+
+
+def _layer0_routing(cfg, params, tokens):
+    """Layer 0's FFN input (T, D) and its routing (scores, gate, ids)."""
+    import torch
+    from repro_torch.models import layers, moe, transformer
+    p0 = params["blocks"][0]
+    positions = torch.arange(tokens.shape[1], device=tokens.device)
+    x, _ = transformer._attn_train(cfg, p0, layers.embed(tokens, params["embed"]), positions)
+    h = layers.rmsnorm(x, p0["ln2"]).reshape(-1, cfg.d_model)
+    return (h, *moe._route(h, p0["router"], cfg.experts_per_token))
+
+
+def moe_dispatch_card_vs_cpu(cfg, params, tokens):
+    """(b): layer 0's dispatch at the prefill shape, `cdf` and `sort`, on
+    the card against the CPU from the same (scores, gate, ids): dest, st,
+    keep and the buffers bit for bit; `moe_ffn` in bf16 within 2e-2 x max
+    and a relative L2 of 1e-2 of the float32 products and combine under
+    the same dispatch (TF32 off), and bit-identical on a repeat that runs
+    with any host synchronisation an error."""
+    import torch
+    from repro_torch.models import moe
+    torch.backends.cuda.matmul.allow_tf32 = False
+    p0 = params["blocks"][0]
+    h, scores, gate, eidx = _layer0_routing(cfg, params, tokens)
+    t, e, k = h.shape[0], cfg.num_experts, cfg.experts_per_token
+    capacity = max(1, int(t * k / e * cfg.capacity_factor))
+    cpu_in = [a.cpu() for a in (h, scores, gate, eidx)]
+    weights = [p0[n] for n in ("we_gate", "we_up", "we_down")]
+    out = {"tokens": t, "capacity": capacity}
+    for dispatch in ("cdf", "sort"):
+        kw = dict(num_experts=e, capacity=capacity, dispatch=dispatch)
+        card = moe._dispatch_one_group(h, scores, gate, eidx, **kw)
+        host = moe._dispatch_one_group(*cpu_in, **kw)
+        equal = {n: bool(torch.equal(a.cpu(), b_)) for n, a, b_ in
+                 zip(("buffers", "dest", "st", "sg"), card, host)}
+        equal["keep"] = bool(torch.equal((card[3] != 0).cpu(), host[3] != 0))
+        buf, dest, st, sg = card
+        y, aux = moe.moe_ffn(h[None], p0["router"], *weights, experts_per_token=k,
+                             capacity_factor=cfg.capacity_factor, dispatch=dispatch)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")    # no read-back to the host inside
+        try:
+            y2, aux2 = moe.moe_ffn(h[None], p0["router"], *weights, experts_per_token=k,
+                                   capacity_factor=cfg.capacity_factor, dispatch=dispatch)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        y32 = moe._experts(buf[None].float(), *(w.float() for w in weights))[0]
+        y32 = moe._combine_one(y32.reshape(e * capacity, -1), dest, st, sg.float(), t)
+        diff = y[0].float() - y32
+        row = {"equal": equal, "drop_frac": float(aux["moe_drop_frac"]),
+               "max_abs_err": float(diff.abs().max()), "max_abs_f32": float(y32.abs().max()),
+               "rel_l2_err": float(diff.norm() / y32.norm()),
+               "repeat_bits": bool(torch.equal(y, y2)) and all(
+                   bool(torch.equal(aux[n], aux2[n])) for n in aux)}
+        row["ok"] = (all(equal.values()) and row["repeat_bits"]
+                     and row["max_abs_err"] <= ATTN_TOL["bfloat16"] * row["max_abs_f32"]
+                     and row["rel_l2_err"] <= MOE_REL_L2)
+        out[dispatch] = row
+        del card, host, y, y2, y32, diff
+    return out
+
+
+def moe_layer_drops(cfg, params, tokens):
+    """(d): each layer's drop fraction under `cdf` and `sort` on olmoe's
+    own router scores at the prefill shape (the model's hidden states,
+    its own dispatch carrying them to the next layer)."""
+    import torch
+    from repro_torch.models import layers, moe, transformer
+    x = layers.embed(tokens, params["embed"])
+    positions = torch.arange(tokens.shape[1], device=tokens.device)
+    t, e, k = x.shape[0] * x.shape[1], cfg.num_experts, cfg.experts_per_token
+    capacity = max(1, int(t * k / e * cfg.capacity_factor))
+    drops = {"cdf": [], "sort": []}
+    for p in params["blocks"]:
+        x, _ = transformer._attn_train(cfg, p, x, positions)
+        h = layers.rmsnorm(x, p["ln2"]).reshape(t, -1)
+        scores, gate, eidx = moe._route(h, p["router"], k)
+        for dispatch in drops:
+            sg = moe._dispatch_one_group(h, scores, gate, eidx, num_experts=e,
+                                         capacity=capacity, dispatch=dispatch)[3]
+            drops[dispatch].append(sg)
+        x, _ = transformer._ffn(cfg, p, x)
+    drops = {n: [1.0 - float((sg > 0).float().mean()) for sg in v] for n, v in drops.items()}
+    return {"capacity_factor": cfg.capacity_factor, "capacity": capacity, "per_layer": drops,
+            "mean": {n: sum(v) / len(v) for n, v in drops.items()}}
+
+
+def _collision_drop(dest, slots):
+    """Share of entries that lose their slot to an earlier one."""
+    import torch
+    entry = torch.arange(dest.numel(), device=dest.device)
+    winner = torch.full((slots,), dest.numel(), dtype=torch.int64, device=dest.device)
+    winner.scatter_reduce_(0, dest, entry, "amin", include_self=True)
+    return 1.0 - float((winner[dest] == entry).double().mean())
+
+
+def moe_synthetic_drops(dev):
+    """(d): `benchmarks/moe_dispatch.py`'s table (E 32, K 4, T 65,536; a
+    Zipf-skewed router, seed 0), `cdf` slots from the port's
+    `cdf_dispatch_slots` on the card (equal to the CPU's), sort's
+    capacity overflow, and the benchmark's random-hash placement."""
+    import torch
+    from repro_torch.models import moe
+    e, k, t = MOE_SYNTH["e"], MOE_SYNTH["k"], MOE_SYNTH["t"]
+    rng = np.random.default_rng(0)
+    popularity = 1.0 / (np.arange(e) + 1.0) ** 0.7
+    logits = rng.normal(0, 1, (t, e)) + np.log(popularity)[None]
+    scores = np.exp(logits) / np.exp(logits).sum(1, keepdims=True)
+    top = np.argsort(-scores, axis=1)[:, :k]
+    flat_e = torch.as_tensor(top.reshape(-1), device=dev)
+    flat_s = torch.as_tensor(np.take_along_axis(scores, top, axis=1).reshape(-1)
+                             .astype(np.float32), device=dev)
+    h = np.arange(flat_e.numel(), dtype=np.uint64) * np.uint64(0x9E3779B97F4A7C15)
+    h ^= h >> np.uint64(31)
+    counts = torch.bincount(flat_e, minlength=e)
+    rows = []
+    for cf in MOE_SYNTH["capacity_factors"]:
+        capacity = int(t * k / e * cf)
+        slots = moe.cdf_dispatch_slots(flat_s, flat_e, e, capacity)
+        host = moe.cdf_dispatch_slots(flat_s.cpu(), flat_e.cpu(), e, capacity)
+        rand = torch.as_tensor((h % np.uint64(capacity)).astype(np.int64), device=dev)
+        row = {"capacity_factor": cf, "capacity": capacity,
+               "sort": float(torch.clamp(counts - capacity, min=0).sum()) / flat_e.numel(),
+               "cdf": _collision_drop(flat_e * capacity + slots, e * capacity),
+               "random": _collision_drop(flat_e * capacity + rand, e * capacity),
+               "cdf_card_equals_cpu": bool(torch.equal(slots.cpu(), host))}
+        row["cdf_vs_random"] = (row["random"] - row["cdf"]) / max(row["random"], 1e-9)
+        rows.append(row)
+    return rows
+
+
+@contextlib.contextmanager
+def watch_engine(at_tick=20):
+    """While open, every `ServeEngine.tick` is counted and timed, and the
+    page table is held against the binary baseline at tick ``at_tick``;
+    yields {"ticks", "tick_s", "translate"}."""
+    import torch
+    from repro_torch.serve.engine import ServeEngine
+    seen = {"ticks": 0, "tick_s": 0.0, "translate": None}
+    tick = ServeEngine.tick
+
+    def watched(self):
+        t0 = time.perf_counter()
+        out = tick(self)
+        torch.cuda.synchronize()
+        seen["tick_s"] += time.perf_counter() - t0
+        seen["ticks"] += 1
+        if seen["ticks"] == at_tick:
+            seen["translate"] = check_translate(self, f"engine tick {at_tick}")
+        return out
+    ServeEngine.tick = watched
+    try:
+        yield seen
+    finally:
+        ServeEngine.tick = tick
+
+
+def run_lm_moe(args, dev, card):
+    """The MoE family at full width (bf16, random weights from a seeded
+    generator on the card): (a) olmoe-1b-7b prefill, (b) its layer-0
+    dispatch card against CPU, (c) prefill against sequential decode,
+    (d) drop fractions, (e) `launch.serve`, (f) moonshot-v1-16b-a3b
+    prefill, (g) the reduced olmoe's gradient card against CPU.  Each
+    model is released before the next."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.launch import serve
+    from repro_torch.models import get_model
+    t_phase = time.perf_counter()
+    cfg = get_arch(MOE_ARCH, reduced=args.lm_reduced)
+    b = LM_BATCH
+    s = LM_SEQ if not args.lm_reduced else 128
+    s_check = MOE_CHECK_SEQ if not args.lm_reduced else 16
+    rng = np.random.default_rng((args.seed, 4))
+    parts = {}
+
+    # ---- (a) olmoe prefill, every layer's attention through B9 ----------
+    t0 = time.perf_counter()
+    api = get_model(cfg, dev)
+    params = api.init(torch.Generator(device=dev).manual_seed(args.seed))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    tokens = _lm_tokens(rng, cfg, b, s, dev)
+    pre = moe_prefill(api, params, tokens)
+    check_moe_prefill(cfg, b, s, pre, MOE_ARCH)
+    times, launches, _, peak = pre[:4]
+    del pre
+    n_params = _param_count(params)
+    parts["a"] = {"arch": cfg.name, "dispatch": cfg.moe_dispatch, "params": n_params,
+                  "param_gb": 2 * n_params / 1e9, "init_s": init_s, "batch": b,
+                  "seq": s, "prefill_s": times, "prefill_tok_per_s": b * s / min(times),
+                  "peak_mem_gb": peak / 1e9, "attention_launches": launches,
+                  "seconds": time.perf_counter() - t0}
+    emit({"phase": "lm_moe", "part": "a_prefill", "card": card, **parts["a"]})
+
+    # ---- (b) layer 0's dispatch, card against CPU -----------------------
+    t0 = time.perf_counter()
+    parts["b"] = {**moe_dispatch_card_vs_cpu(cfg, params, tokens),
+                  "seconds": time.perf_counter() - t0}
+    emit({"phase": "lm_moe", "part": "b_dispatch_card_vs_cpu", **parts["b"]})
+    check(parts["b"]["cdf"]["ok"] and parts["b"]["sort"]["ok"],
+          f"lm_moe (b): dispatch or moe_ffn: {parts['b']}")
+
+    # ---- (c) prefill against sequential decode, no slot dropped ---------
+    t0 = time.perf_counter()
+    cf = cfg.num_experts / cfg.experts_per_token
+    api_c = get_model(dataclasses.replace(cfg, capacity_factor=cf), dev)
+    lp, ld = _prefill_vs_decode(api_c, params, _lm_tokens(rng, cfg, b, s_check, dev))
+    parts["c"] = {"layers": cfg.num_layers, "capacity_factor": cf, "seq": s_check,
+                  "top1_prefill": lp.argmax(-1).tolist(), "top1_decode": ld.argmax(-1).tolist(),
+                  "max_abs_diff": float((lp - ld).abs().max()),
+                  "max_abs_logit": float(lp.abs().max()), "seconds": time.perf_counter() - t0}
+    emit({"phase": "lm_moe", "part": "c_prefill_vs_decode", "dtype": "bfloat16", **parts["c"]})
+    check(parts["c"]["top1_prefill"] == parts["c"]["top1_decode"],
+          "lm_moe (c): prefill and sequential decode disagree on a top-1 token")
+    check(parts["c"]["max_abs_diff"] <= 0.05 * parts["c"]["max_abs_logit"],
+          "lm_moe (c): prefill against sequential decode past 0.05 x max |logit|")
+    del api_c, lp, ld
+
+    # ---- (d) drop fractions: olmoe's own scores, then the synthetic table
+    t0 = time.perf_counter()
+    parts["d"] = {"model": moe_layer_drops(cfg, params, tokens),
+                  "synthetic": moe_synthetic_drops(dev), "seconds": time.perf_counter() - t0}
+    emit({"phase": "lm_moe", "part": "d_drop_fractions", **parts["d"]})
+    check(all(r["cdf_card_equals_cpu"] for r in parts["d"]["synthetic"]),
+          "lm_moe (d): cdf slots on the card != the CPU's")
+    del params, api, tokens
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- (e) the serving entry point ------------------------------------
+    t0 = time.perf_counter()
+    argv = MOE_SERVE_ARGV + (["--reduced"] if args.lm_reduced else []) + [
+        "--seed", str(args.seed), "--device", str(dev)]
+    with watch_engine() as seen:
+        out = serve.main(argv)
+    check(out["completed"] == 16 and out["tokens"] == 16 * 32, f"lm_moe serve: {out}")
+    check(out["kv_pages_in_use"] == 0 and out["truncated"] == 0, f"lm_moe serve: {out}")
+    check(seen["translate"] is not None and seen["translate"]["live_pages"] > 0,
+          "lm_moe serve: no live pages to translate midway")
+    parts["e"] = {"argv": argv, **out, "ticks": seen["ticks"],
+                  "ticks_per_s": seen["ticks"] / seen["tick_s"], "translate": seen["translate"],
+                  "seconds": time.perf_counter() - t0}
+    emit({"phase": "lm_moe", "part": "e_serve", "card": card, **parts["e"]})
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- (f) moonshot prefill at full size -------------------------------
+    t0 = time.perf_counter()
+    big = get_arch(MOE_BIG_ARCH, reduced=args.lm_reduced)
+    api = get_model(big, dev)
+    params = api.init(torch.Generator(device=dev).manual_seed(args.seed))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    pre = moe_prefill(api, params, _lm_tokens(rng, big, b, s, dev))
+    check_moe_prefill(big, b, s, pre, MOE_BIG_ARCH)
+    times, big_launches, _, peak = pre[:4]
+    n_params = _param_count(params)
+    parts["f"] = {"arch": big.name, "dispatch": big.moe_dispatch,
+                  "params": n_params, "param_gb": 2 * n_params / 1e9,
+                  "init_s": init_s, "batch": b, "seq": s, "prefill_s": times,
+                  "prefill_tok_per_s": b * s / min(times), "peak_mem_gb": peak / 1e9,
+                  "attention_launches": big_launches, "seconds": time.perf_counter() - t0}
+    del pre, params, api
+    gc.collect()
+    torch.cuda.empty_cache()
+    emit({"phase": "lm_moe", "part": "f_prefill", "card": card, **parts["f"]})
+
+    # ---- (g) the reduced olmoe's gradient, card against CPU --------------
+    t0 = time.perf_counter()
+    parts["g"] = {**check_model_gradient(dev, args.seed, MOE_ARCH),
+                  "seconds": time.perf_counter() - t0}
+    emit({"phase": "lm_moe", "part": "g_model_gradient_card_vs_cpu", **parts["g"]})
+    check(parts["g"]["ok"], f"lm_moe (g): gradient on the card against the CPU: {parts['g']}")
+    seconds = time.perf_counter() - t_phase
+    emit({"phase": "lm_moe", "part": "all", "card": card, "seconds": seconds,
+          "parts_s": {n: p["seconds"] for n, p in parts.items()}})
+    return {"launches": launches + big_launches, "parts": parts, "seconds": seconds}
 
 
 def reset_counts():
@@ -3677,7 +4035,7 @@ def main(argv=None) -> int:
     ap.add_argument("--n", type=int, default=PAPER_N, help="main-path key count")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--lm-reduced", action="store_true",
-                    help="the reduced yi-6b in the LM phase (a rehearsal, not a result)")
+                    help="the reduced models in the LM phases (a rehearsal, not a result)")
     args = ap.parse_args(argv)
 
     import torch
@@ -3790,6 +4148,11 @@ def main(argv=None) -> int:
     gc.collect()
     torch.cuda.empty_cache()
 
+    # ---- the MoE family (olmoe, moonshot) at full width -------------------
+    moe_lm = run_lm_moe(args, dev, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+
     # ---- phases 3-4: the single-shard service, then the sharded one ------
     t0 = time.perf_counter()
     base = gen_maps(args.n, seed=args.seed)
@@ -3886,8 +4249,10 @@ def main(argv=None) -> int:
         {"name": "flash_attention_cuda", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
          "replaces": "src/repro/kernels/flash_attention.py:83",
-         "launches": lm["launches"] + trained["full"]["launches"]["flash_attention_cuda"],
+         "launches": lm["launches"] + trained["full"]["launches"]["flash_attention_cuda"]
+         + moe_lm["launches"],
          "prefill_launches": lm["launches"],
+         "moe_prefill_launches": moe_lm["launches"],
          "train_launches": trained["full"]["launches"]["flash_attention_cuda"],
          "max_abs_err": attn_worst, "within_tol": attn_ok,
          "ms": lm["timing"]["ms"], "plain_ms": lm["timing"]["plain_ms"],

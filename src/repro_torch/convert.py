@@ -24,6 +24,7 @@ from repro_torch.device import resolve_device
 from repro_torch.index_service.router import LearnedRouter
 from repro_torch.index_service.snapshot import IndexSnapshot
 from repro_torch.models.layers import dtype_of
+from repro_torch.models.transformer import block_param_shapes
 
 
 def config_from_reference(cfg) -> RMIConfig:
@@ -132,15 +133,20 @@ def _lm_tensor(a, dtype, device) -> torch.Tensor:
 
 
 def lm_params_from_reference(params, cfg, device=None) -> dict:
-    """The reference's dense-LM parameter pytree (NumPy arrays, the layer
-    axis first in ``blocks``) as the port's parameters: one dict per
-    layer, in ``cfg.dtype`` on ``device`` (None = "cuda")."""
+    """The reference's decoder parameter pytree (NumPy arrays, the layer
+    axis first in ``blocks``: (L, E, D, F) expert leaves and an (L, D, E)
+    router for the moe family) as the port's parameters: one dict per
+    layer, in ``cfg.dtype`` on ``device`` (None = "cuda").  The leaves
+    and their shapes must be the ones ``cfg`` builds."""
     dev = resolve_device(device)
     dt = dtype_of(cfg.dtype)
     blocks = params["blocks"]
     layers = int(np.asarray(blocks["wq"]).shape[0])
     if layers != cfg.num_layers:
         raise ValueError(f"{layers} stacked layers, config has {cfg.num_layers}")
+    got = {name: tuple(np.shape(a)[1:]) for name, a in blocks.items()}
+    if got != block_param_shapes(cfg):
+        raise ValueError(f"block leaves {got}, config has {block_param_shapes(cfg)}")
     return {
         "embed": _lm_tensor(params["embed"], dt, dev),
         "blocks": [{name: _lm_tensor(np.asarray(a)[i], dt, dev)

@@ -1,4 +1,4 @@
-"""The LM substrate's dense serving path (the reference's `repro.models`)."""
+"""The LM substrate's dense and MoE decoders (the reference's `repro.models`)."""
 
 from repro_torch.models.registry import ModelAPI, get_model
 

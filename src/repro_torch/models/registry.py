@@ -2,7 +2,8 @@
 are cfg-bound functions, the surface that serving code touches (the
 reference's `repro/models/registry.py`).
 
-The port holds the dense family's training and serving paths.
+The port holds the dense and moe families' training and serving paths
+(both `models/transformer.py`, as in the reference).
 ``device`` (None = "cuda") is where `init` draws parameters and
 `init_cache` allocates the cache; the other families raise
 `NotImplementedError` naming the ROADMAP item that ports them.
@@ -21,7 +22,6 @@ from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import transformer
 
 _NOT_PORTED = {
-    "moe": "the MoE FFN (models/moe.py), ROADMAP queue A item 5",
     "ssm": "the ssm family (models/xlstm_model.py), ROADMAP queue A",
     "hybrid": "the hybrid family (models/hybrid.py), ROADMAP queue A",
     "vlm": "the vlm family (models/vlm.py), ROADMAP queue A",
@@ -53,7 +53,7 @@ def _lm_batch_spec(cfg: ArchConfig, shape: ShapeConfig) -> Dict[str, Any]:
 def get_model(cfg: ArchConfig, device: DeviceLike = None) -> ModelAPI:
     if cfg.family in _NOT_PORTED:
         raise NotImplementedError(f"{cfg.name}: {_NOT_PORTED[cfg.family]}")
-    if cfg.family != "dense":
+    if cfg.family not in ("dense", "moe"):
         raise ValueError(f"unknown family: {cfg.family}")
     dev = resolve_device(device)
     mod = transformer

@@ -1,16 +1,18 @@
-"""Decoder-only transformer, dense GQA path: parameters, the training
-forward and loss, prefill and the single-token decode over a static-size
-KV cache.
+"""Decoder-only transformer (dense GQA or MoE FFN): parameters, the
+training forward and loss, prefill and the single-token decode over a
+static-size KV cache.
 
-Covers yi-6b and yi-9b (the dense family).  Parameters are a plain dict:
-``embed`` (V, D), ``final_norm`` (D,) and ``blocks``, one dict per layer
-with the reference's (in, out) weight layout, so ``h @ wq`` reads as in
-`repro/models/transformer.py`.  The reference stacks the layers and
-scans over them; here a Python loop walks the list, and `decode_step`
-writes each layer's new KV entry into the cache in place.  Training
-(`forward_train`, `loss_fn`) rematerialises each block as ``cfg.remat``
-and ``cfg.remat_policy`` say (`layers.remat`).  The MoE FFN waits for
-ROADMAP queue A item 5.
+Covers yi-6b and yi-9b (the dense family) and olmoe-1b-7b and
+moonshot-v1-16b-a3b (the moe family: `models/moe.py` on every layer,
+as the reference's transformer, which ignores ``moe_every``).
+Parameters are a plain dict: ``embed`` (V, D), ``final_norm`` (D,) and
+``blocks``, one dict per layer with the reference's (in, out) weight
+layout, so ``h @ wq`` reads as in `repro/models/transformer.py`.  The
+reference stacks the layers and scans over them; here a Python loop
+walks the list, and `decode_step` writes each layer's new KV entry into
+the cache in place.  Training (`forward_train`, `loss_fn`)
+rematerialises each block as ``cfg.remat`` and ``cfg.remat_policy`` say
+(`layers.remat`), and carries each layer's MoE auxiliary loss.
 """
 
 from __future__ import annotations
@@ -21,6 +23,7 @@ import torch
 
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import layers as L
+from repro_torch.models import moe as moe_lib
 
 Params = Dict[str, Any]
 
@@ -29,24 +32,39 @@ def _head_dim(cfg) -> int:
     return cfg.head_dim or cfg.d_model // cfg.num_heads
 
 
-def init_block_params(cfg, generator: torch.Generator) -> Dict[str, torch.Tensor]:
-    """One layer's parameters (the dense FFN), drawn on the generator's
-    device."""
-    dt = L.dtype_of(cfg.dtype)
+def block_param_shapes(cfg) -> Dict[str, Tuple[int, ...]]:
+    """Each leaf of one layer's parameters and its shape: the dense FFN's
+    ``w_gate``, ``w_up``, ``w_down``, or with experts ``router`` (D, E)
+    and ``we_gate``, ``we_up`` (E, D, F) and ``we_down`` (E, F, D)."""
     hd = _head_dim(cfg)
     d = cfg.d_model
+    shapes = {"ln1": (d,), "ln2": (d,), "wq": (d, cfg.num_heads * hd),
+              "wk": (d, cfg.num_kv_heads * hd), "wv": (d, cfg.num_kv_heads * hd),
+              "wo": (cfg.num_heads * hd, d)}
+    if cfg.num_experts:
+        e, f = cfg.num_experts, cfg.moe_d_ff or cfg.d_ff
+        return {**shapes, "router": (d, e), "we_gate": (e, d, f), "we_up": (e, d, f),
+                "we_down": (e, f, d)}
+    return {**shapes, "w_gate": (d, cfg.d_ff), "w_up": (d, cfg.d_ff),
+            "w_down": (cfg.d_ff, d)}
+
+
+def init_block_params(cfg, generator: torch.Generator) -> Dict[str, torch.Tensor]:
+    """One layer's parameters, drawn on the generator's device one leaf at
+    a time (the largest float32 draw is one expert leaf)."""
+    dt = L.dtype_of(cfg.dtype)
     dev = generator.device
-    return {
-        "ln1": torch.ones((d,), dtype=dt, device=dev),
-        "ln2": torch.ones((d,), dtype=dt, device=dev),
-        "wq": L.init_dense(generator, d, cfg.num_heads * hd, dt),
-        "wk": L.init_dense(generator, d, cfg.num_kv_heads * hd, dt),
-        "wv": L.init_dense(generator, d, cfg.num_kv_heads * hd, dt),
-        "wo": L.init_dense(generator, cfg.num_heads * hd, d, dt),
-        "w_gate": L.init_dense(generator, d, cfg.d_ff, dt),
-        "w_up": L.init_dense(generator, d, cfg.d_ff, dt),
-        "w_down": L.init_dense(generator, cfg.d_ff, d, dt),
-    }
+    p = {}
+    for name, shape in block_param_shapes(cfg).items():
+        if name in ("ln1", "ln2"):
+            p[name] = torch.ones(shape, dtype=dt, device=dev)
+        elif name == "router":
+            p[name] = moe_lib.moe_router_init(generator, *shape, dt)
+        elif len(shape) == 3:
+            p[name] = moe_lib.moe_expert_init(generator, *shape, dt)
+        else:
+            p[name] = L.init_dense(generator, *shape, dt)
+    return p
 
 
 def init_params(cfg, generator: torch.Generator) -> Params:
@@ -92,18 +110,25 @@ def _attn_train(cfg, p, x, positions):
 
 
 def _ffn(cfg, p, x):
-    if cfg.num_experts:
-        raise NotImplementedError(
-            "the MoE FFN (models/moe.py) is not ported yet: ROADMAP queue A item 5")
+    """The FFN half of a block: (x', aux), aux the layer's MoE auxiliary
+    loss (a float32 0 for the dense FFN)."""
     h = L.rmsnorm(x, p["ln2"])
-    return x + L.swiglu(h, p["w_gate"], p["w_up"], p["w_down"])
+    if cfg.num_experts:
+        y, aux = moe_lib.moe_ffn(
+            h, p["router"], p["we_gate"], p["we_up"], p["we_down"],
+            experts_per_token=cfg.experts_per_token,
+            capacity_factor=cfg.capacity_factor,
+            dispatch=cfg.moe_dispatch,
+        )
+        return x + y, aux["moe_aux_loss"]
+    out = x + L.swiglu(h, p["w_gate"], p["w_up"], p["w_down"])
+    return out, torch.zeros((), dtype=torch.float32, device=x.device)
 
 
 def block_train(cfg, p, x, positions):
-    """One layer of the training forward: (x', aux), aux the MoE
-    auxiliary loss (0 for the dense FFN)."""
+    """One layer of the training forward: (x', aux)."""
     x, _ = _attn_train(cfg, p, x, positions)
-    return _ffn(cfg, p, x), torch.zeros((), dtype=torch.float32, device=x.device)
+    return _ffn(cfg, p, x)
 
 
 def _train_block(cfg) -> Callable:
@@ -116,11 +141,7 @@ def _train_block(cfg) -> Callable:
         return L.remat(lambda p, x, positions: block_train(cfg, p, x, positions))
     attn = L.remat(lambda p, x, positions: _attn_train(cfg, p, x, positions)[0])
     ffn = L.remat(lambda p, x: _ffn(cfg, p, x))
-
-    def block(p, x, positions):
-        x = ffn(p, attn(p, x, positions))
-        return x, torch.zeros((), dtype=torch.float32, device=x.device)
-    return block
+    return lambda p, x, positions: ffn(p, attn(p, x, positions))
 
 
 def forward_train(cfg, params: Params, tokens: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -170,7 +191,7 @@ def prefill(cfg, params: Params, tokens: torch.Tensor) -> Tuple[torch.Tensor, An
     vs: List[torch.Tensor] = []
     for p in params["blocks"]:
         x, (k, v) = _attn_train(cfg, p, x, positions)
-        x = _ffn(cfg, p, x)
+        x, _ = _ffn(cfg, p, x)
         ks.append(k)
         vs.append(v)
     x = L.rmsnorm(x[:, -1], params["final_norm"])
@@ -190,8 +211,8 @@ def block_decode(cfg, p, x, kc, vc, pos: int):
     kc, vc = attn_lib.update_kv_cache(kc, vc, k, v, pos)
     o = attn_lib.decode_attention(q, kc, vc, pos + 1)
     o = o.transpose(1, 2).reshape(b, 1, -1)
-    x = x + o @ p["wo"]
-    return _ffn(cfg, p, x), kc, vc
+    x, _ = _ffn(cfg, p, x + o @ p["wo"])
+    return x, kc, vc
 
 
 def decode_step(cfg, params: Params, cache, token: torch.Tensor) -> Tuple[torch.Tensor, Any]:

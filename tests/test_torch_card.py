@@ -20,6 +20,10 @@ so they run where the card is:
   under the three strategies, ranks equal to the CPU's), the B-Tree
   (equal to ``np.searchsorted``), the learned Bloom's GRU logits, and
   the pipeline's document lookup (equal to the oracle).
+* The MoE FFN (`models/moe.py`, plain torch): the dispatch on the card
+  equal to the CPU's bit for bit, `moe_ffn` in bf16 repeating bit for bit
+  and near its float32 products under the same dispatch, and the reduced
+  olmoe-1b-7b's loss and gradients on the card against the CPU.
 * The attention gradient (B9's backward kernel): against
   `ref.mha_backward_reference` on a small matrix (bf16, the tensor-core
   kernels, also within 1e-3 relative L2), bit-identical on a repeat
@@ -435,4 +439,105 @@ def test_reduced_train_step_on_card_matches_the_cpu():
                               "flash_attention_bwd_cuda": cfg.num_layers}
     assert abs(out["cuda"][0] - out["cpu"][0]) <= 1e-5 * abs(out["cpu"][0])
     for x, y in zip(out["cuda"][1], out["cpu"][1]):
+        assert float((x - y).abs().max()) <= 1e-4 * float(y.abs().max())
+
+
+# ---------------------------------------------------------------------------
+# the MoE FFN (models/moe.py): plain torch, deterministic on the card
+# ---------------------------------------------------------------------------
+
+def _moe_inputs(t, e, k, d, dev, seed=0):
+    """(x bf16 (T, D), float32 scores, bf16 gate, expert ids) on ``dev``,
+    the ids and gate by the port's `_top_k`."""
+    from repro_torch.models import moe
+    g = torch.Generator().manual_seed(seed)
+    x = torch.randn((t, d), generator=g).to(torch.bfloat16)
+    scores = torch.softmax(torch.randn((t, e), generator=g) * 2, dim=-1)
+    gate, eidx = moe._top_k(scores, k)
+    gate = (gate / gate.sum(-1, keepdim=True)).to(torch.bfloat16)
+    return [a.to(dev) for a in (x, scores, gate, eidx)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dispatch", ["sort", "cdf"])
+def test_moe_dispatch_on_card_equals_the_cpu_bit_for_bit(dispatch):
+    """`_dispatch_one_group` at olmoe's routing (E 64, top-8) over 4,096
+    tokens, capacity factor 1.0 (each expert holds its mean load, so the
+    busier ones drop): buffers, destinations, tokens and gates on the
+    card equal the CPU's."""
+    from repro_torch.models import moe
+    dev = _card()
+    t, e, k = 4096, 64, 8
+    capacity = max(1, int(t * k / e * 1.0))
+    out = {}
+    for where in ("cpu", dev):
+        args = _moe_inputs(t, e, k, 256, where)
+        out[str(where)] = [a.cpu() for a in moe._dispatch_one_group(
+            *args, num_experts=e, capacity=capacity, dispatch=dispatch)]
+    for got, want in zip(out[str(dev)], out["cpu"]):
+        assert torch.equal(got, want)
+    assert bool((out["cpu"][3] == 0).any())   # some entries drop
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dispatch", ["sort", "cdf"])
+def test_moe_ffn_on_card_repeats_bit_for_bit(dispatch):
+    """`moe_ffn` in bf16 on the card twice, the second time with any host
+    synchronisation an error: the same output bits and aux; within 2e-2 x
+    max of the float32 expert products and combine under the same
+    dispatch."""
+    from repro_torch.models import moe
+    dev = _card()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    g = torch.Generator().manual_seed(3)
+    d, e, f = 512, 16, 256
+    x = torch.randn((2, 512, d), generator=g).to(torch.bfloat16).to(dev)
+    ws = [(torch.randn(s, generator=g) / s[-2] ** 0.5).to(torch.bfloat16).to(dev)
+          for s in ((d, e), (e, d, f), (e, d, f), (e, f, d))]
+    kw = dict(experts_per_token=4, capacity_factor=1.25, dispatch=dispatch)
+    y1, a1 = moe.moe_ffn(x, *ws, **kw)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")   # no read-back to the host inside
+    try:
+        y2, a2 = moe.moe_ffn(x, *ws, **kw)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert torch.equal(y1, y2)
+    assert all(torch.equal(a1[n], a2[n]) for n in a1)
+    xt = x.reshape(-1, d)
+    scores, gate, eidx = moe._route(xt, ws[0], 4)
+    capacity = max(1, int(xt.shape[0] * 4 / e * 1.25))
+    buf, dest, st, sg = moe._dispatch_one_group(xt, scores, gate, eidx, num_experts=e,
+                                                capacity=capacity, dispatch=dispatch)
+    y32 = moe._experts(buf[None].float(), *(w.float() for w in ws[1:]))[0]
+    y32 = moe._combine_one(y32.reshape(e * capacity, d), dest, st, sg.float(), xt.shape[0])
+    assert float((y1.reshape(-1, d).float() - y32).abs().max()) <= 2e-2 * float(y32.abs().max())
+
+
+@pytest.mark.cuda
+def test_reduced_moe_gradient_on_card_matches_the_cpu():
+    """The reduced olmoe-1b-7b (float32, TF32 off) on the card against the
+    CPU: the loss within 1e-5 relative, the aux loss within 1e-6 and every
+    gradient within 1e-4 x its leaf's max."""
+    import dataclasses
+    from repro_torch.configs import get_arch
+    from repro_torch.models import get_model
+    from repro_torch.train.optimizer import tree_leaves, tree_map
+    from repro_torch.train.train_step import loss_and_grads
+    _card()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dataclasses.replace(get_arch("olmoe-1b-7b", reduced=True), dtype="float32")
+    toks = np.random.default_rng(0).integers(0, cfg.vocab_size, (2, 33)).astype(np.int32)
+    out = {}
+    for name in ("cpu", "cuda"):
+        api = get_model(cfg, name)
+        params = tree_map(lambda t: t.to(name),
+                          get_model(cfg, "cpu").init(torch.Generator().manual_seed(0)))
+        batch = {"tokens": torch.as_tensor(toks[:, :-1], device=name),
+                 "labels": torch.as_tensor(toks[:, 1:], device=name)}
+        loss, metrics, grads = loss_and_grads(api.loss, params, batch)
+        out[name] = (float(loss), float(metrics["aux"]), [g.cpu() for g in tree_leaves(grads)])
+    assert abs(out["cuda"][0] - out["cpu"][0]) <= 1e-5 * abs(out["cpu"][0])
+    assert abs(out["cuda"][1] - out["cpu"][1]) <= 1e-6 * abs(out["cpu"][1])
+    for x, y in zip(out["cuda"][2], out["cpu"][2]):
         assert float((x - y).abs().max()) <= 1e-4 * float(y.abs().max())

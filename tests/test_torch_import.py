@@ -56,7 +56,7 @@ def test_port_imports_no_jax_and_no_reference():
                  "repro_torch.core.learned_hash", "repro_torch.kernels.hash_probe",
                  "repro_torch.kernels.bloom_probe", "repro_torch.distributed",
                  "repro_torch.distributed.fault_tolerance", "repro_torch.obs.export",
-                 "repro_torch.serve.frontend"):
+                 "repro_torch.serve.frontend", "repro_torch.models.moe"):
         assert name in out[2:], name
 
 
@@ -73,7 +73,7 @@ print(bad)
 
 @pytest.mark.parametrize("script,argv", [
     ("chip_smoke", []), ("scan_pair", ["--parent", "."]), ("lookup_pair", ["--parent", "."]),
-    ("attention_pair", ["--parent", "."]),
+    ("attention_pair", ["--parent", "."]), ("bloom_pair", ["--parent", "."]),
 ])
 def test_card_scripts_import_no_jax_and_refuse_without_a_card(script, argv):
     """The scripts run on the card import neither JAX nor the reference

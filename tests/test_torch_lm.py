@@ -4,8 +4,9 @@ and yi-9b with the reference's parameters carried across
 eight `decode_step`s, at 2e-2 in bfloat16 and 1e-4 in a float32 copy of
 each config; the port's prefill against its own sequential decode
 (the reference's `tests/test_models.py` contract); `rmsnorm`,
-`apply_rope` and `swiglu` against the reference in bfloat16; and the
-families the port does not hold yet raising.
+`apply_rope` and `swiglu` against the reference in bfloat16; the
+families the port does not hold yet raising, and the MoE family
+building (its numbers against the reference: `test_torch_moe.py`).
 """
 
 import dataclasses
@@ -153,23 +154,45 @@ def test_configs_are_the_references():
     ("seamless-m4t-large-v2", "audio"),
 ])
 def test_families_not_ported_raise(name, item):
-    with pytest.raises(NotImplementedError, match=f"{item}.*ROADMAP queue A"):
-        get_model(REDUCED[name], "cpu")
+    """The families still in ROADMAP queue A raise, naming it; the MoE
+    family (queue A item 5) builds: its init draws the expert leaves on
+    the CPU in the config's shapes and its prefill runs."""
+    if item != "MoE":
+        with pytest.raises(NotImplementedError, match=f"{item}.*ROADMAP queue A"):
+            get_model(REDUCED[name], "cpu")
+        return
+    from repro_torch.models import transformer
+    cfg = REDUCED[name]
+    api = get_model(cfg, "cpu")
+    params = api.init(torch.Generator().manual_seed(0))
+    want = transformer.block_param_shapes(cfg)
+    assert {"router", "we_gate", "we_up", "we_down"} <= set(want)
+    for blk in params["blocks"]:
+        assert {n: tuple(w.shape) for n, w in blk.items()} == want
+        assert all(w.device.type == "cpu" and w.dtype == torch.bfloat16 for w in blk.values())
+    logits, cache = api.prefill(params, {"tokens": torch.zeros((1, 5), dtype=torch.int32)})
+    assert logits.shape == (1, cfg.padded_vocab) and bool(torch.isfinite(logits.float()).all())
 
 
 def test_training_and_moe_ffn_raise_until_ported():
-    """Training is ported (the dense family's `loss` runs); the MoE FFN
-    still raises, naming its ROADMAP item."""
-    api = get_model(REDUCED["yi-6b"], "cpu")
-    params = api.init(torch.Generator().manual_seed(0))
-    tokens = torch.zeros((1, 4), dtype=torch.int32)
-    loss, metrics = api.loss(params, {"tokens": tokens, "labels": tokens})
-    assert loss.ndim == 0 and bool(torch.isfinite(loss))
-    assert set(metrics) == {"loss", "nll", "aux"}
+    """Training runs for both families (the dense and the MoE `loss`),
+    and `_ffn` returns (x', aux) for both FFNs: a float32 0 for the dense
+    one, the layer's positive load-balance loss for the MoE one."""
     from repro_torch.models import transformer
-    moe = dataclasses.replace(REDUCED["yi-6b"], num_experts=4)
-    with pytest.raises(NotImplementedError, match="MoE.*item 5"):
-        transformer._ffn(moe, {}, torch.zeros(1, 1, 64))
+    x = torch.randn((1, 3, 64), generator=torch.Generator().manual_seed(1))
+    for name in ("yi-6b", "olmoe-1b-7b"):
+        cfg = REDUCED[name]
+        api = get_model(cfg, "cpu")
+        params = api.init(torch.Generator().manual_seed(0))
+        tokens = torch.zeros((1, 4), dtype=torch.int32)
+        loss, metrics = api.loss(params, {"tokens": tokens, "labels": tokens})
+        assert loss.ndim == 0 and bool(torch.isfinite(loss))
+        assert set(metrics) == {"loss", "nll", "aux"}
+        y, aux = transformer._ffn(cfg, params["blocks"][0], x.to(torch.bfloat16))
+        assert y.shape == x.shape and y.dtype == torch.bfloat16
+        assert aux.dtype == torch.float32 and aux.ndim == 0
+        assert (float(aux) > 0) == bool(cfg.num_experts)
+        assert (float(metrics["aux"]) > 0) == bool(cfg.num_experts)
 
 
 def test_batch_spec_mirrors_the_reference():

@@ -76,6 +76,27 @@ def test_build_bloom_contains_and_add_match_reference(kind):
     assert bloom.optimal_num_hashes(9.585) == ref_bloom.optimal_num_hashes(9.585)
 
 
+@pytest.mark.parametrize("kind", ["float", "int", "string"])
+def test_threaded_build_and_add_set_the_references_words(kind, monkeypatch):
+    """`build_bloom` and `add` mark bits in threads over chunks of keys
+    and pack them: the words equal the reference's `np.bitwise_or.at`
+    ones, over many small chunks (a bit set from several threads), a
+    filter denser than one bit a key, a second add of the same keys, and
+    an empty add."""
+    monkeypatch.setattr(bloom, "_CHUNK", 257)
+    rng = np.random.default_rng(7)
+    keys = _keys(kind, rng, n=40_000)
+    more = _keys(kind, np.random.default_rng(8), n=3_000)
+    for kw in (dict(fpr=0.02), dict(num_bits=(1 << 16) + 32, num_hashes=9),
+               dict(num_bits=64, num_hashes=3)):
+        pb, rb = bloom.build_bloom(keys, **kw), ref_bloom.build_bloom(keys, **kw)
+        assert pb.words.dtype == np.uint32 and np.array_equal(pb.words, rb.words)
+        for batch in (more, more, more[:0], keys[:10]):
+            pb.add(batch)
+            rb.add(batch)
+            assert np.array_equal(pb.words, rb.words)
+
+
 def _mix32(h, seed):
     """The kernels' uint32 hash in NumPy (uint32 products wrap)."""
     h = h.astype(np.uint32) ^ np.uint32(seed * 0x9E3779B9 & 0xFFFFFFFF)

@@ -474,6 +474,9 @@ def _scan_counters(svc):
 
 @pytest.mark.parametrize("strategy", ["cuda_fused", "binary"])
 def test_warm_scan_batch_is_one_dispatch(strategy):
+    # the ledger is process-wide: start it empty so the rows below are
+    # this test's scans, whatever ran earlier in the worker
+    ops.reset_dispatch_stats()
     base = np.arange(2, 4002, dtype=np.float64) * 1024.0
     vals = np.arange(base.size, dtype=np.int64)
     port = IndexService(base, ServiceConfig(delta_capacity=512, strategy=strategy),

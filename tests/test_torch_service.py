@@ -153,6 +153,9 @@ def test_service_restart_from_reference_files(tmp_path):
 
 @pytest.mark.parametrize("strategy", ["cuda_fused", "cuda", "binary"])
 def test_hot_reads_are_one_dispatch(strategy):
+    # the ledger is process-wide: start it empty so the rows below are
+    # this test's reads, whatever ran earlier in the worker
+    ops.reset_dispatch_stats()
     base, _, port = _pair(strategy)
     port.insert(np.array([1.25, 2.5]))
     port.delete(base[:3])
