@@ -106,6 +106,37 @@ is non-zero:
                moonshot-v1-16b-a3b (48 layers, 64 experts top-6, `sort`)
                prefill as (a); (g) the reduced olmoe's loss, aux loss and
                gradients on the card against the CPU (float32);
+  lm_recurrent — the recurrent families, the failover guard around
+               both.  lm_ssm: (a) xlstm-1.3b at full width and depth
+               (bf16, 48 layers, 1.74B parameters), a warm-up prefill of
+               2 x 256 then a timed one of 2 x 2,048 tokens (cut from
+               4,096 for the time limit), peak memory;
+               (b) prefill against 64 sequential decode steps (bf16 and
+               float32 at full depth reported: the random-init stack
+               amplifies bf16 rounding to ~max |logit|, as the
+               reference's does; float32 at one superblock of 8 layers:
+               allclose at 1e-3; the first mLSTM and the sLSTM alone in
+               bf16: within a relative L2 of 1e-2 of float32 and of
+               their 64 decode steps); (c)
+               `launch.serve --arch xlstm-1.3b` (16 requests of 32 new
+               tokens, 8 slots, max_len 512); (d) the reduced xlstm card
+               against CPU (float32: prefill and 6 decode steps' logits
+               within 1e-4 x max, the loss 1e-5 relative, every
+               gradient 1e-4 x its max).  lm_hybrid: (a)
+               jamba-1.5-large's four layer kinds alone at its published
+               width (d_model 8,192, bf16, 2 x 4,096 tokens): the Mamba
+               mixer (bf16 against float32 within a relative L2 of 1e-2,
+               prefill against 64 `mamba_decode` steps in float32), the
+               attention mixer (one B9 launch, no plain attention;
+               `block_decode_attn_only` over 64 steps against
+               `_attn_train` in float32), one MoE FFN (16 experts top-2,
+               19.3 GB; bf16 within 2e-2 x max and a relative L2 of
+               1e-2 of the float32 products under the same dispatch) and
+               one dense FFN, each timed; and the superblock's size (88.3
+               GB in bf16: no whole-model jamba runs at that width on one
+               card); (b) the reduced jamba card against CPU as lm_ssm
+               (d), its attention through B9's forward and backward
+               kernels; (c) `launch.serve` on the reduced jamba;
   3. main path — `IndexService(strategy="cuda_fused", bloom_fpr=0.01)`
                over gen_maps(n) with a zero payload: every stored key at
                its float32 lower bound, then 300k inserts (values
@@ -2348,8 +2379,8 @@ def _lm_tokens(rng, cfg, b, s, dev):
 
 
 def _param_count(params):
-    return sum(t.numel() for t in [params["embed"], params["final_norm"]]
-               + [w for blk in params["blocks"] for w in blk.values()])
+    from repro_torch.train.optimizer import tree_leaves
+    return sum(t.numel() for t in tree_leaves(params))
 
 
 def _prefill_vs_decode(api, params, tokens):
@@ -2598,7 +2629,9 @@ def check_model_gradient(dev, seed, arch=LM_ARCH):
     """(b): the reduced ``arch``'s loss and gradients (float32, TF32 off)
     on the card, through both attention kernels, against the CPU's plain
     loop: the loss within 1e-5 relative, the MoE aux loss within 1e-6
-    relative, each leaf within 1e-4 x its max."""
+    relative (0 for a family without one), each leaf within 1e-4 x its
+    max; two forward launches (the remat recompute) and one backward
+    launch of B9 an attention layer."""
     import dataclasses
     import torch
     from repro_torch.configs import get_arch
@@ -2618,7 +2651,7 @@ def check_model_gradient(dev, seed, arch=LM_ARCH):
         loss, metrics, grads = loss_and_grads(get_model(cfg, where).loss,
                                               tree_map(lambda t: t.to(where), params), batch)
         got[str(where)] = (float(loss), [g.float().cpu() for g in tree_leaves(grads)],
-                           float(metrics["aux"]))
+                           float(metrics.get("aux", 0.0)))
     launches = read_counts()
     (loss_cpu, grads_cpu, aux_cpu), (loss_card, grads_card, aux_card) = (got["cpu"],
                                                                          got[str(dev)])
@@ -2630,10 +2663,11 @@ def check_model_gradient(dev, seed, arch=LM_ARCH):
            "aux_rel_err": abs(aux_card - aux_cpu) / max(abs(aux_cpu), 1e-30),
            "attention_launches": launches["flash_attention_cuda"],
            "attention_bwd_launches": launches["flash_attention_bwd_cuda"]}
+    attn = _attention_layers(cfg)
     out["ok"] = (out["loss_rel_err"] <= 1e-5 and leaf_err <= 1e-4
                  and out["aux_rel_err"] <= 1e-6
-                 and out["attention_launches"] == 2 * cfg.num_layers
-                 and out["attention_bwd_launches"] == cfg.num_layers)
+                 and out["attention_launches"] == 2 * attn
+                 and out["attention_bwd_launches"] == attn)
     return out
 
 
@@ -3137,6 +3171,453 @@ def run_lm_moe(args, dev, card):
     emit({"phase": "lm_moe", "part": "all", "card": card, "seconds": seconds,
           "parts_s": {n: p["seconds"] for n, p in parts.items()}})
     return {"launches": launches + big_launches, "parts": parts, "seconds": seconds}
+
+
+# ---------------------------------------------------------------------------
+# lm_ssm, lm_hybrid: the recurrent families (xlstm-1.3b, jamba-1.5-large)
+# ---------------------------------------------------------------------------
+
+SSM_ARCH, HYBRID_ARCH = "xlstm-1.3b", "jamba-1.5-large-398b"
+RECURRENT_SEQ = 4096             # tokens a prompt of jamba's layer calls
+# xlstm-1.3b's timed prefill: cut from 4,096 (its Python scans took
+# 23-32 s there, over the phase's 60 s; PERF.md §4)
+SSM_PREFILL_SEQ = 2048
+RECURRENT_WARMUP_SEQ = 256       # the xLSTM's warm-up prefill
+RECURRENT_CHECK_SEQ = 64         # prompts fed to sequential decode
+RECURRENT_REL_L2 = 1e-2          # bf16 against float32: Mamba mixer, MoE FFN
+SSM_SERVE_ARGV = ["--arch", SSM_ARCH] + SERVE_ARGV[2:]
+HYBRID_SERVE_ARGV = ["--arch", HYBRID_ARCH, "--reduced"] + SERVE_ARGV[2:]
+
+
+def _attention_layers(cfg):
+    """Layers whose mixer is attention (B9 at prefill and training)."""
+    if cfg.family == "hybrid":
+        return cfg.num_layers // cfg.attn_period
+    return 0 if cfg.family == "ssm" else cfg.num_layers
+
+
+def check_model_serving(dev, seed, arch):
+    """The reduced ``arch`` (float32, TF32 off) served on the card against
+    the CPU: prefill's logits and those of 6 decode steps within 1e-4 x
+    max |CPU logit|; the card's B9 launches (one an attention layer) and
+    no plain attention."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.models import get_model
+    from repro_torch.train.optimizer import tree_map
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dataclasses.replace(get_arch(arch, reduced=True), dtype="float32")
+    toks = np.random.default_rng((seed, 6)).integers(0, cfg.vocab_size, (2, 24))
+    params = get_model(cfg, "cpu").init(torch.Generator().manual_seed(seed))
+    got = {}
+    for where in ("cpu", dev):
+        api = get_model(cfg, where)
+        p = tree_map(lambda t: t.to(where), params)
+        t = torch.as_tensor(toks, dtype=torch.int32, device=where)
+        reset_counts()
+        with count_plain_attention() as plain:
+            lp, _ = api.prefill(p, {"tokens": t})
+            launches = read_counts()["flash_attention_cuda"]
+            cache = api.init_cache(2, 8)
+            steps = []
+            for i in range(6):
+                ld, cache = api.decode(p, cache, t[:, i])
+                steps.append(ld)
+        got[str(where)] = [lp.cpu()] + [ld.cpu() for ld in steps]
+    errs = [float((a - b).abs().max()) / float(b.abs().max())
+            for a, b in zip(got[str(dev)], got["cpu"])]
+    out = {"arch": cfg.name, "dtype": "float32", "tf32": False, "prefill_seq": 24,
+           "decode_steps": 6, "prefill_err_over_max": errs[0],
+           "decode_err_over_max": max(errs[1:]), "attention_launches": launches,
+           "plain_attention": dict(plain)}
+    out["ok"] = (max(errs) <= 1e-4 and launches == _attention_layers(cfg) and not plain)
+    return out
+
+
+def _rel_l2(got, want):
+    return float((got - want).norm() / want.norm())
+
+
+def xlstm_layer_bf16(cfg, block, name, rng, dev, s):
+    """One xLSTM layer of ``block`` (the first mLSTM or the sLSTM) in
+    bf16 on 2 x ``s`` tokens of unit-normal input: its output against the
+    same layer in float32, and its prefill against ``s`` sequential
+    decode steps, each within a relative L2 of RECURRENT_REL_L2."""
+    import dataclasses
+    import torch
+    from repro_torch.models import xlstm
+    from repro_torch.train.optimizer import tree_map
+    p = block["mlstm"][0] if name == "mlstm" else block["slstm"]
+    train, decode = getattr(xlstm, f"{name}_train"), getattr(xlstm, f"{name}_decode")
+    x = torch.as_tensor(rng.standard_normal((2, s, cfg.d_model)), dtype=torch.float32,
+                        device=dev).to(torch.bfloat16)
+    y = train(cfg, p, x).float()
+    y32 = train(dataclasses.replace(cfg, dtype="float32"), tree_map(lambda t: t.float(), p),
+                x.float())
+    state = getattr(xlstm, f"init_{name}_state")(cfg, 2, dev)
+    steps = []
+    for i in range(s):
+        yi, state = decode(cfg, p, x[:, i:i + 1], state)
+        steps.append(yi)
+    dec = torch.cat(steps, dim=1).float()
+    out = {"rel_l2_bf16_vs_f32": _rel_l2(y, y32), "rel_l2_decode_vs_prefill": _rel_l2(dec, y)}
+    out["ok"] = max(out.values()) <= RECURRENT_REL_L2
+    return out
+
+
+def run_lm_ssm(args, dev, card):
+    """The ssm family: (a) xlstm-1.3b at full width and depth (bf16,
+    random weights from a seeded generator on the card), a warm-up
+    prefill then a timed one; (b) prefill against sequential decode
+    (reported in bf16 and float32 at full depth; held in float32 at one
+    superblock, and in bf16 layer by layer); (c) `launch.serve --arch
+    xlstm-1.3b`; (d) the reduced xlstm card against CPU (serving, then
+    the loss and gradients)."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.launch import serve
+    from repro_torch.models import get_model, xlstm
+    from repro_torch.train.optimizer import tree_map
+    torch.backends.cuda.matmul.allow_tf32 = False
+    t_phase = time.perf_counter()
+    cfg = get_arch(SSM_ARCH, reduced=args.lm_reduced)
+    b = LM_BATCH
+    s = SSM_PREFILL_SEQ if not args.lm_reduced else 64
+    s_warm = RECURRENT_WARMUP_SEQ if not args.lm_reduced else 16
+    s_check = RECURRENT_CHECK_SEQ if not args.lm_reduced else 16
+    rng = np.random.default_rng((args.seed, 5))
+    parts = {}
+
+    # ---- (a) init, warm-up, the timed prefill ----------------------------
+    t0 = time.perf_counter()
+    api = get_model(cfg, dev)
+    params = api.init(torch.Generator(device=dev).manual_seed(args.seed))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = _param_count(params)
+    torch.cuda.reset_peak_memory_stats()
+    t1 = time.perf_counter()
+    api.prefill(params, {"tokens": _lm_tokens(rng, cfg, b, s_warm, dev)})
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    logits, cache = api.prefill(params, {"tokens": _lm_tokens(rng, cfg, b, s, dev)})
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t1
+    peak = torch.cuda.max_memory_allocated()
+    ns, nm = cfg.num_layers // cfg.xlstm_slstm_every, cfg.xlstm_slstm_every - 1
+    _, h, dk, dv = xlstm._dims(cfg)
+    check(tuple(logits.shape) == (b, cfg.padded_vocab) and bool(torch.isfinite(logits).all()),
+          "lm_ssm (a): prefill logits not finite")
+    check(tuple(cache["m"]["c"].shape) == (ns, nm, b, h, dk, dv)
+          and tuple(cache["s"]["h"].shape) == (ns, b, cfg.d_model) and cache["len"] == s,
+          "lm_ssm (a): prefill cache shape")
+    parts["a"] = {"arch": cfg.name, "params": n_params, "param_gb": 2 * n_params / 1e9,
+                  "layers": cfg.num_layers, "init_s": init_s, "batch": b,
+                  "warmup_seq": s_warm, "warmup_s": warm_s, "seq": s,
+                  "prefill_s": prefill_s, "prefill_tok_per_s": b * s / prefill_s,
+                  "peak_mem_gb": peak / 1e9, "seconds": time.perf_counter() - t0}
+    emit({"phase": "lm_ssm", "part": "a_prefill", "card": card, **parts["a"]})
+    del logits, cache
+
+    # ---- (b) prefill against sequential decode ---------------------------
+    # Under random weights the 48-layer stack amplifies a rounding ~1e4
+    # times (float32: 7e-5 of max |logit| at one superblock, 2.5e-3 at
+    # six), so in bf16 the whole model's prefill and decode part by about
+    # max |logit|, as the reference's own bf16 prefill parts from its
+    # float32 one (PERF.md §6).  The whole model is held in float32; bf16
+    # is held layer by layer, where no depth amplifies it.
+    t0 = time.perf_counter()
+    check_tokens = _lm_tokens(rng, cfg, b, s_check, dev)
+    lp, ld = _prefill_vs_decode(api, params, check_tokens)
+    params32 = tree_map(lambda t: t.float(), params)
+    api32 = get_model(dataclasses.replace(cfg, dtype="float32"), dev)
+    lp32, ld32 = _prefill_vs_decode(api32, params32, check_tokens)
+    bf16 = {"layers": cfg.num_layers, "top1_prefill": lp.argmax(-1).tolist(),
+            "top1_decode": ld.argmax(-1).tolist(), "max_abs_diff": float((lp - ld).abs().max()),
+            "max_abs_logit": float(lp.abs().max()),
+            "prefill_vs_f32_prefill": float((lp - lp32).abs().max())}
+    full32 = {"layers": cfg.num_layers, "max_abs_diff": float((lp32 - ld32).abs().max()),
+              "max_abs_logit": float(lp32.abs().max())}
+    cfg32 = dataclasses.replace(cfg, dtype="float32", num_layers=cfg.xlstm_slstm_every)
+    lp, ld = _prefill_vs_decode(get_model(cfg32, dev), {**params32, "blocks": params32[
+        "blocks"][:1]}, check_tokens)
+    f32 = {"layers": cfg32.num_layers, "max_abs_diff": float((lp - ld).abs().max()),
+           "max_abs_logit": float(lp.abs().max()),
+           "allclose_1e-3": bool(torch.allclose(lp, ld, atol=1e-3, rtol=1e-3))}
+    del params32, api32, lp, ld, lp32, ld32
+    layers = {name: xlstm_layer_bf16(cfg, params["blocks"][0], name, rng, dev, s_check)
+              for name in ("mlstm", "slstm")}
+    parts["b"] = {"seq": s_check, "bfloat16": bf16, "float32_full_depth": full32,
+                  "float32": f32, "layers_bf16": layers, "seconds": time.perf_counter() - t0}
+    emit({"phase": "lm_ssm", "part": "b_prefill_vs_decode", **parts["b"]})
+    check(f32["allclose_1e-3"], "lm_ssm (b): float32 prefill against sequential decode")
+    check(all(r["ok"] for r in layers.values()),
+          f"lm_ssm (b): a layer in bf16 against float32 or its decode steps: {layers}")
+    del params, api
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- (c) the serving entry point --------------------------------------
+    t0 = time.perf_counter()
+    argv = SSM_SERVE_ARGV + (["--reduced"] if args.lm_reduced else []) + [
+        "--seed", str(args.seed), "--device", str(dev)]
+    with watch_engine() as seen:
+        out = serve.main(argv)
+    check(out["completed"] == 16 and out["tokens"] == 16 * 32, f"lm_ssm serve: {out}")
+    check(out["kv_pages_in_use"] == 0 and out["truncated"] == 0, f"lm_ssm serve: {out}")
+    parts["c"] = {"argv": argv, **out, "ticks": seen["ticks"],
+                  "ticks_per_s": seen["ticks"] / seen["tick_s"],
+                  "seconds": time.perf_counter() - t0}
+    emit({"phase": "lm_ssm", "part": "c_serve", "card": card, **parts["c"]})
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- (d) the reduced model, card against CPU --------------------------
+    t0 = time.perf_counter()
+    parts["d"] = {"serving": check_model_serving(dev, args.seed, SSM_ARCH),
+                  "gradient": check_model_gradient(dev, args.seed, SSM_ARCH),
+                  "seconds": time.perf_counter() - t0}
+    emit({"phase": "lm_ssm", "part": "d_reduced_card_vs_cpu", **parts["d"]})
+    check(parts["d"]["serving"]["ok"] and parts["d"]["gradient"]["ok"],
+          f"lm_ssm (d): the reduced model on the card against the CPU: {parts['d']}")
+    seconds = time.perf_counter() - t_phase
+    emit({"phase": "lm_ssm", "part": "all", "card": card, "seconds": seconds,
+          "parts_s": {n: p["seconds"] for n, p in parts.items()}})
+    return {"parts": parts, "seconds": seconds}
+
+
+def jamba_superblock(cfg):
+    """One superblock's parameters and bytes in cfg.dtype, by layer kind,
+    and the embedding's."""
+    from repro_torch.models import hybrid
+    elem = 2 if cfg.dtype == "bfloat16" else 4
+    kinds = {"mamba": 0, "attention": 0, "moe_ffn": 0, "dense_ffn": 0}
+    for key, leaves in hybrid.superblock_param_shapes(cfg).items():
+        n = sum(int(np.prod(s)) for s in leaves.values())
+        if key.startswith("mix"):
+            kinds["attention" if "wq" in leaves else "mamba"] += n
+        else:
+            kinds["moe_ffn" if "router" in leaves else "dense_ffn"] += n
+    total = sum(kinds.values())
+    embed = cfg.padded_vocab * cfg.d_model
+    return {"superblock_layers": cfg.attn_period, "params_by_kind": kinds,
+            "superblock_params": total, "superblock_gb": elem * total / 1e9,
+            "embed_gb": elem * embed / 1e9,
+            "superblocks": cfg.num_layers // cfg.attn_period}
+
+
+def _moe_ffn_vs_float32(cfg, p, x):
+    """(bf16 output, aux, its float32 twin): `moe_ffn` on the FFN's
+    normalised input, and the float32 expert products and combine under
+    the same dispatch, one expert at a time."""
+    import torch
+    from repro_torch.models import layers, moe
+    h = layers.rmsnorm(x, p["ln2"])
+    e, k = cfg.num_experts, cfg.experts_per_token
+    weights = [p[n] for n in ("we_gate", "we_up", "we_down")]
+    y, aux = moe.moe_ffn(h, p["router"], *weights, experts_per_token=k,
+                         capacity_factor=cfg.capacity_factor, dispatch=cfg.moe_dispatch)
+    ht = h.reshape(-1, cfg.d_model)
+    t = ht.shape[0]
+    scores, gate, eidx = moe._route(ht, p["router"], k)
+    capacity = max(1, int(t * k / e * cfg.capacity_factor))
+    buf, dest, st, sg = moe._dispatch_one_group(ht, scores, gate, eidx, num_experts=e,
+                                                capacity=capacity, dispatch=cfg.moe_dispatch)
+    y32 = torch.cat([moe._experts(buf[None, i:i + 1].float(),
+                                  *(w[i:i + 1].float() for w in weights))[0]
+                     for i in range(e)])
+    y32 = moe._combine_one(y32.reshape(e * capacity, -1), dest, st, sg.float(), t)
+    return y.reshape(t, -1).float(), aux, y32
+
+
+def run_jamba_layers(args, dev, card):
+    """(a) jamba-1.5-large's four layer kinds alone at its published
+    width (bf16, 2 x RECURRENT_SEQ tokens of unit-normal hidden state):
+    the Mamba mixer (bf16 against float32, prefill against sequential
+    decode in float32), the attention mixer through B9 (one launch, no
+    plain attention; `block_decode_attn_only` against `_attn_train` in
+    float32), one MoE FFN (bf16 against the float32 products under the
+    same dispatch) and one dense FFN; each released before the next."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import ops
+    from repro_torch.models import hybrid, mamba, transformer
+    from repro_torch.train.optimizer import tree_map
+    cfg = get_arch(HYBRID_ARCH, reduced=args.lm_reduced)
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    b = LM_BATCH
+    s = RECURRENT_SEQ if not args.lm_reduced else 64
+    s_check = RECURRENT_CHECK_SEQ if not args.lm_reduced else 16
+    gen = torch.Generator(device=dev).manual_seed(args.seed)
+    x = torch.randn((b, s, cfg.d_model), generator=gen, device=dev).to(torch.bfloat16)
+    out = {"d_model": cfg.d_model, "batch": b, "seq": s}
+
+    # ---- the Mamba mixer --------------------------------------------------
+    t0 = time.perf_counter()
+    p = mamba.init_mamba_params(cfg, gen)
+    sec = time_ms(lambda: mamba.mamba_train(cfg, p, x), reps=3, warmup=1) / 1e3
+    y = mamba.mamba_train(cfg, p, x)
+    p32 = tree_map(lambda t: t.float(), p)
+    y32 = mamba.mamba_train(cfg32, p32, x.float())
+    # the layer's output against float32, and (for the record) what the
+    # mixer adds to its input: the bf16 sum with the residual rounds it
+    # at 2^-9 of |x|, ~3% of the mixer's share under random weights
+    mixer_err = _rel_l2((y - x).float(), y32 - x.float())
+    y = y.float()
+    x64 = x[:, :s_check].float()
+    pre, st = mamba.mamba_train(cfg32, p32, x64, return_state=True)
+    state = mamba.init_mamba_state(cfg32, b, dev)
+    steps = []
+    for i in range(s_check):
+        yi, state = mamba.mamba_decode(cfg32, p32, x64[:, i:i + 1], state)
+        steps.append(yi)
+    dec = torch.cat(steps, dim=1)
+    row = {"params": sum(t.numel() for t in p.values()), "seconds_per_call": sec,
+           "tok_per_s": b * s / sec, "rel_l2_bf16_vs_f32": _rel_l2(y, y32),
+           "mixer_rel_l2_bf16_vs_f32": mixer_err,
+           "decode_max_abs_diff": float((dec - pre).abs().max()),
+           "decode_allclose_1e-3": bool(torch.allclose(dec - x64, pre - x64, atol=1e-3,
+                                                       rtol=1e-3))
+           and bool(torch.allclose(state["h"], st["h"], atol=1e-3, rtol=1e-3)),
+           "seconds": time.perf_counter() - t0}
+    row["ok"] = row["rel_l2_bf16_vs_f32"] <= RECURRENT_REL_L2 and row["decode_allclose_1e-3"]
+    out["mamba"] = row
+    del p, p32, y, y32, pre, st, state, steps, dec
+    torch.cuda.empty_cache()
+
+    # ---- the attention mixer through B9 -----------------------------------
+    t0 = time.perf_counter()
+    p = hybrid._init_attn(cfg, gen)
+    positions = torch.arange(s, device=dev)
+    ops.reset_dispatch_stats()
+    reset_counts()
+    with count_plain_attention() as plain:
+        transformer._attn_train(cfg, p, x, positions)
+        torch.cuda.synchronize()
+        launches = read_counts()["flash_attention_cuda"]
+    rows = [r for r in ops.dispatch_summary()["rows"] if r["op"] == "attention"]
+    sec = time_ms(lambda: transformer._attn_train(cfg, p, x, positions), reps=3,
+                  warmup=1) / 1e3
+    p32 = tree_map(lambda t: t.float(), p)
+    pre, _ = transformer._attn_train(cfg32, p32, x64, positions[:s_check])
+    hd = transformer._head_dim(cfg)
+    kc = torch.zeros((b, cfg.num_kv_heads, s_check, hd), device=dev)
+    vc = torch.zeros_like(kc)
+    steps = []
+    for i in range(s_check):
+        yi, kc, vc = transformer.block_decode_attn_only(cfg32, p32, x64[:, i:i + 1], kc, vc, i)
+        steps.append(yi)
+    dec = torch.cat(steps, dim=1)
+    row = {"params": sum(t.numel() for t in p.values()), "heads": cfg.num_heads,
+           "kv_heads": cfg.num_kv_heads, "head_dim": hd, "seconds_per_call": sec,
+           "tok_per_s": b * s / sec, "attention_launches": launches,
+           "plain_attention": dict(plain), "dispatch_rows": rows,
+           "decode_max_abs_diff": float((dec - pre).abs().max()),
+           "decode_allclose_1e-3": bool(torch.allclose(dec - x64, pre - x64, atol=1e-3,
+                                                       rtol=1e-3)),
+           "seconds": time.perf_counter() - t0}
+    row["ok"] = (launches == 1 and not plain and all(r["path"] == "kernel" for r in rows)
+                 and row["decode_allclose_1e-3"])
+    out["attention"] = row
+    del p, p32, pre, kc, vc, steps, dec
+    torch.cuda.empty_cache()
+
+    # ---- one MoE FFN --------------------------------------------------------
+    t0 = time.perf_counter()
+    p = hybrid._init_ffn(cfg, gen, moe=True)
+    sec = time_ms(lambda: hybrid._ffn_apply(cfg, p, x, True), reps=3, warmup=1) / 1e3
+    y, aux, y32 = _moe_ffn_vs_float32(cfg, p, x)
+    row = {"params": sum(t.numel() for t in p.values()),
+           "gb": sum(t.numel() * t.element_size() for t in p.values()) / 1e9,
+           "experts": cfg.num_experts, "top_k": cfg.experts_per_token,
+           "d_ff": cfg.moe_d_ff, "dispatch": cfg.moe_dispatch,
+           "capacity_factor": cfg.capacity_factor, "seconds_per_call": sec,
+           "tok_per_s": b * s / sec, "drop_frac": float(aux["moe_drop_frac"]),
+           "max_abs_err": float((y - y32).abs().max()), "max_abs_f32": float(y32.abs().max()),
+           "rel_l2_err": _rel_l2(y, y32), "seconds": time.perf_counter() - t0}
+    row["ok"] = (row["max_abs_err"] <= ATTN_TOL["bfloat16"] * row["max_abs_f32"]
+                 and row["rel_l2_err"] <= RECURRENT_REL_L2)
+    out["moe_ffn"] = row
+    del p, y, y32, aux
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- one dense FFN ------------------------------------------------------
+    t0 = time.perf_counter()
+    p = hybrid._init_ffn(cfg, gen, moe=False)
+    sec = time_ms(lambda: hybrid._ffn_apply(cfg, p, x, False), reps=3, warmup=1) / 1e3
+    out["dense_ffn"] = {"params": sum(t.numel() for t in p.values()), "d_ff": cfg.d_ff,
+                        "seconds_per_call": sec, "tok_per_s": b * s / sec, "ok": True,
+                        "seconds": time.perf_counter() - t0}
+    del p, x
+    torch.cuda.empty_cache()
+    return out
+
+
+def run_lm_hybrid(args, dev, card):
+    """The hybrid family: (a) jamba-1.5-large's layer kinds alone at its
+    published width (`run_jamba_layers`) and its superblock's size, which
+    is why no whole-model phase runs at that width; (b) the reduced jamba
+    card against CPU (serving, the loss and gradients through B9's
+    forward and backward kernels); (c) `launch.serve` on the reduced
+    jamba."""
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.launch import serve
+    t_phase = time.perf_counter()
+    parts = {}
+    t0 = time.perf_counter()
+    parts["a"] = {**run_jamba_layers(args, dev, card), "seconds": time.perf_counter() - t0}
+    layers_ok = {k: parts["a"][k]["ok"] for k in ("mamba", "attention", "moe_ffn", "dense_ffn")}
+    emit({"phase": "lm_hybrid", "part": "a_layers", "card": card, **parts["a"]})
+    # why no whole-model jamba runs at the published width on one card
+    card_gb = torch.cuda.get_device_properties(0).total_memory / 1e9
+    emit({"phase": "lm_hybrid", "part": "a_superblock", "card_gb": card_gb,
+          **jamba_superblock(get_arch(HYBRID_ARCH, reduced=args.lm_reduced))})
+    check(all(layers_ok.values()), f"lm_hybrid (a): layer kinds at full width: {layers_ok}")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    parts["b"] = {"serving": check_model_serving(dev, args.seed, HYBRID_ARCH),
+                  "gradient": check_model_gradient(dev, args.seed, HYBRID_ARCH),
+                  "seconds": time.perf_counter() - t0}
+    emit({"phase": "lm_hybrid", "part": "b_reduced_card_vs_cpu", **parts["b"]})
+    check(parts["b"]["serving"]["ok"] and parts["b"]["gradient"]["ok"],
+          f"lm_hybrid (b): the reduced model on the card against the CPU: {parts['b']}")
+
+    t0 = time.perf_counter()
+    argv = HYBRID_SERVE_ARGV + ["--seed", str(args.seed), "--device", str(dev)]
+    with watch_engine() as seen:
+        out = serve.main(argv)
+    check(out["completed"] == 16 and out["tokens"] == 16 * 32, f"lm_hybrid serve: {out}")
+    check(out["kv_pages_in_use"] == 0 and out["truncated"] == 0, f"lm_hybrid serve: {out}")
+    parts["c"] = {"argv": argv, **out, "ticks": seen["ticks"],
+                  "ticks_per_s": seen["ticks"] / seen["tick_s"],
+                  "seconds": time.perf_counter() - t0}
+    emit({"phase": "lm_hybrid", "part": "c_serve", "card": card, **parts["c"]})
+    seconds = time.perf_counter() - t_phase
+    emit({"phase": "lm_hybrid", "part": "all", "card": card, "seconds": seconds,
+          "parts_s": {n: p["seconds"] for n, p in parts.items()}})
+    launches = (parts["a"]["attention"]["attention_launches"]
+                + parts["b"]["serving"]["attention_launches"]
+                + parts["b"]["gradient"]["attention_launches"])
+    return {"launches": launches,
+            "bwd_launches": parts["b"]["gradient"]["attention_bwd_launches"],
+            "parts": parts, "seconds": seconds}
+
+
+def run_lm_recurrent(args, dev, card):
+    """lm_ssm then lm_hybrid, the failover guard around both."""
+    guard = start_failover_guard()
+    ssm = run_lm_ssm(args, dev, card)
+    hyb = run_lm_hybrid(args, dev, card)
+    failover_guard("lm_recurrent", guard)
+    return {"ssm": ssm, "hybrid": hyb, "launches": hyb["launches"]}
 
 
 def reset_counts():
@@ -4153,6 +4634,11 @@ def main(argv=None) -> int:
     gc.collect()
     torch.cuda.empty_cache()
 
+    # ---- the recurrent families (xlstm-1.3b, jamba-1.5-large) -------------
+    recurrent = run_lm_recurrent(args, dev, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+
     # ---- phases 3-4: the single-shard service, then the sharded one ------
     t0 = time.perf_counter()
     base = gen_maps(args.n, seed=args.seed)
@@ -4250,9 +4736,10 @@ def main(argv=None) -> int:
          "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
          "replaces": "src/repro/kernels/flash_attention.py:83",
          "launches": lm["launches"] + trained["full"]["launches"]["flash_attention_cuda"]
-         + moe_lm["launches"],
+         + moe_lm["launches"] + recurrent["launches"],
          "prefill_launches": lm["launches"],
          "moe_prefill_launches": moe_lm["launches"],
+         "hybrid_launches": recurrent["launches"],
          "train_launches": trained["full"]["launches"]["flash_attention_cuda"],
          "max_abs_err": attn_worst, "within_tol": attn_ok,
          "ms": lm["timing"]["ms"], "plain_ms": lm["timing"]["plain_ms"],
@@ -4264,6 +4751,7 @@ def main(argv=None) -> int:
          "replaces": "the gradient of src/repro/models/attention.py:33, taken at "
                      "src/repro/train/train_step.py:34",
          "launches": trained["full"]["launches"]["flash_attention_bwd_cuda"],
+         "hybrid_train_launches": recurrent["hybrid"]["bwd_launches"],
          "max_abs_err": trained["max_abs_err"], "worst_err_over_tol": trained["worst"],
          "within_tol": trained["record_ok"],
          "ms": trained["timing"]["ms"], "plain_ms": trained["timing"]["plain_ms"],

@@ -23,6 +23,7 @@ from repro_torch.core.rmi import RMIConfig, RMIndex
 from repro_torch.device import resolve_device
 from repro_torch.index_service.router import LearnedRouter
 from repro_torch.index_service.snapshot import IndexSnapshot
+from repro_torch.models import hybrid, mamba, xlstm, xlstm_model
 from repro_torch.models.layers import dtype_of
 from repro_torch.models.transformer import block_param_shapes
 
@@ -137,7 +138,10 @@ def lm_params_from_reference(params, cfg, device=None) -> dict:
     axis first in ``blocks``: (L, E, D, F) expert leaves and an (L, D, E)
     router for the moe family) as the port's parameters: one dict per
     layer, in ``cfg.dtype`` on ``device`` (None = "cuda").  The leaves
-    and their shapes must be the ones ``cfg`` builds."""
+    and their shapes must be the ones ``cfg`` builds.  The hybrid and ssm
+    families go through `superblock_params_from_reference`."""
+    if cfg.family in ("hybrid", "ssm"):
+        return superblock_params_from_reference(params, cfg, device)
     dev = resolve_device(device)
     dt = dtype_of(cfg.dtype)
     blocks = params["blocks"]
@@ -151,6 +155,72 @@ def lm_params_from_reference(params, cfg, device=None) -> dict:
         "embed": _lm_tensor(params["embed"], dt, dev),
         "blocks": [{name: _lm_tensor(np.asarray(a)[i], dt, dev)
                     for name, a in blocks.items()} for i in range(layers)],
+        "final_norm": _lm_tensor(params["final_norm"], dt, dev),
+    }
+
+
+def _superblock_spec(cfg) -> dict:
+    """One superblock's leaves in the port's layout, each (shape, dtype)."""
+    def leaves(shapes):
+        return {n: (shape, mamba.leaf_dtype(cfg, n)) for n, shape in shapes.items()}
+    if cfg.family == "hybrid":
+        return {key: leaves(shapes)
+                for key, shapes in hybrid.superblock_param_shapes(cfg).items()}
+    return {"mlstm": [leaves(xlstm.mlstm_param_shapes(cfg))] * (cfg.xlstm_slstm_every - 1),
+            "slstm": leaves(xlstm.slstm_param_shapes(cfg))}
+
+
+def _ref_dtype_name(dtype) -> str:
+    return {torch.bfloat16: "bfloat16", torch.float32: "float32"}[dtype]
+
+
+def superblock_params_from_reference(params, cfg, device=None) -> dict:
+    """The reference's hybrid (jamba) or xLSTM parameter pytree (NumPy
+    arrays, the superblock axis first in ``blocks``; the xLSTM's
+    ``mlstm`` leaves (NS, NM, …)) as the port's: one dict per superblock
+    (``mix{i}`` / ``ffn{i}``, or an ``mlstm`` list and ``slstm``), each
+    leaf in its own dtype (Mamba's ``a_log``, ``dt_bias`` and ``d_skip``
+    float32, the rest ``cfg.dtype``) on ``device`` (None = "cuda").  The
+    leaves, their shapes and their dtypes must be the ones ``cfg``
+    builds."""
+    dev = resolve_device(device)
+    dt = dtype_of(cfg.dtype)
+    ns = (hybrid if cfg.family == "hybrid" else xlstm_model)._n_super(cfg)
+    spec = _superblock_spec(cfg)
+    blocks = params["blocks"]
+
+    def leaf(a, index, name, want):
+        shape, dtype = want
+        a = np.asarray(a)
+        if a.shape[len(index):] != tuple(shape) or a.dtype.name != _ref_dtype_name(dtype):
+            raise ValueError(f"leaf {name}: {a.dtype.name} {a.shape}, config has "
+                             f"{_ref_dtype_name(dtype)} {(ns,) + tuple(shape)}")
+        return _lm_tensor(a[index], dtype, dev)
+
+    def carry(tree, want, index):
+        if set(tree) != set(want):
+            raise ValueError(f"leaves {sorted(tree)}, config has {sorted(want)}")
+        return {n: leaf(tree[n], index, n, want[n]) for n in want}
+
+    if set(blocks) != set(spec):
+        raise ValueError(f"superblock keys {sorted(blocks)}, config has {sorted(spec)}")
+    stacked = {int(np.shape(a)[0]) for sub in blocks.values() for a in sub.values()}
+    if stacked != {ns}:
+        raise ValueError(f"{sorted(stacked)} stacked superblocks, config has {ns}")
+    out = []
+    for j in range(ns):
+        if cfg.family == "hybrid":
+            out.append({key: carry(blocks[key], spec[key], (j,)) for key in spec})
+        else:
+            nm = len(spec["mlstm"])
+            if {int(np.shape(a)[1]) for a in blocks["mlstm"].values()} != {nm}:
+                raise ValueError(f"mLSTM layers per superblock, config has {nm}")
+            out.append({"mlstm": [carry(blocks["mlstm"], spec["mlstm"][i], (j, i))
+                                  for i in range(nm)],
+                        "slstm": carry(blocks["slstm"], spec["slstm"], (j,))})
+    return {
+        "embed": _lm_tensor(params["embed"], dt, dev),
+        "blocks": out,
         "final_norm": _lm_tensor(params["final_norm"], dt, dev),
     }
 

@@ -1,4 +1,5 @@
-"""The LM substrate's dense and MoE decoders (the reference's `repro.models`)."""
+"""The LM substrate's dense, MoE, hybrid (Jamba) and xLSTM models (the
+reference's `repro.models`)."""
 
 from repro_torch.models.registry import ModelAPI, get_model
 

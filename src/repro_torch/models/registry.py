@@ -2,11 +2,13 @@
 are cfg-bound functions, the surface that serving code touches (the
 reference's `repro/models/registry.py`).
 
-The port holds the dense and moe families' training and serving paths
-(both `models/transformer.py`, as in the reference).
-``device`` (None = "cuda") is where `init` draws parameters and
-`init_cache` allocates the cache; the other families raise
-`NotImplementedError` naming the ROADMAP item that ports them.
+The port holds the training and serving paths of the dense and moe
+families (both `models/transformer.py`, as in the reference), the
+hybrid family (`models/hybrid.py`) and the ssm family
+(`models/xlstm_model.py`).  ``device`` (None = "cuda") is where `init`
+draws parameters and `init_cache` allocates the cache; the vlm and
+audio families raise `NotImplementedError` naming the ROADMAP item that
+ports them.
 """
 
 from __future__ import annotations
@@ -19,11 +21,10 @@ import torch
 
 from repro_torch.configs.base import ArchConfig, ShapeConfig
 from repro_torch.device import DeviceLike, resolve_device
-from repro_torch.models import transformer
+from repro_torch.models import hybrid, transformer, xlstm_model
 
+_MODULES = {"dense": transformer, "moe": transformer, "hybrid": hybrid, "ssm": xlstm_model}
 _NOT_PORTED = {
-    "ssm": "the ssm family (models/xlstm_model.py), ROADMAP queue A",
-    "hybrid": "the hybrid family (models/hybrid.py), ROADMAP queue A",
     "vlm": "the vlm family (models/vlm.py), ROADMAP queue A",
     "audio": "the audio family (models/encdec.py), ROADMAP queue A",
 }
@@ -53,10 +54,10 @@ def _lm_batch_spec(cfg: ArchConfig, shape: ShapeConfig) -> Dict[str, Any]:
 def get_model(cfg: ArchConfig, device: DeviceLike = None) -> ModelAPI:
     if cfg.family in _NOT_PORTED:
         raise NotImplementedError(f"{cfg.name}: {_NOT_PORTED[cfg.family]}")
-    if cfg.family not in ("dense", "moe"):
+    if cfg.family not in _MODULES:
         raise ValueError(f"unknown family: {cfg.family}")
     dev = resolve_device(device)
-    mod = transformer
+    mod = _MODULES[cfg.family]
 
     def init(generator: torch.Generator):
         if generator.device.type != dev.type:

@@ -200,9 +200,10 @@ def prefill(cfg, params: Params, tokens: torch.Tensor) -> Tuple[torch.Tensor, An
     return logits, cache
 
 
-def block_decode(cfg, p, x, kc, vc, pos: int):
-    """x (B, 1, D); kc/vc (B, Hkv, S, hd), written in place at ``pos``.
-    Returns (x', kc, vc)."""
+def block_decode_attn_only(cfg, p, x, kc, vc, pos: int):
+    """The attention mixer without the FFN (the hybrid family attaches its
+    own): x (B, 1, D); kc/vc (B, Hkv, S, hd), written in place at
+    ``pos``.  Returns (x', kc, vc)."""
     b = x.shape[0]
     q, k, v = _qkv(cfg, p, x)
     posv = torch.full((1,), pos, dtype=torch.int32, device=x.device)
@@ -211,7 +212,14 @@ def block_decode(cfg, p, x, kc, vc, pos: int):
     kc, vc = attn_lib.update_kv_cache(kc, vc, k, v, pos)
     o = attn_lib.decode_attention(q, kc, vc, pos + 1)
     o = o.transpose(1, 2).reshape(b, 1, -1)
-    x, _ = _ffn(cfg, p, x + o @ p["wo"])
+    return x + o @ p["wo"], kc, vc
+
+
+def block_decode(cfg, p, x, kc, vc, pos: int):
+    """One decoder layer at decode: the attention mixer, then the FFN.
+    Returns (x', kc, vc)."""
+    x, kc, vc = block_decode_attn_only(cfg, p, x, kc, vc, pos)
+    x, _ = _ffn(cfg, p, x)
     return x, kc, vc
 
 

@@ -24,6 +24,9 @@ so they run where the card is:
   equal to the CPU's bit for bit, `moe_ffn` in bf16 repeating bit for bit
   and near its float32 products under the same dispatch, and the reduced
   olmoe-1b-7b's loss and gradients on the card against the CPU.
+* The recurrent families (`models/hybrid.py`, `models/xlstm_model.py`,
+  plain torch but for jamba's attention through B9): the reduced jamba
+  and xlstm served and trained on the card against the CPU.
 * The attention gradient (B9's backward kernel): against
   `ref.mha_backward_reference` on a small matrix (bf16, the tensor-core
   kernels, also within 1e-3 relative L2), bit-identical on a repeat
@@ -539,5 +542,56 @@ def test_reduced_moe_gradient_on_card_matches_the_cpu():
         out[name] = (float(loss), float(metrics["aux"]), [g.cpu() for g in tree_leaves(grads)])
     assert abs(out["cuda"][0] - out["cpu"][0]) <= 1e-5 * abs(out["cpu"][0])
     assert abs(out["cuda"][1] - out["cpu"][1]) <= 1e-6 * abs(out["cpu"][1])
+    for x, y in zip(out["cuda"][2], out["cpu"][2]):
+        assert float((x - y).abs().max()) <= 1e-4 * float(y.abs().max())
+
+
+# ---------------------------------------------------------------------------
+# the recurrent families (models/hybrid.py, models/xlstm_model.py)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["jamba-1.5-large-398b", "xlstm-1.3b"])
+def test_reduced_recurrent_model_on_card_matches_the_cpu(arch):
+    """The reduced jamba and xlstm (float32, TF32 off) on the card against
+    the CPU: prefill's logits and 6 decode steps' within 1e-4 x max, the
+    loss within 1e-5 relative and every gradient within 1e-4 x its
+    leaf's max; jamba's attention layers launch B9 once a prefill and
+    twice (remat) forward and once backward a training step."""
+    import dataclasses
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import get_model
+    from repro_torch.train.optimizer import tree_leaves, tree_map
+    from repro_torch.train.train_step import loss_and_grads
+    _card()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dataclasses.replace(get_arch(arch, reduced=True), dtype="float32")
+    attn_layers = cfg.num_layers // cfg.attn_period if cfg.family == "hybrid" else 0
+    toks = np.random.default_rng(0).integers(0, cfg.vocab_size, (2, 25)).astype(np.int32)
+    base = get_model(cfg, "cpu").init(torch.Generator().manual_seed(0))
+    out = {}
+    for name in ("cpu", "cuda"):
+        api = get_model(cfg, name)
+        params = tree_map(lambda t: t.to(name), base)
+        t = torch.as_tensor(toks, device=name)
+        fa.reset_launch_counts()
+        logits = [api.prefill(params, {"tokens": t[:, :24]})[0]]
+        cache = api.init_cache(2, 8)
+        for i in range(6):
+            step, cache = api.decode(params, cache, t[:, i])
+            logits.append(step)
+        prefill_launches = fa.LAUNCHES["flash_attention_cuda"]
+        fa.reset_launch_counts()
+        loss, _, grads = loss_and_grads(api.loss, params, {"tokens": t[:, :-1],
+                                                          "labels": t[:, 1:]})
+        out[name] = ([x.cpu() for x in logits], float(loss),
+                     [g.cpu() for g in tree_leaves(grads)], prefill_launches, dict(fa.LAUNCHES))
+    assert out["cuda"][3] == attn_layers
+    assert out["cuda"][4] == {"flash_attention_cuda": 2 * attn_layers,
+                              "flash_attention_bwd_cuda": attn_layers}
+    for x, y in zip(out["cuda"][0], out["cpu"][0]):
+        assert float((x - y).abs().max()) <= 1e-4 * float(y.abs().max())
+    assert abs(out["cuda"][1] - out["cpu"][1]) <= 1e-5 * abs(out["cpu"][1])
     for x, y in zip(out["cuda"][2], out["cpu"][2]):
         assert float((x - y).abs().max()) <= 1e-4 * float(y.abs().max())

@@ -220,7 +220,9 @@ def test_lm_modules_import_without_jax():
                  "repro_torch.kernels.flash_attention", "repro_torch.serve.kvcache",
                  "repro_torch.serve.engine", "repro_torch.launch.serve",
                  "repro_torch.train", "repro_torch.train.optimizer",
-                 "repro_torch.train.train_step", "repro_torch.launch.train"):
+                 "repro_torch.train.train_step", "repro_torch.launch.train",
+                 "repro_torch.models.mamba", "repro_torch.models.hybrid",
+                 "repro_torch.models.xlstm", "repro_torch.models.xlstm_model"):
         assert name in out[2:], name
 
 
@@ -232,8 +234,9 @@ def test_serve_refuses_without_a_card_unless_asked_for_the_cpu(monkeypatch, caps
     argv = ["--arch", "yi-6b", "--reduced", "--requests", "2", "--max-new", "3"]
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         serve.main(argv)
-    with pytest.raises(RuntimeError, match="CUDA is not available"):
-        get_model(REDUCED["yi-6b"])
+    for arch in ("yi-6b", "jamba-1.5-large-398b", "xlstm-1.3b"):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            get_model(REDUCED[arch])
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         serve.main(argv + ["--prefix-bloom"])
     out = serve.main(argv + ["--device", "cpu"])

@@ -155,23 +155,45 @@ def test_configs_are_the_references():
 ])
 def test_families_not_ported_raise(name, item):
     """The families still in ROADMAP queue A raise, naming it; the MoE
-    family (queue A item 5) builds: its init draws the expert leaves on
-    the CPU in the config's shapes and its prefill runs."""
-    if item != "MoE":
+    (queue A item 5), ssm and hybrid families (item 6) build: their init
+    draws the config's shapes on the CPU and a prefill runs."""
+    if item in ("vlm", "audio"):
         with pytest.raises(NotImplementedError, match=f"{item}.*ROADMAP queue A"):
             get_model(REDUCED[name], "cpu")
         return
-    from repro_torch.models import transformer
+    from repro_torch.models import hybrid, transformer, xlstm
+    from repro_torch.train.optimizer import tree_leaves
     cfg = REDUCED[name]
     api = get_model(cfg, "cpu")
     params = api.init(torch.Generator().manual_seed(0))
-    want = transformer.block_param_shapes(cfg)
-    assert {"router", "we_gate", "we_up", "we_down"} <= set(want)
-    for blk in params["blocks"]:
-        assert {n: tuple(w.shape) for n, w in blk.items()} == want
-        assert all(w.device.type == "cpu" and w.dtype == torch.bfloat16 for w in blk.values())
+    if item == "MoE":
+        want = [transformer.block_param_shapes(cfg)] * cfg.num_layers
+        assert {"router", "we_gate", "we_up", "we_down"} <= set(want[0])
+        got = [{n: tuple(w.shape) for n, w in blk.items()} for blk in params["blocks"]]
+    elif item == "hybrid":
+        want = [hybrid.superblock_param_shapes(cfg)] * (cfg.num_layers // cfg.attn_period)
+        got = [{k: {n: tuple(w.shape) for n, w in sub.items()} for k, sub in blk.items()}
+               for blk in params["blocks"]]
+    else:
+        m, s = xlstm.mlstm_param_shapes(cfg), xlstm.slstm_param_shapes(cfg)
+        want = [{"mlstm": [m] * (cfg.xlstm_slstm_every - 1), "slstm": s}] * (
+            cfg.num_layers // cfg.xlstm_slstm_every)
+        got = [{"mlstm": [{n: tuple(w.shape) for n, w in p.items()} for p in blk["mlstm"]],
+                "slstm": {n: tuple(w.shape) for n, w in blk["slstm"].items()}}
+               for blk in params["blocks"]]
+    assert got == want
+    assert all(w.device.type == "cpu" for w in tree_leaves(params))
+    f32 = [w for blk in params["blocks"] if item == "hybrid" for k, sub in blk.items()
+           for n, w in sub.items() if n in ("a_log", "dt_bias", "d_skip")]
+    mamba_layers = (cfg.num_layers // cfg.attn_period * (cfg.attn_period - 1)
+                    if item == "hybrid" else 0)
+    assert len(f32) == 3 * mamba_layers            # each Mamba mixer's float32 leaves
+    assert all(w.dtype == torch.float32 for w in f32)
+    assert sum(w.dtype == torch.bfloat16 for w in tree_leaves(params)) == len(
+        tree_leaves(params)) - len(f32)
     logits, cache = api.prefill(params, {"tokens": torch.zeros((1, 5), dtype=torch.int32)})
     assert logits.shape == (1, cfg.padded_vocab) and bool(torch.isfinite(logits.float()).all())
+    assert cache["len"] == 5
 
 
 def test_training_and_moe_ffn_raise_until_ported():
