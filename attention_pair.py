@@ -4,19 +4,20 @@ an earlier tree's, in turns, in one process on one card.
 
     python3 attention_pair.py --parent DIR
 
-DIR holds an earlier checkout (``git archive a6d1ace`` unpacked) whose
-``src/repro_torch/kernels/csrc/flash_attention.cu`` and
-``flash_attention_bwd.cu`` have that commit's launch signatures
-(`PARENT_ARGTYPES`, `PARENT_BWD_ARGTYPES`: the backward without the
-bfloat16 design's scratch).  All four sources are built with this tree's
-attention flags, and ptxas's registers and spills are printed for each
-instance.
+DIR holds an earlier checkout (``git archive <commit>`` unpacked).  Each
+tree's kernels are called through that tree's own wrapper: DIR's
+``src/repro_torch/kernels/flash_attention.py`` is loaded as a module of
+its own with its sources pointed at DIR's ``flash_attention.cu`` and
+``flash_attention_bwd.cu``, so the script follows any launch signature
+whose Python wrappers (`flash_attention_cuda`, `flash_attention_bwd_cuda`)
+take the same arguments.  Each tree builds with its own flags, and
+ptxas's registers and spills are printed for each instance.
 
 Inputs, made from ``--seed``: bf16 causal attention at yi-6b's heads
 (32 query heads, 4 KV heads of 128) and S = 4,096.  The forward, at the
 prefill batch (B = 2) and the training microbatch (B = 1): both kernels'
-outputs held bit for bit against each other (the inference call passes
-no log-sum-exp pointer).  The backward, at the training microbatch: both
+outputs held bit for bit against each other (neither call stores the
+log-sum-exp).  The backward, at the training microbatch: both
 gradients from the same output, log-sum-exp and output gradient, held
 to each other at `chip_smoke.py`'s bf16 tolerance (max |Δ| <= 2e-2 x
 max |parent|, relative L2 <= 1e-2), not bit for bit (the designs sum in
@@ -39,6 +40,7 @@ from __future__ import annotations
 
 import argparse
 import ctypes
+import importlib.util
 import json
 import math
 import pathlib
@@ -51,11 +53,6 @@ import chip_smoke as cs
 
 SHAPES = ((2, 32, 4, 4096, 128), (1, 32, 4, 4096, 128))   # (B, Hq, Hkv, S, D)
 BWD_SHAPE = cs.TRAIN_ATTN_SHAPE
-_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-# q, k, v, out, lse, B, Hq, Hkv, S, D, dtype, scale, causal, stream
-PARENT_ARGTYPES = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _P]
-# q, k, v, out, d_out, lse, di, dq, dk, dv, B, Hq, Hkv, S, D, dtype, scale, causal, stream
-PARENT_BWD_ARGTYPES = [_P] * 10 + [_I] * 6 + [_F, _I, _P]
 TURNS = ("parent", "change", "change", "parent", "parent", "change")
 # (B, Hq, Hkv, S, D, causal) of the control, the last the training shape
 CONTROL_SHAPES = ((1, 4, 2, 77, 64, False), (1, 8, 2, 1000, 128, True), (*BWD_SHAPE, True))
@@ -134,6 +131,24 @@ def _by_launch(fn, reps):
     return out
 
 
+def _parent_wrapper(root):
+    """DIR's `kernels/flash_attention.py` as a module of its own, its
+    sources pointed at DIR's; None (with the reason on stderr) if DIR
+    lacks one of them."""
+    kernels = root / "src/repro_torch/kernels"
+    files = (kernels / "flash_attention.py", kernels / "csrc/flash_attention.cu",
+             kernels / "csrc/flash_attention_bwd.cu")
+    for path in files:
+        if not path.is_file():
+            print(f"attention_pair: no {path}", file=sys.stderr)
+            return None
+    spec = importlib.util.spec_from_file_location("parent_flash_attention", files[0])
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    module.SOURCE, module.BWD_SOURCE = files[1], files[2]
+    return module
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--parent", type=pathlib.Path, required=True,
@@ -148,53 +163,41 @@ def main(argv=None) -> int:
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import nvcc, ref
 
-    csrc = args.parent / "src/repro_torch/kernels/csrc"
-    parent_src, parent_bwd_src = csrc / "flash_attention.cu", csrc / "flash_attention_bwd.cu"
-    for src in (parent_src, parent_bwd_src):
-        if not src.is_file():
-            print(f"attention_pair: no {src}", file=sys.stderr)
-            return 2
+    parent_fa = _parent_wrapper(args.parent)
+    if parent_fa is None:
+        return 2
     dev = torch.device(cs.DEVICE)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
-    sources = {"parent": parent_src, "change": fa.SOURCE, "parent_bwd": parent_bwd_src,
-               "change_bwd": fa.BWD_SOURCE}
     control_flags = (*fa.FLAGS, "-DATTN_BWD_SINGLE_BF16")
-    builds = [(src, fa.FLAGS) for src in sources.values()] + [(fa.BWD_SOURCE, control_flags)]
+    builds = {"parent": (parent_fa.SOURCE, parent_fa.FLAGS),
+              "change": (fa.SOURCE, fa.FLAGS),
+              "parent_bwd": (parent_fa.BWD_SOURCE, parent_fa.FLAGS),
+              "change_bwd": (fa.BWD_SOURCE, fa.FLAGS),
+              "control_bwd": (fa.BWD_SOURCE, control_flags)}
     with ThreadPoolExecutor(len(builds)) as pool:
-        list(pool.map(lambda job: nvcc.build(*job), builds))
-    lib = ctypes.CDLL(str(nvcc.library_path(parent_src, fa.FLAGS)))
-    lib.flash_attention_launch.argtypes = PARENT_ARGTYPES
-    lib.flash_attention_launch.restype = _I
-    bwd_lib = ctypes.CDLL(str(nvcc.library_path(parent_bwd_src, fa.FLAGS)))
-    bwd_lib.flash_attention_bwd_launch.argtypes = PARENT_BWD_ARGTYPES
-    bwd_lib.flash_attention_bwd_launch.restype = _I
+        list(pool.map(lambda job: nvcc.build(*job), builds.values()))
     control_lib = ctypes.CDLL(str(nvcc.library_path(fa.BWD_SOURCE, control_flags)))
     fa.declare_backward(control_lib)
-    for name, src in sources.items():
-        log = nvcc.library_path(src, fa.FLAGS).with_suffix(".log")
-        emit({"phase": "build", "tree": name, "ptxas": cs.ptxas_entries(log)})
+    for name, (src, flags) in builds.items():
+        if name != "control_bwd":
+            log = nvcc.library_path(src, flags).with_suffix(".log")
+            emit({"phase": "build", "tree": name, "ptxas": cs.ptxas_entries(log)})
 
     g = torch.Generator(device=dev).manual_seed(args.seed)
     rows = []
     for b, hq, hkv, s, d in SHAPES:
         q, k, v = (torch.randn((b, h, s, d), generator=g, device=dev).to(torch.bfloat16)
                    for h in (hq, hkv, hkv))
-        out = torch.empty_like(q)
-        stream = torch.cuda.current_stream(dev).cuda_stream
 
         def parent():
-            err = lib.flash_attention_launch(
-                q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), 0, b, hq, hkv, s, d,
-                1, 1.0 / math.sqrt(d), 1, stream)
-            nvcc.raise_on_error(err, "parent flash_attention")
+            return parent_fa.flash_attention_cuda(q, k, v, causal=True)
 
         def change():
             return fa.flash_attention_cuda(q, k, v, causal=True)
 
-        parent()
-        bits_equal = bool(torch.equal(out, change()))
+        bits_equal = bool(torch.equal(parent(), change()))
         cs.check(bits_equal, f"parent and change differ at {b, hq, hkv, s, d}")
         times = _in_turns(parent, change, 50)
         row = {"kernel": "flash_attention_cuda", "shape": [b, hq, hkv, s, d],
@@ -210,22 +213,14 @@ def main(argv=None) -> int:
     with torch.no_grad():
         out, lse = fa.flash_attention_cuda(q, k, v, causal=True, return_lse=True)
     d_out = torch.randn(out.shape, generator=g, device=dev).to(torch.bfloat16)
-    grads = [torch.empty_like(t) for t in (q, k, v)]
-    di = torch.empty((b, hq, s), dtype=torch.float32, device=dev)
-    stream = torch.cuda.current_stream(dev).cuda_stream
 
     def parent_bwd():
-        err = bwd_lib.flash_attention_bwd_launch(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), d_out.data_ptr(),
-            lse.data_ptr(), di.data_ptr(), *(t.data_ptr() for t in grads), b, hq, hkv, s, d,
-            1, 1.0 / math.sqrt(d), 1, stream)
-        nvcc.raise_on_error(err, "parent flash_attention_bwd")
+        return parent_fa.flash_attention_bwd_cuda(q, k, v, out, lse, d_out, causal=True)
 
     def change_bwd():
         return fa.flash_attention_bwd_cuda(q, k, v, out, lse, d_out, causal=True)
 
-    parent_bwd()
-    got = change_bwd()
+    grads, got = parent_bwd(), change_bwd()
     torch.cuda.synchronize()
     tol, rel_tol = cs.ATTN_BWD_TOL["bfloat16"], cs.ATTN_BWD_REL_L2
     held = {}
@@ -245,7 +240,7 @@ def main(argv=None) -> int:
            "change_launch_ms": _by_launch(change_bwd, reps=5)}
     emit(row)
     rows.append(row)
-    del q, k, v, out, lse, d_out, grads, di, got
+    del q, k, v, out, lse, d_out, grads, got
     control = _control(dev, g, control_lib)
     emit({"kernel": "flash_attention_bwd_cuda", "control": control})
     print(smi, flush=True)

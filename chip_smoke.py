@@ -15,7 +15,9 @@ is non-zero:
                card: flash attention within the reference's tolerances
                (f32 2e-5, bf16 2e-2) at the reference's four test shapes,
                S = 48, 1000 and 1 and yi-6b's heads at S = 1000, both
-               dtypes, causal and not; the rest bit for bit: the lookups at n = 50k (linear and
+               dtypes, causal and not, and cross-attention (full mask,
+               Sq != Sk: seamless's 256 over 3,072, 77 over 300, 1,000
+               over 130), both dtypes; the rest bit for bit: the lookups at n = 50k (linear and
                (16,16) MLP stage-0, and a duplicate-heavy key set) and on
                the full service index (stored, absent, leaf-boundary,
                duplicate-run and out-of-range queries, batches of 1, 777
@@ -137,6 +139,30 @@ is non-zero:
                card); (b) the reduced jamba card against CPU as lm_ssm
                (d), its attention through B9's forward and backward
                kernels; (c) `launch.serve` on the reduced jamba;
+  lm_multimodal — the vlm and audio families, the failover guard around
+               them: (a) B9 at seamless's cross shape (bf16, 256 queries
+               over 3,072 keys), its twin and SDPA (timed only) beside
+               the bound, and causal or grad-requiring calls at
+               Sq != Sk refused before any launch; (b)
+               llava-next-mistral-7b at full width and depth (bf16,
+               7.13B parameters): prefill of 2 x (576 image + 3,520
+               text) tokens twice (32 B9 launches a call), the prompt
+               less its last 8 tokens then 8 decode steps against it
+               (bf16: max |Δ| <= 0.05 max |logit|, the top-1 reported
+               beside each row's margin; float32 at full depth: same
+               top-1, allclose 1e-3; one layer in bf16 within a relative
+               L2 of 1e-2 of float32), `launch.serve` (the yi-6b call's
+               arguments); (c) seamless-m4t-large-v2 at full width and
+               depth (bf16, 24 + 24 layers): prefill of 2 x 3,072 frames
+               and 2 x 256 tokens twice (72 B9 launches a call: encoder,
+               decoder self and cross), prefill against 64 decode steps
+               on a cache from `encode` and `_enc_kv` (same top-1, max
+               |Δ| <= 0.05 max |logit|), one encoder and one decoder
+               layer in bf16 against float32; (d) the reduced llava and
+               seamless card against CPU (float32: logits 1e-4 x max,
+               loss 1e-5, gradients 1e-4 x max) and through
+               `launch.serve`; (e) no plain attention or SDPA over (b)
+               and (c);
   3. main path — `IndexService(strategy="cuda_fused", bloom_fpr=0.01)`
                over gen_maps(n) with a zero payload: every stored key at
                its float32 lower bound, then 300k inserts (values
@@ -223,6 +249,7 @@ import argparse
 import contextlib
 import gc
 import json
+import math
 import pathlib
 import re
 import subprocess
@@ -1964,7 +1991,6 @@ def bloom_oracle(rng, device, n=None):
     service's sizing (`build_bloom`'s m and k for fpr 0.01); every member
     found, and the false-positive rate on 4M non-members within
     ORACLE_BAND of (1 - e^{-kn/m})^k."""
-    import math
     from repro_torch.core.bloom import BloomFilter, optimal_bits_per_key, optimal_num_hashes
     from repro_torch.kernels import ops
     n = ORACLE_KEYS if n is None else n
@@ -2110,7 +2136,15 @@ ATTN_SHAPES = ((1, 4, 2, 128, 32), (2, 8, 8, 128, 64), (1, 8, 1, 256, 64),
                (2, 4, 2, 48, 128), (1, 8, 2, 1000, 64),  # ragged tails
                (1, 8, 2, 1, 64),
                (1, 32, 4, 1000, 128))  # yi-6b's heads, GQA group 8, ragged tail
+# cross-attention (full mask, Sq != Sk): (B, Hq, Hkv, Sq, Sk, D)
+ATTN_CROSS_SHAPES = ((2, 16, 16, 256, 3072, 64),   # seamless's, over 3,072 source frames
+                     (2, 4, 2, 77, 300, 64),       # ragged in both lengths
+                     (1, 8, 2, 1000, 130, 64))     # Sq > Sk
 ATTN_TOL = {"float32": 2e-5, "bfloat16": 2e-2}   # tests/test_kernels.py:83
+# beside ATTN_TOL, which is as wide as a typical output element once Sk
+# runs to thousands: the output's L2 error relative to the twin's (one
+# bf16 rounding is 2^-9), and the log-sum-exp within ATTN_LSE_TOL
+ATTN_REL_L2 = 1e-2
 # layer 0 at the prefill shape: one bf16 rounding of the float32 twin
 # (2^-8 relative, with room for float32 summation order), and an L2 error
 # relative to the bf16 twin
@@ -2140,13 +2174,15 @@ SERVE_ARGV = ["--arch", LM_ARCH, "--requests", "16", "--max-new", "32",
               "--batch-slots", "8", "--max-len", "512"]
 
 
-def attention_bound(b, hq, hkv, s, d, elem_bytes, causal=True):
-    """The least time for the attention: max(operations / bf16 peak,
-    bytes / memory rate), with 4·B·Hq·S²·D operations for the two
-    products ((S+1)/(2S) of them under the causal mask) and q, k, v read
-    once and o written once."""
-    flops = 4 * b * hq * s * s * d * ((s + 1) / (2 * s) if causal else 1.0)
-    moved = elem_bytes * d * s * b * (2 * hq + 2 * hkv)
+def attention_bound(b, hq, hkv, s, d, elem_bytes, causal=True, sk=None):
+    """The least time for the attention of S queries over Sk keys (Sk =
+    S unless given; causal needs Sk = S): max(operations / bf16 peak,
+    bytes / memory rate), with 4·B·Hq·S·Sk·D operations for the two
+    products ((S+1)/(2S) of them under the causal mask), q read and o
+    written over S rows, k and v read over Sk."""
+    sk = s if sk is None else sk
+    flops = 4 * b * hq * s * sk * d * ((s + 1) / (2 * s) if causal else 1.0)
+    moved = elem_bytes * d * b * (2 * hq * s + 2 * hkv * sk)
     flops_ms = flops / BF16_FLOPS_PER_S * 1e3
     bytes_ms = moved / HBM_BYTES_PER_S * 1e3
     return {"flops": flops, "bytes": moved, "bound_ms": max(flops_ms, bytes_ms),
@@ -2154,32 +2190,50 @@ def attention_bound(b, hq, hkv, s, d, elem_bytes, causal=True):
 
 
 def compare_attention_kernel(dev, seed, record):
-    """`flash_attention_cuda` against `ref.mha_reference` on the card at
-    the reference's test shapes and ragged ones, both dtypes, causal and
-    not; returns the largest |difference|."""
+    """`flash_attention_cuda` against `ref.mha_reference_lse` on the card
+    at the reference's test shapes and ragged ones, both dtypes, causal
+    and not, and at the cross-attention shapes (full mask, Sq != Sk): the
+    output within ATTN_TOL and ATTN_REL_L2, the log-sum-exp within
+    ATTN_LSE_TOL (a key tile left out, or a zero-filled key past Sk left
+    unmasked, moves it by ~1e-2), and the output the same bits as the
+    call that stores no log-sum-exp (the main path's); returns the
+    largest |difference|."""
     import torch
     from repro_torch.kernels import ref
     from repro_torch.kernels.flash_attention import flash_attention_cuda
     g = torch.Generator(device=dev).manual_seed(seed)
     worst = 0.0
-    for b, hq, hkv, s, d in ATTN_SHAPES:
+    cases = [((b, hq, hkv, s, s, d), (True, False)) for b, hq, hkv, s, d in ATTN_SHAPES]
+    cases += [(shape, (False,)) for shape in ATTN_CROSS_SHAPES]
+    for (b, hq, hkv, sq, sk, d), masks in cases:
+        shape = [b, hq, hkv, sq, d] if sq == sk else [b, hq, hkv, sq, sk, d]
         for name, tol in ATTN_TOL.items():
             dt = getattr(torch, name)
-            q, k, v = (torch.randn((b, h, s, d), generator=g, device=dev).to(dt)
-                       for h in (hq, hkv, hkv))
-            for causal in (True, False):
-                got = flash_attention_cuda(q, k, v, causal=causal)
-                want = ref.mha_reference(q, k, v, causal=causal)
+            q = torch.randn((b, hq, sq, d), generator=g, device=dev).to(dt)
+            k, v = (torch.randn((b, hkv, sk, d), generator=g, device=dev).to(dt)
+                    for _ in range(2))
+            for causal in masks:
+                got, lse = flash_attention_cuda(q, k, v, causal=causal, return_lse=True)
+                plain_call = flash_attention_cuda(q, k, v, causal=causal)
+                want, want_lse = ref.mha_reference_lse(q, k, v, causal=causal)
                 torch.cuda.synchronize()
                 check(got.dtype == dt and got.shape == q.shape,
-                      f"attention {b, hq, hkv, s, d} {name}: wrong output")
-                err = float((got.float() - want.float()).abs().max())
-                ok = bool(torch.allclose(got.float(), want.float(), atol=tol, rtol=tol))
-                record.append({"shape": [b, hq, hkv, s, d], "dtype": name,
-                               "causal": causal, "max_abs_err": err, "within_tol": ok})
-                check(ok, f"attention {b, hq, hkv, s, d} {name} causal={causal}: "
-                          f"max |kernel - plain| {err} over tol {tol}")
-                worst = max(worst, err)
+                      f"attention {shape} {name}: wrong output")
+                row = {"shape": shape, "dtype": name, "causal": causal,
+                       "max_abs_err": float((got.float() - want.float()).abs().max()),
+                       "rel_l2": _rel_l2(got.float(), want.float()),
+                       "lse_max_abs_err": float((lse - want_lse).abs().max()),
+                       "out_bits_equal": bool(torch.equal(got, plain_call))}
+                row["within_tol"] = (
+                    row["out_bits_equal"]
+                    and bool(torch.allclose(got.float(), want.float(), atol=tol, rtol=tol))
+                    and row["rel_l2"] <= ATTN_REL_L2
+                    and bool(torch.allclose(lse, want_lse, atol=ATTN_LSE_TOL,
+                                            rtol=ATTN_LSE_TOL)))
+                record.append(row)
+                check(row["within_tol"], f"attention {shape} {name} causal={causal}: {row} "
+                                         f"over tol {tol}, {ATTN_REL_L2}, {ATTN_LSE_TOL}")
+                worst = max(worst, row["max_abs_err"])
     return worst
 
 
@@ -2631,7 +2685,9 @@ def check_model_gradient(dev, seed, arch=LM_ARCH):
     loop: the loss within 1e-5 relative, the MoE aux loss within 1e-6
     relative (0 for a family without one), each leaf within 1e-4 x its
     max; two forward launches (the remat recompute) and one backward
-    launch of B9 an attention layer."""
+    launch of B9 an attention (`_attention_calls`).  The vlm's batch
+    carries patches, the audio family's as many frames as tokens (the
+    registry's train spec, so the backward kernel sees Sq = Sk)."""
     import dataclasses
     import torch
     from repro_torch.configs import get_arch
@@ -2641,13 +2697,16 @@ def check_model_gradient(dev, seed, arch=LM_ARCH):
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     cfg = dataclasses.replace(get_arch(arch, reduced=True), dtype="float32")
-    toks = np.random.default_rng((seed, 3)).integers(0, cfg.vocab_size, (4, 65))
+    rng = np.random.default_rng((seed, 3))
+    toks = rng.integers(0, cfg.vocab_size, (4, 65))
+    extra = _modality(cfg, rng, 4, 64, "cpu", torch.float32)
     params = get_model(cfg, "cpu").init(torch.Generator().manual_seed(seed))
     got = {}
     reset_counts()
     for where in ("cpu", dev):
         batch = {"tokens": torch.as_tensor(toks[:, :-1], dtype=torch.int32, device=where),
-                 "labels": torch.as_tensor(toks[:, 1:], dtype=torch.int32, device=where)}
+                 "labels": torch.as_tensor(toks[:, 1:], dtype=torch.int32, device=where),
+                 **tree_map(lambda x: x.to(where), extra)}
         loss, metrics, grads = loss_and_grads(get_model(cfg, where).loss,
                                               tree_map(lambda t: t.to(where), params), batch)
         got[str(where)] = (float(loss), [g.float().cpu() for g in tree_leaves(grads)],
@@ -2663,7 +2722,7 @@ def check_model_gradient(dev, seed, arch=LM_ARCH):
            "aux_rel_err": abs(aux_card - aux_cpu) / max(abs(aux_cpu), 1e-30),
            "attention_launches": launches["flash_attention_cuda"],
            "attention_bwd_launches": launches["flash_attention_bwd_cuda"]}
-    attn = _attention_layers(cfg)
+    attn = _attention_calls(cfg)
     out["ok"] = (out["loss_rel_err"] <= 1e-5 and leaf_err <= 1e-4
                  and out["aux_rel_err"] <= 1e-6
                  and out["attention_launches"] == 2 * attn
@@ -3189,26 +3248,50 @@ SSM_SERVE_ARGV = ["--arch", SSM_ARCH] + SERVE_ARGV[2:]
 HYBRID_SERVE_ARGV = ["--arch", HYBRID_ARCH, "--reduced"] + SERVE_ARGV[2:]
 
 
-def _attention_layers(cfg):
-    """Layers whose mixer is attention (B9 at prefill and training)."""
+def _attention_calls(cfg):
+    """B9 launches in one prefill or training forward: a layer's
+    self-attention (the hybrid's attention layers only, none for the
+    ssm), and for the audio family also each encoder layer's and each
+    cross-attention."""
     if cfg.family == "hybrid":
         return cfg.num_layers // cfg.attn_period
+    if cfg.family == "audio":
+        return cfg.num_encoder_layers + 2 * cfg.num_layers
     return 0 if cfg.family == "ssm" else cfg.num_layers
+
+
+def _modality(cfg, rng, b, s, dev, dtype):
+    """The batch's non-text input, unit normal: llava's anyres patch
+    embeddings (B, T_img, F), seamless's filterbank frames (B, s, F),
+    nothing for a text-only family (``rng`` then draws nothing)."""
+    import torch
+    if cfg.family == "vlm":
+        shape = (b, cfg.frontend_tokens, cfg.frontend_dim)
+    elif cfg.family == "audio":
+        shape = (b, s, cfg.frontend_dim)
+    else:
+        return {}
+    name = "patches" if cfg.family == "vlm" else "frames"
+    return {name: torch.as_tensor(rng.standard_normal(shape), dtype=torch.float32,
+                                  device=dev).to(dtype)}
 
 
 def check_model_serving(dev, seed, arch):
     """The reduced ``arch`` (float32, TF32 off) served on the card against
     the CPU: prefill's logits and those of 6 decode steps within 1e-4 x
-    max |CPU logit|; the card's B9 launches (one an attention layer) and
-    no plain attention."""
+    max |CPU logit| (decode goes on from the prefill's KV cache, the
+    recurrent families' from a fresh cache); the card's B9 launches
+    (`_attention_calls`) and no plain attention."""
     import dataclasses
     import torch
     from repro_torch.configs import get_arch
-    from repro_torch.models import get_model
+    from repro_torch.models import get_model, transformer
     from repro_torch.train.optimizer import tree_map
     torch.backends.cuda.matmul.allow_tf32 = False
     cfg = dataclasses.replace(get_arch(arch, reduced=True), dtype="float32")
-    toks = np.random.default_rng((seed, 6)).integers(0, cfg.vocab_size, (2, 24))
+    rng = np.random.default_rng((seed, 6))
+    toks = rng.integers(0, cfg.vocab_size, (2, 24))
+    extra = _modality(cfg, rng, 2, 24, "cpu", torch.float32)
     params = get_model(cfg, "cpu").init(torch.Generator().manual_seed(seed))
     got = {}
     for where in ("cpu", dev):
@@ -3217,9 +3300,12 @@ def check_model_serving(dev, seed, arch):
         t = torch.as_tensor(toks, dtype=torch.int32, device=where)
         reset_counts()
         with count_plain_attention() as plain:
-            lp, _ = api.prefill(p, {"tokens": t})
+            lp, cache = api.prefill(p, {"tokens": t, **tree_map(lambda x: x.to(where), extra)})
             launches = read_counts()["flash_attention_cuda"]
-            cache = api.init_cache(2, 8)
+            if cfg.family in ("ssm", "hybrid"):
+                cache = api.init_cache(2, 8)
+            else:
+                cache = transformer.extend_cache(cache, cache["len"] + 8)
             steps = []
             for i in range(6):
                 ld, cache = api.decode(p, cache, t[:, i])
@@ -3231,7 +3317,7 @@ def check_model_serving(dev, seed, arch):
            "decode_steps": 6, "prefill_err_over_max": errs[0],
            "decode_err_over_max": max(errs[1:]), "attention_launches": launches,
            "plain_attention": dict(plain)}
-    out["ok"] = (max(errs) <= 1e-4 and launches == _attention_layers(cfg) and not plain)
+    out["ok"] = (max(errs) <= 1e-4 and launches == _attention_calls(cfg) and not plain)
     return out
 
 
@@ -3618,6 +3704,388 @@ def run_lm_recurrent(args, dev, card):
     hyb = run_lm_hybrid(args, dev, card)
     failover_guard("lm_recurrent", guard)
     return {"ssm": ssm, "hybrid": hyb, "launches": hyb["launches"]}
+
+
+# ---------------------------------------------------------------------------
+# lm_multimodal: the vlm (llava-next-mistral-7b) and audio
+# (seamless-m4t-large-v2) families
+# ---------------------------------------------------------------------------
+
+VLM_ARCH, AUDIO_ARCH = "llava-next-mistral-7b", "seamless-m4t-large-v2"
+VLM_CHECK_TAIL = 8               # text tokens decoded after the shortened prompt's prefill
+AUDIO_TGT = 256                  # target tokens of seamless's prefill
+AUDIO_CHECK_SEQ = 64             # target tokens fed to sequential decode
+MULTIMODAL_PREFILLS = 2          # prefill calls a model (the first warms up)
+MULTIMODAL_REL_L2 = 1e-2         # bf16 against float32, layer by layer
+VLM_SERVE_ARGV = ["--arch", VLM_ARCH] + SERVE_ARGV[2:]
+REDUCED_MULTIMODAL_SERVE = {arch: ["--arch", arch, "--reduced"] + SERVE_ARGV[2:]
+                            for arch in (VLM_ARCH, AUDIO_ARCH)}
+
+
+def multimodal_prefill(api, params, batch, calls=MULTIMODAL_PREFILLS):
+    """``calls`` prefills of ``batch``, timed each; B9's launches over
+    them, the dispatch ledger's attention rows, peak memory."""
+    import torch
+    from repro_torch.kernels import ops
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_dispatch_stats()
+    reset_counts()
+    times = []
+    for _ in range(calls):
+        t0 = time.perf_counter()
+        logits, cache = api.prefill(params, batch)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    launches = read_counts()["flash_attention_cuda"]
+    rows = [r for r in ops.dispatch_summary()["rows"] if r["op"] == "attention"]
+    return logits, cache, times, launches, rows, torch.cuda.max_memory_allocated()
+
+
+def _check_prefill(cfg, tag, logits, cache, launches, rows, calls, length):
+    check(launches == calls * _attention_calls(cfg),
+          f"{tag}: {launches} B9 launches in {calls} prefills, want "
+          f"{calls} x {_attention_calls(cfg)}")
+    check(rows and all(r["path"] == "kernel" for r in rows),
+          f"{tag}: prefill reached plain attention: {rows}")
+    check(tuple(logits.shape) == (cache["k"].shape[1], cfg.padded_vocab)
+          and bool(logits.float().isfinite().all()), f"{tag}: prefill logits")
+    check(cache["len"] == length and cache["k"].shape[3] == length, f"{tag}: cache length")
+
+
+def _agreement(lp, ld):
+    """Prefill's last logits against decode's: top-1 and max |Δ| against
+    max |logit| (the bf16 bound 0.05 of yi-6b's check), and each row's
+    margin between the prefill's two leading logits."""
+    lp, ld = lp.float(), ld.float()
+    top2 = lp.topk(2, dim=-1).values
+    out = {"top1_prefill": lp.argmax(-1).tolist(), "top1_decode": ld.argmax(-1).tolist(),
+           "max_abs_diff": float((lp - ld).abs().max()), "max_abs_logit": float(lp.abs().max()),
+           "top2_margin": (top2[:, 0] - top2[:, 1]).tolist()}
+    out["ok"] = (out["top1_prefill"] == out["top1_decode"]
+                 and out["max_abs_diff"] <= 0.05 * out["max_abs_logit"])
+    return out
+
+
+def _prefill_tail_vs_decode(api, params, batch, tail):
+    """The whole prompt's prefill logits against the prompt less its last
+    ``tail`` text tokens prefilled, then those tokens decoded one at a
+    time on the cache padded with headroom; and the cache's length after
+    them."""
+    import torch
+    from repro_torch.models import transformer
+    lp, _ = api.prefill(params, batch)
+    _, short = api.prefill(params, {**batch, "tokens": batch["tokens"][:, :-tail]})
+    full = transformer.extend_cache(short, short["len"] + tail + 8)
+    del short
+    s = batch["tokens"].shape[1]
+    for t in range(s - tail, s):
+        ld, full = api.decode(params, full, batch["tokens"][:, t])
+    torch.cuda.synchronize()
+    return lp, ld, full["len"]
+
+
+def vlm_layer_bf16(cfg, p, rng, dev, s):
+    """One llava layer (attention through B9, then the FFN) in bf16 on 2 x
+    ``s`` unit-normal hidden states against the same layer in float32
+    (relative L2)."""
+    import dataclasses
+    import torch
+    from repro_torch.models import transformer
+    x = torch.as_tensor(rng.standard_normal((2, s, cfg.d_model)), dtype=torch.float32,
+                        device=dev).to(torch.bfloat16)
+    pos = torch.arange(s, device=dev)
+    got = transformer.block_train(cfg, p, x, pos)[0].float()
+    want = transformer.block_train(dataclasses.replace(cfg, dtype="float32"),
+                                   {n: w.float() for n, w in p.items()}, x.float(), pos)[0]
+    out = {"rel_l2_bf16_vs_f32": _rel_l2(got, want)}
+    out["ok"] = out["rel_l2_bf16_vs_f32"] <= MULTIMODAL_REL_L2
+    return out
+
+
+def time_cross_attention(dev, seed):
+    """(a): B9 at seamless's cross shape (bf16, full mask, 256 queries
+    over 3,072 keys), its twin and SDPA (`enable_gqa`, timed only) beside
+    the bound; and the refusals: causal at Sq != Sk and a gradient at
+    Sq != Sk raise before anything launches."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+    b, hq, hkv, sq, sk, d = ATTN_CROSS_SHAPES[0]
+    g = torch.Generator(device=dev).manual_seed(seed)
+    q = torch.randn((b, hq, sq, d), generator=g, device=dev).to(torch.bfloat16)
+    k, v = (torch.randn((b, hkv, sk, d), generator=g, device=dev).to(torch.bfloat16)
+            for _ in range(2))
+    reset_counts()
+    refused = {}
+    for name, fn in (("causal", lambda: flash_attention_cuda(q, k, v, causal=True)),
+                     ("grad", lambda: flash_attention_cuda(q.clone().requires_grad_(True), k,
+                                                           v, causal=False))):
+        try:
+            fn()
+            refused[name] = False
+        except ValueError:
+            refused[name] = True
+    refused["launches"] = sum(read_counts().values())
+    check(refused["causal"] and refused["grad"] and refused["launches"] == 0,
+          f"lm_multimodal (a): Sq != Sk not refused before a launch: {refused}")
+    row = {"shape": [b, hq, hkv, sq, sk, d], "dtype": "bfloat16", "causal": False,
+           "ms": time_ms(lambda: flash_attention_cuda(q, k, v, causal=False), reps=50),
+           "plain_ms": time_ms(lambda: ref.mha_reference(q, k, v, causal=False), reps=10),
+           "sdpa_ms": time_ms(lambda: F.scaled_dot_product_attention(q, k, v, enable_gqa=True),
+                              reps=50),
+           **attention_bound(b, hq, hkv, sq, d, 2, causal=False, sk=sk), "refused": refused}
+    del q, k, v
+    torch.cuda.empty_cache()
+    return row
+
+
+def run_vlm(args, dev, card, rng):
+    """(b): llava-next-mistral-7b at its published width and depth (bf16,
+    random weights from a seeded generator on the card): prefill of 2 x
+    (576 image + 3,520 text) tokens, the prompt less its last 8 text
+    tokens then 8 decode steps against it, and `launch.serve`."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.launch import serve
+    from repro_torch.models import get_model
+    from repro_torch.train.optimizer import tree_map
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_arch(VLM_ARCH, reduced=args.lm_reduced)
+    b = LM_BATCH
+    s_text = (LM_SEQ if not args.lm_reduced else 128) - cfg.frontend_tokens
+    out = {}
+    t0 = time.perf_counter()
+    api = get_model(cfg, dev)
+    params = api.init(torch.Generator(device=dev).manual_seed(args.seed))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = _param_count(params)
+    batch = {"tokens": _lm_tokens(rng, cfg, b, s_text, dev),
+             **_modality(cfg, rng, b, s_text, dev, torch.bfloat16)}
+    logits, cache, times, launches, rows, peak = multimodal_prefill(api, params, batch)
+    length = cfg.frontend_tokens + s_text
+    _check_prefill(cfg, "lm_multimodal (b)", logits, cache, launches, rows,
+                   MULTIMODAL_PREFILLS, length)
+    out["prefill"] = {"arch": cfg.name, "params": n_params, "param_gb": 2 * n_params / 1e9,
+                      "init_s": init_s, "batch": b, "image_tokens": cfg.frontend_tokens,
+                      "text_tokens": s_text, "seq": length, "prefill_s": times,
+                      "prefill_tok_per_s": b * length / min(times), "peak_mem_gb": peak / 1e9,
+                      "attention_launches": launches, "seconds": time.perf_counter() - t0}
+    emit({"phase": "lm_multimodal", "part": "b_vlm_prefill", "card": card, **out["prefill"]})
+    del cache
+
+    # The prompt less its last VLM_CHECK_TAIL tokens, then decode, against
+    # the whole prompt: in bf16 (max |Δ| <= 0.05 max |logit|, and the same
+    # top-1 on each row whose float32 top-2 margin exceeds one bf16
+    # rounding of max |logit|: under random weights two leading logits
+    # can sit closer, ~0.03 at |logit| 4-8, and then bf16 cannot order
+    # them, PERF.md §6), in float32 at full depth (same top-1 on every
+    # row, allclose 1e-3), and one layer in bf16 against float32.
+    t0 = time.perf_counter()
+    tail = VLM_CHECK_TAIL
+    lp, ld, n = _prefill_tail_vs_decode(api, params, batch, tail)
+    check(n == length, f"lm_multimodal (b): the cache holds {n} positions, want {length}")
+    bf16 = {"layers": cfg.num_layers, **_agreement(lp, ld)}
+    bf16["ok"] = bf16["max_abs_diff"] <= 0.05 * bf16["max_abs_logit"]
+    layer = vlm_layer_bf16(cfg, params["blocks"][0], rng, dev, length)
+    launches = read_counts()["flash_attention_cuda"]
+    reset_counts()
+    params = tree_map(lambda t: t.float(), params)   # float32, 28.5 GB: the bf16 copy goes
+    gc.collect()
+    torch.cuda.empty_cache()
+    api32 = get_model(dataclasses.replace(cfg, dtype="float32"), dev)
+    lp, ld, _ = _prefill_tail_vs_decode(api32, params, {**batch, "patches": batch[
+        "patches"].float()}, tail)
+    f32 = {"layers": cfg.num_layers, **_agreement(lp, ld),
+           "allclose_1e-3": bool(torch.allclose(lp, ld, atol=1e-3, rtol=1e-3))}
+    f32["ok"] = f32["top1_prefill"] == f32["top1_decode"] and f32["allclose_1e-3"]
+    bf16["bf16_rounding"] = 2.0 ** (math.floor(math.log2(bf16["max_abs_logit"])) - 7)
+    bf16["top1_rows_held"] = [r for r, m in enumerate(f32["top2_margin"])
+                              if m > bf16["bf16_rounding"]]
+    bf16["ok"] = bf16["ok"] and all(bf16["top1_prefill"][r] == bf16["top1_decode"][r]
+                                    for r in bf16["top1_rows_held"])
+    launches += read_counts()["flash_attention_cuda"]
+    out["decode"] = {"seq": length, "decoded": tail, "bfloat16": bf16, "float32": f32,
+                     "layer0_bf16": layer, "seconds": time.perf_counter() - t0}
+    emit({"phase": "lm_multimodal", "part": "b_vlm_prefill_vs_decode", **out["decode"]})
+    check(bf16["ok"] and f32["ok"] and layer["ok"],
+          f"lm_multimodal (b): llava prefill against {tail} decode steps: {out['decode']}")
+    del params, api, api32, batch, logits, lp, ld
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    argv = VLM_SERVE_ARGV + (["--reduced"] if args.lm_reduced else []) + [
+        "--seed", str(args.seed), "--device", str(dev)]
+    with watch_engine() as seen:
+        served = serve.main(argv)
+    check(served["completed"] == 16 and served["tokens"] == 16 * 32,
+          f"lm_multimodal serve: {served}")
+    check(served["kv_pages_in_use"] == 0 and served["truncated"] == 0,
+          f"lm_multimodal serve: {served}")
+    out["serve"] = {"argv": argv, **served, "ticks": seen["ticks"],
+                    "ticks_per_s": seen["ticks"] / seen["tick_s"],
+                    "seconds": time.perf_counter() - t0}
+    emit({"phase": "lm_multimodal", "part": "b_vlm_serve", "card": card, **out["serve"]})
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out, launches
+
+
+def encdec_layers_bf16(cfg, params, rng, dev, s_src, s_tgt):
+    """One encoder layer, and one decoder layer with its cross-attention,
+    in bf16 on unit-normal input against the same layer in float32
+    (relative L2)."""
+    import dataclasses
+    import torch
+    from repro_torch.models import encdec
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    enc, dec = params["enc"][0], params["dec"][0]
+    x = torch.as_tensor(rng.standard_normal((2, s_src, cfg.d_model)), dtype=torch.float32,
+                        device=dev).to(torch.bfloat16)
+    y = torch.as_tensor(rng.standard_normal((2, s_tgt, cfg.d_model)), dtype=torch.float32,
+                        device=dev).to(torch.bfloat16)
+    out = {}
+    for name, fn, p, args in (
+            ("encoder", encdec._enc_block, enc, (x,)),
+            ("decoder", encdec._dec_block, dec, (y, x))):
+        pos = torch.arange(args[0].shape[1], device=dev)
+        got = fn(cfg, p, *args, pos).float()
+        want = fn(cfg32, {n: w.float() for n, w in p.items()}, *(a.float() for a in args), pos)
+        out[name] = _rel_l2(got, want)
+    out["ok"] = max(out.values()) <= MULTIMODAL_REL_L2
+    return out
+
+
+def run_audio(args, dev, card, rng):
+    """(c): seamless-m4t-large-v2 at its published width and depth (bf16,
+    random weights from a seeded generator on the card): prefill of 2 x
+    3,072 frames and 2 x 256 text tokens; prefill against 64 sequential
+    decode steps on a cache built from `encode` and `_enc_kv`; one
+    encoder layer and one decoder layer in bf16 against float32."""
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.models import encdec, get_model, registry
+    cfg = get_arch(AUDIO_ARCH, reduced=args.lm_reduced)
+    b = LM_BATCH
+    src = registry.ENCDEC_DECODE_SRC_LEN if not args.lm_reduced else 96
+    tgt = AUDIO_TGT if not args.lm_reduced else 32
+    s_check = AUDIO_CHECK_SEQ if not args.lm_reduced else 16
+    out = {}
+    t0 = time.perf_counter()
+    api = get_model(cfg, dev)
+    params = api.init(torch.Generator(device=dev).manual_seed(args.seed))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = _param_count(params)
+    batch = {"tokens": _lm_tokens(rng, cfg, b, tgt, dev),
+             **_modality(cfg, rng, b, src, dev, torch.bfloat16)}
+    logits, cache, times, launches, rows, peak = multimodal_prefill(api, params, batch)
+    _check_prefill(cfg, "lm_multimodal (c)", logits, cache, launches, rows,
+                   MULTIMODAL_PREFILLS, tgt)
+    check(tuple(cache["xk"].shape) == (cfg.num_layers, b, cfg.num_kv_heads, src,
+                                       encdec._hd(cfg)), "lm_multimodal (c): cross KV shape")
+    out["prefill"] = {"arch": cfg.name, "params": n_params, "param_gb": 2 * n_params / 1e9,
+                      "init_s": init_s, "batch": b, "src_frames": src, "tgt_tokens": tgt,
+                      "prefill_s": times, "prefill_tok_per_s": b * (src + tgt) / min(times),
+                      "peak_mem_gb": peak / 1e9, "attention_launches": launches,
+                      "seconds": time.perf_counter() - t0}
+    emit({"phase": "lm_multimodal", "part": "c_audio_prefill", "card": card, **out["prefill"]})
+    del cache, logits
+
+    t0 = time.perf_counter()
+    toks = batch["tokens"][:, :s_check]
+    lp, _ = api.prefill(params, {"frames": batch["frames"], "tokens": toks})
+    enc_out = encdec.encode(cfg, params, batch["frames"])
+    dcache = encdec.init_cache(cfg, b, s_check + 4, src, dev)
+    for i, p in enumerate(params["dec"]):
+        dcache["xk"][i], dcache["xv"][i] = encdec._enc_kv(cfg, p, enc_out)
+    for t in range(s_check):
+        ld, dcache = api.decode(params, dcache, toks[:, t])
+    torch.cuda.synchronize()
+    out["decode"] = {"seq": s_check, "src_frames": src,
+                     "layers": cfg.num_encoder_layers + cfg.num_layers,
+                     **_agreement(lp, ld), "seconds": time.perf_counter() - t0}
+    emit({"phase": "lm_multimodal", "part": "c_audio_prefill_vs_decode", "dtype": "bfloat16",
+          **out["decode"]})
+    del dcache, enc_out, lp, ld
+
+    t0 = time.perf_counter()
+    out["layers_bf16"] = {**encdec_layers_bf16(cfg, params, rng, dev, src, tgt),
+                          "seconds": time.perf_counter() - t0}
+    emit({"phase": "lm_multimodal", "part": "c_audio_layers_bf16", **out["layers_bf16"]})
+    launches = read_counts()["flash_attention_cuda"]
+    check(out["decode"]["ok"], f"lm_multimodal (c): seamless prefill against {s_check} "
+          f"decode steps: {out['decode']}")
+    check(out["layers_bf16"]["ok"], f"lm_multimodal (c): a layer in bf16 against float32: "
+          f"{out['layers_bf16']}")
+    del params, api, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out, launches
+
+
+def run_lm_multimodal(args, dev, card):
+    """The vlm and audio families, the failover guard around them: (a)
+    B9 at seamless's cross shape timed and its refusals; (b) llava at
+    full size; (c) seamless at full size; (d) the reduced llava and
+    seamless card against CPU and through `launch.serve`; (e) no plain
+    attention over (b) and (c).  Each model is released before the
+    next."""
+    import torch
+    from repro_torch.launch import serve
+    guard = start_failover_guard()
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng((args.seed, 8))
+    parts = {}
+    t0 = time.perf_counter()
+    parts["a"] = {**time_cross_attention(dev, args.seed), "seconds": time.perf_counter() - t0}
+    emit({"phase": "lm_multimodal", "part": "a_cross_attention_times", "card": card,
+          **parts["a"]})
+
+    t0 = time.perf_counter()
+    with count_plain_attention() as plain:
+        vlm_out, vlm_launches = run_vlm(args, dev, card, rng)
+        parts["b"] = {**vlm_out, "seconds": time.perf_counter() - t0}
+        t0 = time.perf_counter()
+        audio_out, audio_launches = run_audio(args, dev, card, rng)
+        parts["c"] = {**audio_out, "seconds": time.perf_counter() - t0}
+    parts["e"] = {"plain_attention": dict(plain), "seconds": 0.0}
+    emit({"phase": "lm_multimodal", "part": "e_plain_attention", **parts["e"]})
+    check(not plain, f"lm_multimodal (e): plain attention ran on the main path: {dict(plain)}")
+
+    t0 = time.perf_counter()
+    reduced = {}
+    for arch in (VLM_ARCH, AUDIO_ARCH):
+        argv = REDUCED_MULTIMODAL_SERVE[arch] + ["--seed", str(args.seed), "--device", str(dev)]
+        served = serve.main(argv)
+        served_ok = (served["completed"] == 16 and served["tokens"] == 16 * 32
+                     and served["kv_pages_in_use"] == 0 and served["truncated"] == 0)
+        reduced[arch] = {"serving": check_model_serving(dev, args.seed, arch),
+                         "gradient": check_model_gradient(dev, args.seed, arch),
+                         "serve": {"argv": argv, **served, "ok": served_ok}}
+    parts["d"] = {**reduced, "seconds": time.perf_counter() - t0}
+    emit({"phase": "lm_multimodal", "part": "d_reduced_card_vs_cpu", **parts["d"]})
+    check(all(r["serving"]["ok"] and r["gradient"]["ok"] and r["serve"]["ok"]
+              for r in reduced.values()),
+          f"lm_multimodal (d): the reduced models on the card: {reduced}")
+    seconds = time.perf_counter() - t_phase
+    emit({"phase": "lm_multimodal", "part": "all", "card": card, "seconds": seconds,
+          "parts_s": {n: p["seconds"] for n, p in parts.items()}})
+    failover_guard("lm_multimodal", guard)
+    gc.collect()
+    torch.cuda.empty_cache()
+    launches = (vlm_launches + audio_launches
+                + sum(r["serving"]["attention_launches"] + r["gradient"]["attention_launches"]
+                      for r in reduced.values()))
+    return {"launches": launches, "vlm_launches": vlm_launches,
+            "audio_launches": audio_launches,
+            "bwd_launches": sum(r["gradient"]["attention_bwd_launches"]
+                                for r in reduced.values()),
+            "cross": parts["a"], "parts": parts, "seconds": seconds}
 
 
 def reset_counts():
@@ -4639,6 +5107,11 @@ def main(argv=None) -> int:
     gc.collect()
     torch.cuda.empty_cache()
 
+    # ---- the vlm and audio families (llava, seamless) ---------------------
+    multimodal = run_lm_multimodal(args, dev, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+
     # ---- phases 3-4: the single-shard service, then the sharded one ------
     t0 = time.perf_counter()
     base = gen_maps(args.n, seed=args.seed)
@@ -4736,22 +5209,30 @@ def main(argv=None) -> int:
          "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
          "replaces": "src/repro/kernels/flash_attention.py:83",
          "launches": lm["launches"] + trained["full"]["launches"]["flash_attention_cuda"]
-         + moe_lm["launches"] + recurrent["launches"],
+         + moe_lm["launches"] + recurrent["launches"] + multimodal["launches"],
          "prefill_launches": lm["launches"],
          "moe_prefill_launches": moe_lm["launches"],
          "hybrid_launches": recurrent["launches"],
+         "multimodal_launches": multimodal["launches"],
          "train_launches": trained["full"]["launches"]["flash_attention_cuda"],
          "max_abs_err": attn_worst, "within_tol": attn_ok,
          "ms": lm["timing"]["ms"], "plain_ms": lm["timing"]["plain_ms"],
          "bound_ms": lm["timing"]["bound_ms"], "bound_by": lm["timing"]["bound_by"],
          "library_ms": lm["timing"]["sdpa_ms"],
-         "train_shape_ms": trained["timing"]["forward_lse_ms"]},
+         "train_shape_ms": trained["timing"]["forward_lse_ms"],
+         "cross_shape": multimodal["cross"]["shape"], "cross_ms": multimodal["cross"]["ms"],
+         "cross_plain_ms": multimodal["cross"]["plain_ms"],
+         "cross_bound_ms": multimodal["cross"]["bound_ms"],
+         "cross_bound_by": multimodal["cross"]["bound_by"],
+         "cross_library_ms": multimodal["cross"]["sdpa_ms"]},
         {"name": "flash_attention_bwd_cuda", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
          "replaces": "the gradient of src/repro/models/attention.py:33, taken at "
                      "src/repro/train/train_step.py:34",
-         "launches": trained["full"]["launches"]["flash_attention_bwd_cuda"],
+         "launches": trained["full"]["launches"]["flash_attention_bwd_cuda"]
+         + recurrent["hybrid"]["bwd_launches"] + multimodal["bwd_launches"],
          "hybrid_train_launches": recurrent["hybrid"]["bwd_launches"],
+         "multimodal_train_launches": multimodal["bwd_launches"],
          "max_abs_err": trained["max_abs_err"], "worst_err_over_tol": trained["worst"],
          "within_tol": trained["record_ok"],
          "ms": trained["timing"]["ms"], "plain_ms": trained["timing"]["plain_ms"],

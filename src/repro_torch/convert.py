@@ -23,7 +23,7 @@ from repro_torch.core.rmi import RMIConfig, RMIndex
 from repro_torch.device import resolve_device
 from repro_torch.index_service.router import LearnedRouter
 from repro_torch.index_service.snapshot import IndexSnapshot
-from repro_torch.models import hybrid, mamba, xlstm, xlstm_model
+from repro_torch.models import encdec, hybrid, mamba, vlm, xlstm, xlstm_model
 from repro_torch.models.layers import dtype_of
 from repro_torch.models.transformer import block_param_shapes
 
@@ -137,11 +137,15 @@ def lm_params_from_reference(params, cfg, device=None) -> dict:
     """The reference's decoder parameter pytree (NumPy arrays, the layer
     axis first in ``blocks``: (L, E, D, F) expert leaves and an (L, D, E)
     router for the moe family) as the port's parameters: one dict per
-    layer, in ``cfg.dtype`` on ``device`` (None = "cuda").  The leaves
-    and their shapes must be the ones ``cfg`` builds.  The hybrid and ssm
-    families go through `superblock_params_from_reference`."""
+    layer, in ``cfg.dtype`` on ``device`` (None = "cuda"); the vlm
+    family also carries its projector's four leaves.  The leaves and
+    their shapes must be the ones ``cfg`` builds.  The hybrid and ssm
+    families go through `superblock_params_from_reference`, the audio
+    family through `encdec_params_from_reference`."""
     if cfg.family in ("hybrid", "ssm"):
         return superblock_params_from_reference(params, cfg, device)
+    if cfg.family == "audio":
+        return encdec_params_from_reference(params, cfg, device)
     dev = resolve_device(device)
     dt = dtype_of(cfg.dtype)
     blocks = params["blocks"]
@@ -151,12 +155,59 @@ def lm_params_from_reference(params, cfg, device=None) -> dict:
     got = {name: tuple(np.shape(a)[1:]) for name, a in blocks.items()}
     if got != block_param_shapes(cfg):
         raise ValueError(f"block leaves {got}, config has {block_param_shapes(cfg)}")
-    return {
+    out = {
         "embed": _lm_tensor(params["embed"], dt, dev),
         "blocks": [{name: _lm_tensor(np.asarray(a)[i], dt, dev)
                     for name, a in blocks.items()} for i in range(layers)],
         "final_norm": _lm_tensor(params["final_norm"], dt, dev),
     }
+    if cfg.family == "vlm":
+        out.update(_carry_leaves(params, vlm.projector_shapes(cfg), dt, dev))
+    return out
+
+
+def _carry_leaves(tree, shapes, dt, dev) -> dict:
+    """``tree``'s leaves named in ``shapes``, each checked against its
+    shape, as tensors in ``dt`` on ``dev``."""
+    out = {}
+    for name, shape in shapes.items():
+        if name not in tree:
+            raise ValueError(f"leaf {name} missing, config has {tuple(shape)}")
+        got = tuple(np.shape(tree[name]))
+        if got != tuple(shape):
+            raise ValueError(f"leaf {name}: {got}, config has {tuple(shape)}")
+        out[name] = _lm_tensor(tree[name], dt, dev)
+    return out
+
+
+def encdec_params_from_reference(params, cfg, device=None) -> dict:
+    """The reference's encoder-decoder (seamless) parameter pytree (NumPy
+    arrays, the layer axis first in ``enc`` and ``dec``) as the port's:
+    ``enc`` and ``dec`` one dict per layer (9 and 14 leaves), with
+    ``embed``, ``frontend``, ``final_norm`` and ``enc_norm``, in
+    ``cfg.dtype`` on ``device`` (None = "cuda").  The leaves and their
+    shapes must be the ones ``cfg`` builds."""
+    dev = resolve_device(device)
+    dt = dtype_of(cfg.dtype)
+    out = {}
+    for key, want, layers in (("enc", encdec.enc_param_shapes(cfg), cfg.num_encoder_layers),
+                              ("dec", encdec.dec_param_shapes(cfg), cfg.num_layers)):
+        tree = params[key]
+        if set(tree) != set(want):
+            raise ValueError(f"{key} leaves {sorted(tree)}, config has {sorted(want)}")
+        stacked = {int(np.shape(a)[0]) for a in tree.values()}
+        if stacked != {layers}:
+            raise ValueError(f"{sorted(stacked)} stacked {key} layers, config has {layers}")
+        got = {name: tuple(np.shape(a)[1:]) for name, a in tree.items()}
+        if got != want:
+            raise ValueError(f"{key} leaves {got}, config has {want}")
+        out[key] = [{name: _lm_tensor(np.asarray(tree[name])[i], dt, dev) for name in want}
+                    for i in range(layers)]
+    d = cfg.d_model
+    out.update(_carry_leaves(params, {"embed": (cfg.padded_vocab, d),
+                                      "frontend": (cfg.frontend_dim, d),
+                                      "final_norm": (d,), "enc_norm": (d,)}, dt, dev))
+    return out
 
 
 def _superblock_spec(cfg) -> dict:

@@ -2,13 +2,18 @@
 //
 // Replaces the reference's TPU kernel `flash_attention`
 // (src/repro/kernels/flash_attention.py:83, body `_flash_kernel`): the
-// same function, not its block structure.  q (B, Hq, S, D), k and v
-// (B, Hkv, S, D), all contiguous, bfloat16 or float32, D in {32, 64,
-// 128}, any S >= 1; query head h reads KV head h / (Hq / Hkv) directly
-// (no repeat).  Scores are s = (q . k) * scale in float32, masked with
-// -1e30 (never -inf, so no row turns into NaN); tiles strictly above the
+// same function, not its block structure.  q (B, Hq, Sq, D), k and v
+// (B, Hkv, Sk, D), all contiguous, bfloat16 or float32, D in {32, 64,
+// 128}, any Sq, Sk >= 1 (causal needs Sq == Sk: the reference's mask
+// counts both from position 0); query head h reads KV head
+// h / (Hq / Hkv) directly (no repeat).  Scores are s = (q . k) * scale
+// in float32, masked with -1e30 (never -inf, so no row turns into NaN)
+// past Sk and, causal, above the diagonal; tiles strictly above the
 // diagonal are skipped; the output is acc / max(l, 1e-30) stored in q's
-// dtype.  Given a non-null `lse` (float32, (B, Hq, S)), each row's
+// dtype.  Cross-attention (decoder queries over encoder keys) is the
+// full mask with Sq != Sk: the query tiles, the output and the LSE run
+// over Sq, the key tiles over Sk.  Given a non-null `lse` (float32,
+// (B, Hq, Sq)), each row's
 // log-sum-exp m + log(l), in the units of the scaled scores, is stored
 // beside it for the backward kernel (flash_attention_bwd.cu); the
 // inference path passes null and stores nothing more.
@@ -23,8 +28,9 @@
 // warpgroups of 64 rows and one producer warp, 288 threads.  The
 // producer's one lane loads the Q tile once and K/V tiles of 64 keys
 // into a three-stage ring by TMA, through 3-D tensor maps over
-// (D, S, B * H): rows past S arrive as zeros, never as the next head's
-// rows, and D = 32 arrives as 64 columns whose upper half is zero.  Every
+// (D, S, B * H) (S = Sq for Q, Sk for K and V): rows past S arrive as
+// zeros, never as the next head's rows (a zero key still scores 0, so
+// the mask covers keys >= Sk), and D = 32 arrives as 64 columns whose upper half is zero.  Every
 // tile lands with the 128-byte swizzle that `wgmma` reads; full barriers
 // count the TMA bytes, empty barriers the eight consumer warps.  These
 // pieces (tensor maps, TMA, mbarriers, wgmma wrappers) are in sm90.cuh,
@@ -52,7 +58,7 @@
 // the first warpgroup also reads the tile wholly above its rows, which
 // adds exactly 0.  Blocks are numbered so that the last query tiles
 // (the most keys under the causal mask) start first.  The epilogue
-// divides by max(l, 1e-30), rounds to bf16 and stores only rows < S.
+// divides by max(l, 1e-30), rounds to bf16 and stores only rows < Sq.
 // ptxas gives the D = 128 instance 168 registers a thread and no spills.
 // 128-key tiles or a producer warpgroup that hands its registers over
 // (setmaxnreg) did not fit in those registers, and a persistent grid was
@@ -107,8 +113,8 @@ template <int D>
 __global__ void __launch_bounds__(THREADS)
 flash_attention_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                            const float* __restrict__ v, float* __restrict__ o,
-                           float* __restrict__ lse, int S, int Hq, int Hkv, float scale,
-                           int causal) {
+                           float* __restrict__ lse, int Sq, int Sk, int Hq, int Hkv,
+                           float scale, int causal) {
   constexpr int D4 = D / 4;         // float4s in a row
   constexpr int NV = D4 / LANES;    // float4s a lane holds
   extern __shared__ float4 smem[];
@@ -124,22 +130,22 @@ flash_attention_f32_kernel(const float* __restrict__ q, const float* __restrict_
   const int b = blockIdx.z;
   const int qpos = qt * BQ + r;
   const int group = Hq / Hkv;
-  const size_t qbase = ((size_t)b * Hq + h) * (size_t)S * D;
-  const size_t kvbase = ((size_t)b * Hkv + h / group) * (size_t)S * D;
+  const size_t qbase = ((size_t)b * Hq + h) * (size_t)Sq * D;
+  const size_t kvbase = ((size_t)b * Hkv + h / group) * (size_t)Sk * D;
 
   float4 qr[NV], acc[NV];
 #pragma unroll
   for (int i = 0; i < NV; ++i) {
     acc[i] = make_float4(0.f, 0.f, 0.f, 0.f);
-    qr[i] = qpos < S ? load4(q + qbase + (size_t)qpos * D + 4 * (t + LANES * i))
+    qr[i] = qpos < Sq ? load4(q + qbase + (size_t)qpos * D + 4 * (t + LANES * i))
                      : make_float4(0.f, 0.f, 0.f, 0.f);
   }
   float m = NEG_INF;
   float l = 0.f;
 
-  const int last_tile = (S - 1) / BK;
-  // causal: stop at the diagonal tile (BQ == BK), as the reference skips
-  // the tiles strictly above it
+  const int last_tile = (Sk - 1) / BK;
+  // causal (Sq == Sk): stop at the diagonal tile (BQ == BK), as the
+  // reference skips the tiles strictly above it
   const int ntiles = (causal ? min(qt, last_tile) : last_tile) + 1;
   float* srow = Ss + r * SROW;
 
@@ -149,7 +155,7 @@ flash_attention_f32_kernel(const float* __restrict__ q, const float* __restrict_
       const int row = idx / D4;
       const int c = idx % D4;
       const int kp = kt * BK + row;
-      if (kp < S) {
+      if (kp < Sk) {
         const size_t off = kvbase + (size_t)kp * D + 4 * c;
         Ks[idx] = load4(k + off);
         Vs[idx] = load4(v + off);
@@ -171,7 +177,7 @@ flash_attention_f32_kernel(const float* __restrict__ q, const float* __restrict_
       }
       float s = lane_sum(part) * scale;
       const int kp = kt * BK + j;
-      if (kp >= S || (causal && kp > qpos)) s = NEG_INF;
+      if (kp >= Sk || (causal && kp > qpos)) s = NEG_INF;
       tmax = fmaxf(tmax, s);
       if ((j % LANES) == t) srow[j] = s;
     }
@@ -205,7 +211,7 @@ flash_attention_f32_kernel(const float* __restrict__ q, const float* __restrict_
     m = m_new;
   }
 
-  if (qpos < S) {
+  if (qpos < Sq) {
     const float lc = fmaxf(l, 1e-30f);
 #pragma unroll
     for (int i = 0; i < NV; ++i) {
@@ -213,22 +219,23 @@ flash_attention_f32_kernel(const float* __restrict__ q, const float* __restrict_
       store4(o + qbase + (size_t)qpos * D + 4 * (t + LANES * i),
              make_float4(a.x / lc, a.y / lc, a.z / lc, a.w / lc));
     }
-    if (lse != nullptr && t == 0) lse[((size_t)b * Hq + h) * S + qpos] = m + logf(lc);
+    if (lse != nullptr && t == 0) lse[((size_t)b * Hq + h) * Sq + qpos] = m + logf(lc);
   }
 }
 
 template <int D>
 int launch_f32(const void* q, const void* k, const void* v, void* o, float* lse, int B,
-               int Hq, int Hkv, int S, float scale, int causal, cudaStream_t stream) {
+               int Hq, int Hkv, int Sq, int Sk, float scale, int causal,
+               cudaStream_t stream) {
   const size_t smem = 2 * BK * D * sizeof(float) + BQ * SROW * sizeof(float);
   auto kernel = flash_attention_f32_kernel<D>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  dim3 grid((S + BQ - 1) / BQ, Hq, B);
+  dim3 grid((Sq + BQ - 1) / BQ, Hq, B);
   kernel<<<grid, THREADS, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-      static_cast<float*>(o), lse, S, Hq, Hkv, scale, causal);
+      static_cast<float*>(o), lse, Sq, Sk, Hq, Hkv, scale, causal);
   return (int)cudaGetLastError();
 }
 
@@ -266,7 +273,8 @@ flash_attention_bf16_kernel(const __grid_constant__ CUtensorMap qmap,
                             const __grid_constant__ CUtensorMap kmap,
                             const __grid_constant__ CUtensorMap vmap,
                             __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
-                            int B, int S, int Hq, int Hkv, float scale, int causal) {
+                            int B, int Sq, int Sk, int Hq, int Hkv, float scale,
+                            int causal) {
   using L = Layout<D>;
   constexpr int DP = L::DP;
   extern __shared__ uint8_t smem_raw[];
@@ -279,11 +287,11 @@ flash_attention_bf16_kernel(const __grid_constant__ CUtensorMap qmap,
 
   // the last query tiles (most keys under the causal mask) start first
   const int bh = blockIdx.x % (B * Hq);
-  const int qt = (S + BQ - 1) / BQ - 1 - blockIdx.x / (B * Hq);
+  const int qt = (Sq + BQ - 1) / BQ - 1 - blockIdx.x / (B * Hq);
   const int b = bh / Hq, h = bh % Hq;
   const int bhkv = b * Hkv + h / (Hq / Hkv);
   const int q0 = qt * BQ;
-  const int ntiles = ((causal ? min(q0 + BQ, S) : S) + BK - 1) / BK;
+  const int ntiles = ((causal ? min(q0 + BQ, Sk) : Sk) + BK - 1) / BK;
 
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   if (threadIdx.x == 0) {
@@ -367,7 +375,7 @@ flash_attention_bf16_kernel(const __grid_constant__ CUtensorMap qmap,
   // P = exp(s - m) in sacc; alpha rescales the accumulator
   auto softmax = [&](int kt) {
     const int kbase = kt * BK;
-    const bool masked = kbase + BK > S || (causal && kbase + BK - 1 > row0);
+    const bool masked = kbase + BK > Sk || (causal && kbase + BK - 1 > row0);
     float xA = mA, xB = mB;
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
@@ -377,8 +385,8 @@ flash_attention_bf16_kernel(const __grid_constant__ CUtensorMap qmap,
         float c = sacc[4 * j + 2 + e] * scale;
         if (masked) {
           const int key = kbase + 8 * j + 2 * t + e;
-          if (key >= S || (causal && key > rA)) a = NEG_INF;
-          if (key >= S || (causal && key > rB)) c = NEG_INF;
+          if (key >= Sk || (causal && key > rA)) a = NEG_INF;
+          if (key >= Sk || (causal && key > rB)) c = NEG_INF;
         }
         sacc[4 * j + e] = a;
         sacc[4 * j + 2 + e] = c;
@@ -476,48 +484,49 @@ flash_attention_bf16_kernel(const __grid_constant__ CUtensorMap qmap,
   keep(oacc);
   release(sl);
 
-  // ---- epilogue: acc / max(l, 1e-30) in bf16, rows < S only ----
+  // ---- epilogue: acc / max(l, 1e-30) in bf16, rows < Sq only ----
   const float dA = fmaxf(quad_sum(lA), 1e-30f);
   const float dB = fmaxf(quad_sum(lB), 1e-30f);
-  __nv_bfloat16* ob = o + (size_t)bh * S * D;
+  __nv_bfloat16* ob = o + (size_t)bh * Sq * D;
 #pragma unroll
   for (int j = 0; j < DP / 8; ++j) {
     const int col = 8 * j + 2 * t;
     if (col < D) {
-      if (rA < S)
+      if (rA < Sq)
         *reinterpret_cast<__nv_bfloat162*>(ob + (size_t)rA * D + col) =
             __floats2bfloat162_rn(oacc[4 * j] / dA, oacc[4 * j + 1] / dA);
-      if (rB < S)
+      if (rB < Sq)
         *reinterpret_cast<__nv_bfloat162*>(ob + (size_t)rB * D + col) =
             __floats2bfloat162_rn(oacc[4 * j + 2] / dB, oacc[4 * j + 3] / dB);
     }
   }
   if (lse != nullptr && t == 0) {
     // mA, mB: the rows' maxima, the same in every lane of the quad
-    if (rA < S) lse[(size_t)bh * S + rA] = mA + logf(dA);
-    if (rB < S) lse[(size_t)bh * S + rB] = mB + logf(dB);
+    if (rA < Sq) lse[(size_t)bh * Sq + rA] = mA + logf(dA);
+    if (rB < Sq) lse[(size_t)bh * Sq + rB] = mB + logf(dB);
   }
 }
 
 template <int D>
 int launch_bf16(const void* q, const void* k, const void* v, void* o, float* lse, int B,
-                int Hq, int Hkv, int S, float scale, int causal, cudaStream_t stream) {
+                int Hq, int Hkv, int Sq, int Sk, float scale, int causal,
+                cudaStream_t stream) {
   using L = Layout<D>;
-  const long long blocks = (long long)((S + BQ - 1) / BQ) * B * Hq;
+  const long long blocks = (long long)((Sq + BQ - 1) / BQ) * B * Hq;
   if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
   EncodeTiled fn = encode_tiled();
   if (fn == nullptr) return (int)cudaErrorSymbolNotFound;
   CUtensorMap qm, km, vm;
-  if (!encode(fn, &qm, q, D, S, (long long)B * Hq, BQ) ||
-      !encode(fn, &km, k, D, S, (long long)B * Hkv, BK) ||
-      !encode(fn, &vm, v, D, S, (long long)B * Hkv, BK))
+  if (!encode(fn, &qm, q, D, Sq, (long long)B * Hq, BQ) ||
+      !encode(fn, &km, k, D, Sk, (long long)B * Hkv, BK) ||
+      !encode(fn, &vm, v, D, Sk, (long long)B * Hkv, BK))
     return (int)cudaErrorInvalidValue;
   auto kernel = flash_attention_bf16_kernel<D>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, L::SMEM);
   if (err != cudaSuccess) return (int)err;
   kernel<<<(unsigned)blocks, THREADS, L::SMEM, stream>>>(
-      qm, km, vm, static_cast<__nv_bfloat16*>(o), lse, B, S, Hq, Hkv, scale, causal);
+      qm, km, vm, static_cast<__nv_bfloat16*>(o), lse, B, Sq, Sk, Hq, Hkv, scale, causal);
   return (int)cudaGetLastError();
 }
 
@@ -535,25 +544,28 @@ int by_head_dim(int D, F f) {
 
 }  // namespace
 
-// dtype: 0 = float32 (CUDA cores), 1 = bfloat16 (tensor cores).  `lse`
-// is null, or float32 (B, Hq, S) for the rows' log-sum-exp.  Returns
+// dtype: 0 = float32 (CUDA cores), 1 = bfloat16 (tensor cores).  q has
+// Sq rows a head, k and v Sk; causal needs Sq == Sk.  `lse` is null, or
+// float32 (B, Hq, Sq) for the rows' log-sum-exp.  Returns
 // cudaGetLastError() after the launch (0 = launched).
 extern "C" int flash_attention_launch(const void* q, const void* k, const void* v,
-                                      void* o, void* lse, int B, int Hq, int Hkv, int S,
-                                      int D, int dtype, float scale, int causal,
+                                      void* o, void* lse, int B, int Hq, int Hkv, int Sq,
+                                      int Sk, int D, int dtype, float scale, int causal,
                                       void* stream) {
-  if (B <= 0 || Hq <= 0 || Hkv <= 0 || S <= 0 || Hq % Hkv != 0)
+  if (B <= 0 || Hq <= 0 || Hkv <= 0 || Sq <= 0 || Sk <= 0 || Hq % Hkv != 0 ||
+      (causal && Sq != Sk))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   float* l = static_cast<float*>(lse);
   if (dtype == 0)
     return by_head_dim(D, [&](auto d) {
-      return launch_f32<decltype(d)::value>(q, k, v, o, l, B, Hq, Hkv, S, scale, causal, st);
+      return launch_f32<decltype(d)::value>(q, k, v, o, l, B, Hq, Hkv, Sq, Sk, scale, causal,
+                                            st);
     });
   if (dtype == 1)
     return by_head_dim(D, [&](auto d) {
-      return tc::launch_bf16<decltype(d)::value>(q, k, v, o, l, B, Hq, Hkv, S, scale, causal,
-                                                 st);
+      return tc::launch_bf16<decltype(d)::value>(q, k, v, o, l, B, Hq, Hkv, Sq, Sk, scale,
+                                                 causal, st);
     });
   return (int)cudaErrorInvalidValue;
 }

@@ -3,16 +3,20 @@ gradient, ``csrc/flash_attention_bwd.cu``): build, load, the PyTorch
 wrappers and the autograd Function that joins them.
 
 ``flash_attention_cuda`` — causal or full GQA attention with an online
-    softmax over (B, Hq, S, D) queries and (B, Hkv, S, D) keys and
-    values, float32 or bfloat16, D in {32, 64, 128}, any S.  Replaces the
-    reference's ``flash_attention`` (a Pallas kernel, which needs S to
-    divide its blocks; this one masks the ragged tail itself).  The
-    dtype picks the instance: bfloat16 runs on the tensor cores (wgmma
-    fed by TMA, P split into two bf16 halves), float32 on the CUDA
-    cores; neither stands in for the other.  ``return_lse=True`` also
-    returns each row's log-sum-exp (float32, (B, Hq, S)).
+    softmax over (B, Hq, Sq, D) queries and (B, Hkv, Sk, D) keys and
+    values, float32 or bfloat16, D in {32, 64, 128}, any Sq and Sk
+    (causal needs Sq == Sk; the full mask with Sq != Sk is
+    cross-attention).  Replaces the reference's ``flash_attention`` (a
+    Pallas kernel, which needs S to divide its blocks; this one masks
+    the ragged tail itself).  The dtype picks the instance: bfloat16
+    runs on the tensor cores (wgmma fed by TMA, P split into two bf16
+    halves), float32 on the CUDA cores; neither stands in for the other.
+    ``return_lse=True`` also returns each row's log-sum-exp (float32,
+    (B, Hq, Sq)).
 ``flash_attention_bwd_cuda`` — its gradient (dq, dk, dv) from q, k, v,
-    the output, the log-sum-exp and the output's gradient.  bfloat16 runs
+    the output, the log-sum-exp and the output's gradient, for Sq == Sk
+    only (a gradient at Sq != Sk raises before anything launches: ROADMAP
+    queue C 13).  bfloat16 runs
     on the tensor cores (wgmma fed by TMA, P and dS split into two bf16
     halves; dK and dV per query head in float32 scratch, then summed over
     each GQA group), float32 on the CUDA cores.  The reference has no
@@ -85,7 +89,7 @@ def declare(lib) -> None:
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.flash_attention_launch.argtypes = [
         p, p, p, p, p,              # q, k, v, out, lse (null: not stored)
-        i, i, i, i, i,              # B, Hq, Hkv, S, D
+        i, i, i, i, i, i,           # B, Hq, Hkv, Sq, Sk, D
         i, ctypes.c_float, i,       # dtype, scale, causal
         p,                          # stream
     ]
@@ -104,24 +108,35 @@ def declare_backward(lib) -> None:
     lib.flash_attention_bwd_launch.restype = i
 
 
-def _check_qkv(q, k, v) -> Tuple[int, int, int, int, int]:
-    """(B, Hq, Hkv, S, D) of a call the kernels take; raises otherwise."""
+def _check_qkv(q, k, v, causal: bool) -> Tuple[int, int, int, int, int, int]:
+    """(B, Hq, Hkv, Sq, Sk, D) of a call the forward kernel takes; raises
+    otherwise (causal needs Sq == Sk)."""
     if q.ndim != 4 or k.ndim != 4 or v.ndim != 4:
         raise ValueError("q, k and v must be 4-D (B, H, S, D)")
     b, hq, s, d = q.shape
-    hkv = k.shape[1]
-    if k.shape != (b, hkv, s, d) or v.shape != k.shape:
-        raise ValueError(f"k and v must be (B, Hkv, S, D) = {(b, hkv, s, d)}, "
+    hkv, sk = k.shape[1], k.shape[2]
+    if k.shape != (b, hkv, sk, d) or v.shape != k.shape:
+        raise ValueError(f"k and v must be (B, Hkv, Sk, D) = {(b, hkv, sk, d)}, "
                          f"got {tuple(k.shape)} and {tuple(v.shape)}")
+    if causal and sk != s:
+        raise ValueError(f"causal attention needs Sq == Sk (got Sq={s}, Sk={sk})")
     if d not in HEAD_DIMS and d not in _PADDED:
         raise ValueError(f"head dim {d} not in {HEAD_DIMS + tuple(_PADDED)}")
     if hkv < 1 or hq % hkv:
         raise ValueError(f"GQA requires Hq % Hkv == 0 (Hq={hq}, Hkv={hkv})")
     if q.dtype not in _DTYPES:
         raise TypeError(f"q has dtype {q.dtype}; the kernel takes float32 or bfloat16")
-    if b > 65535 or hq > 65535 or s >= 2**31 - 64:
-        raise ValueError("B and Hq must be <= 65535 and S < 2**31 - 64")
-    return b, hq, hkv, s, d
+    if b > 65535 or hq > 65535 or max(s, sk) >= 2**31 - 64:
+        raise ValueError("B and Hq must be <= 65535 and Sq, Sk < 2**31 - 64")
+    return b, hq, hkv, s, sk, d
+
+
+def _check_square(q, k) -> None:
+    """The backward kernel takes one length: Sq != Sk raises (ROADMAP
+    queue C 13)."""
+    if q.ndim == 4 and k.ndim == 4 and q.shape[2] != k.shape[2]:
+        raise ValueError("the attention backward kernel takes Sq == Sk only "
+                         f"(got Sq={q.shape[2]}, Sk={k.shape[2]}): ROADMAP queue C 13")
 
 
 def _pointers(tensors, names, dtype, dev, ndim=4):
@@ -147,7 +162,7 @@ def _forward(q, k, v, causal: bool, return_lse: bool):
             return ref.mha_reference_lse(q, k, v, causal=causal)
         return ref.mha_reference(q, k, v, causal=causal)
     dev = q.device
-    b, hq, hkv, s, d = _check_qkv(q, k, v)
+    b, hq, hkv, s, sk, d = _check_qkv(q, k, v, causal)
     _pointers((q, k, v), ("q", "k", "v"), q.dtype, dev)
     lse = torch.empty((b, hq, s), dtype=torch.float32, device=dev) if return_lse else None
     if q.numel() == 0:
@@ -157,7 +172,7 @@ def _forward(q, k, v, causal: bool, return_lse: bool):
     out = torch.empty_like(qp)
     err = nvcc.load(SOURCE, declare, FLAGS).flash_attention_launch(
         qp.data_ptr(), kp.data_ptr(), vp.data_ptr(), out.data_ptr(),
-        0 if lse is None else lse.data_ptr(), b, hq, hkv, s, qp.shape[3],
+        0 if lse is None else lse.data_ptr(), b, hq, hkv, s, sk, qp.shape[3],
         _DTYPES[q.dtype], 1.0 / math.sqrt(d), int(bool(causal)),
         torch.cuda.current_stream(dev).cuda_stream)
     nvcc.raise_on_error(err, "flash_attention")
@@ -170,10 +185,14 @@ def _forward(q, k, v, causal: bool, return_lse: bool):
 class FlashAttention(torch.autograd.Function):
     """Attention with its gradient: the forward kernel (saving q, k, v,
     the output and the log-sum-exp), then the backward kernel; on CPU
-    tensors the plain forward and the plain backward."""
+    tensors the plain forward and the plain backward.  On the card
+    Sq != Sk raises before the forward launches: the backward kernel
+    takes one length (ROADMAP queue C 13)."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal):
+        if q.device.type != "cpu":
+            _check_square(q, k)
         out, lse = _forward(q, k, v, bool(causal), True)
         ctx.save_for_backward(q, k, v, out, lse)
         ctx.causal = bool(causal)
@@ -220,7 +239,8 @@ def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if q.device.type == "cpu":
         return ref.mha_backward_reference(q, k, v, out, lse, d_out, causal=causal)
     dev = q.device
-    b, hq, hkv, s, d = _check_qkv(q, k, v)
+    _check_square(q, k)
+    b, hq, hkv, s, _, d = _check_qkv(q, k, v, causal)
     if out.shape != q.shape or d_out.shape != q.shape:
         raise ValueError(f"out and d_out must be {tuple(q.shape)}, got "
                          f"{tuple(out.shape)} and {tuple(d_out.shape)}")

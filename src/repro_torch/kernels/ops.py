@@ -681,12 +681,14 @@ def hash_probe_op(hm, index, keys, q_raw, *, device=None) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 def attention_op(q, k, v, *, causal=True, use_kernel=True) -> torch.Tensor:
-    """(B, Hq, S, D) GQA attention through `flash_attention_cuda`: the
-    kernel for tensors on the card (it masks ragged tiles itself, so
-    every S goes to it), the plain `ref.mha_reference` on the CPU.  Under
+    """(B, Hq, Sq, D) GQA attention over (B, Hkv, Sk, D) keys and values
+    through `flash_attention_cuda`: the kernel for tensors on the card
+    (it masks ragged tiles itself, so every length goes to it; causal
+    needs Sq == Sk), the plain `ref.mha_reference` on the CPU.  Under
     grad mode with an input that requires grad the call goes through the
     autograd Function (`flash_attention.FlashAttention`): the forward
-    and backward kernels on the card, their plain versions on the CPU.
+    and backward kernels on the card (Sq == Sk only: ROADMAP queue C
+    13), their plain versions on the CPU.
     ``use_kernel=False`` runs `ref.mha_reference` on any device, through
     torch autograd."""
     kernel = use_kernel and _on_card(q)

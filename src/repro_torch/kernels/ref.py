@@ -413,24 +413,28 @@ def bloom_probe_reference(
 
 def mha_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                   causal: bool = True) -> torch.Tensor:
-    """(B, Hq, S, D) GQA attention, float32 softmax, no tiling: the
-    flash-attention kernel's plain version (the reference's
-    `mha_reference`; it holds the (S, S) scores in memory)."""
+    """(B, Hq, Sq, D) GQA attention over (B, Hkv, Sk, D) keys and values,
+    float32 softmax, no tiling: the flash-attention kernel's plain
+    version (the reference's `mha_reference`; it holds the (Sq, Sk)
+    scores in memory).  Causal needs Sq == Sk."""
     return _attend(_masked_scores(q, k, causal), q, k, v)
 
 
 def mha_reference_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                       causal: bool = True):
     """`mha_reference`'s output and each row's log-sum-exp of the scaled,
-    masked scores (float32, (B, Hq, S)): the plain version of
+    masked scores (float32, (B, Hq, Sq)): the plain version of
     `flash_attention_cuda(..., return_lse=True)`."""
     s_ = _masked_scores(q, k, causal)
     return _attend(s_, q, k, v), torch.logsumexp(s_, dim=-1)
 
 
 def _masked_scores(q: torch.Tensor, k: torch.Tensor, causal: bool) -> torch.Tensor:
-    """(B, Hq, S, S) float32 scores (q . k) / sqrt(D), masked with -1e30."""
+    """(B, Hq, Sq, Sk) float32 scores (q . k) / sqrt(D), masked with -1e30
+    above the diagonal when causal (which needs Sq == Sk)."""
     s, d = q.shape[2], q.shape[3]
+    if causal and k.shape[2] != s:
+        raise ValueError(f"causal attention needs Sq == Sk (got Sq={s}, Sk={k.shape[2]})")
     kr = torch.repeat_interleave(k, q.shape[1] // k.shape[1], dim=1)
     s_ = torch.einsum("bhqd,bhkd->bhqk", q.float(), kr.float()) / np.sqrt(d)
     if causal:
@@ -455,9 +459,10 @@ def mha_backward_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     same inputs, with P = exp(s - lse), dV = P^T dO, dP = dO V^T,
     dS = P * (dP - rowsum(dO * O)), dQ = dS K / sqrt(D) and
     dK = dS^T Q / sqrt(D), the key and value gradients summed over each
-    GQA group."""
-    b, hq, s, d = q.shape
-    hkv = k.shape[1]
+    GQA group.  Keys may be as many as the queries or, not causal, any
+    number."""
+    b, hq, _, d = q.shape
+    hkv, sk = k.shape[1], k.shape[2]
     group = hq // hkv
     scale = 1.0 / np.sqrt(d)
     p = torch.exp(_masked_scores(q, k, causal) - lse.float()[..., None])
@@ -472,6 +477,6 @@ def mha_backward_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     dk = torch.einsum("bhqk,bhqd->bhkd", ds, q.float()) * scale
 
     def by_group(t):
-        return t.reshape(b, hkv, group, s, d).sum(dim=2)
+        return t.reshape(b, hkv, group, sk, d).sum(dim=2)
 
     return dq.to(q.dtype), by_group(dk).to(k.dtype), by_group(dv).to(v.dtype)

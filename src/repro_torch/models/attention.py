@@ -1,14 +1,18 @@
-"""Attention: the prefill path (full-sequence causal GQA) and the decode
-path over a KV cache.
+"""Attention: the prefill path (full-sequence GQA: causal self-attention,
+full encoder self-attention, and cross-attention of Sq queries over Sk
+keys) and the decode path over a KV cache.
 
 `chunked_attention` is the reference's online-softmax loop over KV
 chunks (`repro/models/attention.py`) for tensors on the CPU.  For
 tensors on the card it goes through `kernels.ops.attention_op`, the
 hand-written flash-attention kernel, which computes the same function
-(the reference's "TPU-tiled twin" of this loop, `flash_attention`); a
-call the kernel cannot compute (a query offset, or Sq != Sk) raises.
+(the reference's "TPU-tiled twin" of this loop, `flash_attention`):
+causal with Sq == Sk, or full with any Sq and Sk.  A call the kernel
+cannot compute (a query offset, or causal with Sq != Sk) raises.
 Under grad the card's call carries its gradient through the kernel's
-backward (`kernels.flash_attention.FlashAttention`); on the CPU torch
+backward (`kernels.flash_attention.FlashAttention`), which takes
+Sq == Sk only: a grad-requiring call at Sq != Sk raises on the card
+before anything launches (ROADMAP queue C 13).  On the CPU torch
 autograd differentiates the loop, as the reference differentiates its
 own.
 
@@ -49,13 +53,15 @@ def chunked_attention(
     q_offset: int = 0,
 ) -> torch.Tensor:
     """Online-softmax attention, scanning KV in chunks of ``chunk`` (the
-    CPU); the flash-attention kernel on the card."""
+    CPU); the flash-attention kernel on the card, which takes causal
+    attention with Sq == Sk and full attention with any Sq and Sk, from
+    position 0."""
     if q.device.type == "cuda":
-        if q_offset != 0 or q.shape[2] != k.shape[2]:
+        if q_offset != 0 or (causal and q.shape[2] != k.shape[2]):
             raise ValueError(
-                "the flash-attention kernel computes square attention from "
-                f"position 0 (got Sq={q.shape[2]}, Sk={k.shape[2]}, "
-                f"q_offset={q_offset})")
+                "the flash-attention kernel computes attention from position 0, "
+                f"causal only with Sq == Sk (got Sq={q.shape[2]}, Sk={k.shape[2]}, "
+                f"q_offset={q_offset}, causal={causal})")
         return kernels_ops.attention_op(q, k, v, causal=causal)
     b, hq, sq, d = q.shape
     hkv, sk = k.shape[1], k.shape[2]

@@ -2,13 +2,14 @@
 are cfg-bound functions, the surface that serving code touches (the
 reference's `repro/models/registry.py`).
 
-The port holds the training and serving paths of the dense and moe
-families (both `models/transformer.py`, as in the reference), the
-hybrid family (`models/hybrid.py`) and the ssm family
-(`models/xlstm_model.py`).  ``device`` (None = "cuda") is where `init`
-draws parameters and `init_cache` allocates the cache; the vlm and
-audio families raise `NotImplementedError` naming the ROADMAP item that
-ports them.
+The port holds the training and serving paths of every family of the
+reference: dense and moe (both `models/transformer.py`, as in the
+reference), hybrid (`models/hybrid.py`), ssm (`models/xlstm_model.py`),
+vlm (`models/vlm.py`: the batch adds ``patches``) and audio
+(`models/encdec.py`: the batch carries ``frames``; `init_cache` holds
+cross KV over ``ENCDEC_DECODE_SRC_LEN`` source frames).  ``device``
+(None = "cuda") is where `init` draws parameters and `init_cache`
+allocates the cache.
 """
 
 from __future__ import annotations
@@ -21,13 +22,13 @@ import torch
 
 from repro_torch.configs.base import ArchConfig, ShapeConfig
 from repro_torch.device import DeviceLike, resolve_device
-from repro_torch.models import hybrid, transformer, xlstm_model
+from repro_torch.models import encdec, hybrid, transformer, vlm, xlstm_model
 
-_MODULES = {"dense": transformer, "moe": transformer, "hybrid": hybrid, "ssm": xlstm_model}
-_NOT_PORTED = {
-    "vlm": "the vlm family (models/vlm.py), ROADMAP queue A",
-    "audio": "the audio family (models/encdec.py), ROADMAP queue A",
-}
+_MODULES = {"dense": transformer, "moe": transformer, "hybrid": hybrid, "ssm": xlstm_model,
+            "vlm": vlm, "audio": encdec}
+
+# source frames for enc-dec decode shapes (~2 min of audio at 50 fps)
+ENCDEC_DECODE_SRC_LEN = 3072
 
 
 @dataclasses.dataclass(frozen=True)
@@ -51,9 +52,32 @@ def _lm_batch_spec(cfg: ArchConfig, shape: ShapeConfig) -> Dict[str, Any]:
     return {"token": ((b,), torch.int32)}  # decode
 
 
+def _vlm_batch_spec(cfg: ArchConfig, shape: ShapeConfig) -> Dict[str, Any]:
+    b, s = shape.global_batch, shape.seq_len
+    ti, f = cfg.frontend_tokens, cfg.frontend_dim
+    st = s - ti
+    if shape.kind == "train":
+        return {"tokens": ((b, st), torch.int32), "patches": ((b, ti, f), torch.bfloat16),
+                "labels": ((b, st), torch.int32)}
+    if shape.kind == "prefill":
+        return {"tokens": ((b, st), torch.int32), "patches": ((b, ti, f), torch.bfloat16)}
+    return {"token": ((b,), torch.int32)}
+
+
+def _audio_batch_spec(cfg: ArchConfig, shape: ShapeConfig) -> Dict[str, Any]:
+    b, s = shape.global_batch, shape.seq_len
+    f = cfg.frontend_dim
+    if shape.kind == "train":
+        src, tgt = s // 2, s // 2
+        return {"frames": ((b, src, f), torch.bfloat16), "tokens": ((b, tgt), torch.int32),
+                "labels": ((b, tgt), torch.int32)}
+    if shape.kind == "prefill":
+        return {"frames": ((b, s // 2, f), torch.bfloat16),
+                "tokens": ((b, s // 2), torch.int32)}
+    return {"token": ((b,), torch.int32)}
+
+
 def get_model(cfg: ArchConfig, device: DeviceLike = None) -> ModelAPI:
-    if cfg.family in _NOT_PORTED:
-        raise NotImplementedError(f"{cfg.name}: {_NOT_PORTED[cfg.family]}")
     if cfg.family not in _MODULES:
         raise ValueError(f"unknown family: {cfg.family}")
     dev = resolve_device(device)
@@ -64,13 +88,24 @@ def get_model(cfg: ArchConfig, device: DeviceLike = None) -> ModelAPI:
             raise ValueError(f"generator on {generator.device}, model on {dev}")
         return mod.init_params(cfg, generator)
 
+    prefill = lambda p, b: mod.prefill(cfg, p, b["tokens"])  # noqa: E731
+    init_cache = lambda batch, max_len: mod.init_cache(cfg, batch, max_len, dev)  # noqa: E731
+    batch_spec = _lm_batch_spec
+    if cfg.family == "vlm":
+        prefill = lambda p, b: vlm.prefill(cfg, p, b["tokens"], b["patches"])  # noqa: E731
+        batch_spec = _vlm_batch_spec
+    elif cfg.family == "audio":
+        prefill = lambda p, b: encdec.prefill(cfg, p, b["frames"], b["tokens"])  # noqa: E731
+        init_cache = lambda batch, max_len: encdec.init_cache(  # noqa: E731
+            cfg, batch, max_len, ENCDEC_DECODE_SRC_LEN, dev)
+        batch_spec = _audio_batch_spec
     return ModelAPI(
         cfg=cfg,
         device=dev,
         init=init,
         loss=functools.partial(mod.loss_fn, cfg),
-        prefill=lambda p, b: mod.prefill(cfg, p, b["tokens"]),
+        prefill=prefill,
         decode=functools.partial(mod.decode_step, cfg),
-        init_cache=lambda batch, max_len: mod.init_cache(cfg, batch, max_len, dev),
-        batch_spec=functools.partial(_lm_batch_spec, cfg),
+        init_cache=init_cache,
+        batch_spec=functools.partial(batch_spec, cfg),
     )

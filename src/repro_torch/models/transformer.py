@@ -144,17 +144,22 @@ def _train_block(cfg) -> Callable:
     return lambda p, x, positions: ffn(p, attn(p, x, positions))
 
 
-def forward_train(cfg, params: Params, tokens: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """tokens (B, S) -> logits (B, S, V); also returns the total MoE aux
-    loss (float32 0 for the dense family)."""
-    x = L.embed(tokens, params["embed"])
-    positions = torch.arange(tokens.shape[1], device=tokens.device)
+def _forward_hidden(cfg, params: Params, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The training layers over embeddings x (B, S, D): (the final-normed
+    hidden states (B, S, D), the total MoE aux loss)."""
+    positions = torch.arange(x.shape[1], device=x.device)
     block = _train_block(cfg)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for p in params["blocks"]:
         x, a = block(p, x, positions)
         aux = aux + a
-    x = L.rmsnorm(x, params["final_norm"])
+    return L.rmsnorm(x, params["final_norm"]), aux
+
+
+def forward_train(cfg, params: Params, tokens: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """tokens (B, S) -> logits (B, S, V); also returns the total MoE aux
+    loss (float32 0 for the dense family)."""
+    x, aux = _forward_hidden(cfg, params, L.embed(tokens, params["embed"]))
     return L.logits_from_hidden(x, params["embed"]), aux
 
 
@@ -183,10 +188,23 @@ def init_cache(cfg, batch: int, max_len: int, device) -> Dict[str, Any]:
     }
 
 
-def prefill(cfg, params: Params, tokens: torch.Tensor) -> Tuple[torch.Tensor, Any]:
-    """tokens (B, S) -> (last-position logits (B, V), cache of len S)."""
-    x = L.embed(tokens, params["embed"])
-    positions = torch.arange(tokens.shape[1], device=tokens.device)
+def extend_cache(cache, max_len: int) -> Dict[str, Any]:
+    """A prefill's ``cache`` copied into one of ``max_len`` positions, so
+    that decode can go on from it; entries other than the self-attention
+    KV (the audio family's cross KV) are carried as they are."""
+    n = cache["len"]
+    out = dict(cache)
+    for name in ("k", "v"):
+        t = cache[name]
+        out[name] = t.new_zeros(t.shape[:3] + (max_len,) + t.shape[4:])
+        out[name][:, :, :, :n] = t[:, :, :, :n]
+    return out
+
+
+def _prefill_hidden(cfg, params: Params, x: torch.Tensor) -> Tuple[torch.Tensor, Any]:
+    """Prefill over embeddings x (B, S, D): (last-position logits (B, V),
+    cache of len S)."""
+    positions = torch.arange(x.shape[1], device=x.device)
     ks: List[torch.Tensor] = []
     vs: List[torch.Tensor] = []
     for p in params["blocks"]:
@@ -196,8 +214,13 @@ def prefill(cfg, params: Params, tokens: torch.Tensor) -> Tuple[torch.Tensor, An
         vs.append(v)
     x = L.rmsnorm(x[:, -1], params["final_norm"])
     logits = L.logits_from_hidden(x, params["embed"])
-    cache = {"k": torch.stack(ks), "v": torch.stack(vs), "len": int(tokens.shape[1])}
+    cache = {"k": torch.stack(ks), "v": torch.stack(vs), "len": int(positions.shape[0])}
     return logits, cache
+
+
+def prefill(cfg, params: Params, tokens: torch.Tensor) -> Tuple[torch.Tensor, Any]:
+    """tokens (B, S) -> (last-position logits (B, V), cache of len S)."""
+    return _prefill_hidden(cfg, params, L.embed(tokens, params["embed"]))
 
 
 def block_decode_attn_only(cfg, p, x, kc, vc, pos: int):

@@ -2,8 +2,10 @@
 twin (`ref.mha_reference`) and the CPU `ops.attention_op` against the
 reference's `flash_attention` (Pallas, interpret mode) and its
 `ref.mha_reference`, on the reference's four test shapes and ragged
-ones, at the reference's tolerances (2e-5 in float32, 2e-2 in
-bfloat16); the model's `chunked_attention` (padding, query offset,
+ones, and at cross-attention shapes (Sq != Sk, full mask), at the
+reference's tolerances (2e-5 in float32, 2e-2 in bfloat16); what the
+card refuses (ROADMAP queue C 13: causal Sq != Sk, a query offset, a
+gradient at Sq != Sk); the model's `chunked_attention` (padding, query offset,
 non-causal), `decode_attention` and `update_kv_cache` against the
 reference's.  The kernel's numerics (bf16 tensor-core products with P
 split into two bf16 halves) are emulated in plain torch and held to the
@@ -130,10 +132,15 @@ def test_chunked_attention_matches_reference(sq, sk, chunk, q_offset, causal, dt
     _close(_f32(got), want, tol)
 
 
-def test_chunked_attention_on_the_card_refuses_what_the_kernel_cannot_compute():
-    """The kernel computes square attention from position 0: a query
-    offset or Sq != Sk raises before anything launches (a stand-in that
-    reports a CUDA device: only the device and the shapes are read)."""
+def test_chunked_attention_on_the_card_refuses_what_the_kernel_cannot_compute(monkeypatch):
+    """ROADMAP queue C 13, narrowed: on the card the kernel takes causal
+    attention with Sq == Sk and full attention with any Sq and Sk (the
+    audio family's cross-attention), both from position 0.  A full call
+    at Sq != Sk reaches `ops.attention_op`; a query offset, or causal
+    with Sq != Sk, raises before anything launches (a stand-in that
+    reports a CUDA device: only the device and the shapes are read).  A
+    grad-requiring call at Sq != Sk raises in the autograd Function
+    before the forward launches: the backward kernel takes one length."""
     q = torch.empty((1, 2, 4, 32), device="meta")
     k = torch.empty((1, 2, 8, 32), device="meta")
 
@@ -143,10 +150,85 @@ def test_chunked_attention_on_the_card_refuses_what_the_kernel_cannot_compute():
             self.shape = t.shape
             self.device = torch.device("cuda")
 
-    with pytest.raises(ValueError, match="square attention"):
+    calls = []
+    monkeypatch.setattr(attention.kernels_ops, "attention_op",
+                        lambda q, k, v, causal: calls.append((q.shape, k.shape, causal)) or q)
+    attention.chunked_attention(_Card(q), _Card(k), _Card(k), causal=False)
+    assert calls == [(q.shape, k.shape, False)]
+    with pytest.raises(ValueError, match="causal only with Sq == Sk"):
         attention.chunked_attention(_Card(q), _Card(k), _Card(k))
-    with pytest.raises(ValueError, match="square attention"):
+    with pytest.raises(ValueError, match="from position 0"):
         attention.chunked_attention(_Card(q), _Card(q), _Card(q), q_offset=3)
+    with pytest.raises(ValueError, match="from position 0"):
+        attention.chunked_attention(_Card(q), _Card(k), _Card(k), causal=False, q_offset=3)
+    assert len(calls) == 1
+    # the wrapper on a non-CPU tensor: causal Sq != Sk, and grad at
+    # Sq != Sk, raise before anything is built or launched
+    from repro_torch.kernels import nvcc
+    fa.reset_launch_counts()
+    with pytest.raises(ValueError, match="causal attention needs Sq == Sk"):
+        fa.flash_attention_cuda(q, k, k, causal=True)
+    qg = q.clone().requires_grad_(True)
+    with pytest.raises(ValueError, match="backward kernel takes Sq == Sk only"):
+        fa.flash_attention_cuda(qg, k, k, causal=False)
+    with pytest.raises(ValueError, match="backward kernel takes Sq == Sk only"):
+        fa.flash_attention_bwd_cuda(q, k, k, q, torch.empty((1, 2, 4), device="meta"), q,
+                                    causal=False)
+    assert fa.LAUNCHES == {"flash_attention_cuda": 0, "flash_attention_bwd_cuda": 0}
+    assert all(source not in (fa.SOURCE, fa.BWD_SOURCE) for source, _ in nvcc._LIBS)
+
+
+@pytest.mark.parametrize("sq,sk,group", [(40, 72, 2), (77, 300, 4), (130, 40, 1), (1, 9, 2)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_plain_twin_at_sq_ne_sk_matches_reference(sq, sk, group, dtype):
+    """Cross-attention shapes (Sq != Sk, full mask): the plain twin, its
+    log-sum-exp and the CPU op against the reference's `mha_reference`
+    and `chunked_attention` (ragged chunks), at the reference's
+    tolerances; causal at Sq != Sk raises in the twin."""
+    rng = np.random.default_rng(sq * 1000 + sk)
+    qa = rng.standard_normal((2, 2 * group, sq, 32)).astype(np.float32)
+    ka, va = (rng.standard_normal((2, 2, sk, 32)).astype(np.float32) for _ in range(2))
+    jx = [jnp.asarray(a, JNP[dtype]) for a in (qa, ka, va)]
+    q, k, v = (torch.from_numpy(np.array(j.astype(jnp.float32))).to(TORCH[dtype]) for j in jx)
+    tol = TOL[dtype]
+    want = jax_ref.mha_reference(*jx, causal=False)
+    got = ref.mha_reference(q, k, v, causal=False)
+    assert got.dtype == TORCH[dtype] and got.shape == q.shape
+    _close(_f32(got), want, tol)
+    _close(_f32(ops.attention_op(q, k, v, causal=False)), want, tol)
+    _close(_f32(fa.flash_attention_cuda(q, k, v, causal=False)), want, tol)
+    _close(_f32(attention.chunked_attention(q, k, v, causal=False, chunk=32)),
+           jax_attn.chunked_attention(*jx, causal=False, chunk=32), tol)
+    out, lse = ref.mha_reference_lse(q, k, v, causal=False)
+    assert tuple(lse.shape) == (2, 2 * group, sq)
+    s_ = np.einsum("bhqd,bhkd->bhqk", _f32(q), np.repeat(_f32(k), group, axis=1)) / np.sqrt(32)
+    want_lse = np.log(np.exp(s_ - s_.max(-1, keepdims=True)).sum(-1)) + s_.max(-1)
+    np.testing.assert_allclose(lse.numpy(), want_lse, atol=1e-5, rtol=1e-5)
+    with pytest.raises(ValueError, match="causal attention needs Sq == Sk"):
+        ref.mha_reference(q, k, v, causal=True)
+
+
+def test_plain_backward_at_sq_ne_sk_matches_reference_vjp():
+    """The autograd Function on the CPU at Sq != Sk (its plain forward
+    and `ref.mha_backward_reference`, which sums dK and dV over Sk rows)
+    against `jax.vjp` of the reference's `chunked_attention`, float32,
+    1e-5 x max."""
+    import jax
+
+    rng = np.random.default_rng(13)
+    arrs = [rng.standard_normal((2, h, s, 32)).astype(np.float32)
+            for h, s in ((4, 40), (2, 72), (2, 72))]
+    g = rng.standard_normal((2, 4, 40, 32)).astype(np.float32)
+    leaves = [torch.from_numpy(a).requires_grad_(True) for a in arrs]
+    got = torch.autograd.grad(fa.flash_attention_cuda(*leaves, causal=False), leaves,
+                              torch.from_numpy(g))
+    _, vjp = jax.vjp(lambda q, k, v: jax_attn.chunked_attention(q, k, v, causal=False,
+                                                               chunk=32),
+                     *(jnp.asarray(a) for a in arrs))
+    for t, w in zip(got, vjp(jnp.asarray(g))):
+        assert t.shape == w.shape
+        _close(t.numpy() / float(np.abs(w).max()), np.asarray(w) / float(np.abs(w).max()),
+               1e-5)
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -197,6 +279,11 @@ def test_wrapper_rejects_what_the_kernel_does_not_take():
     with pytest.raises(TypeError, match="float32 or bfloat16"):
         fa.flash_attention_cuda(q, q, q)
     q = torch.empty((1, 4, 8, 32), **meta)
+    k = torch.empty((1, 2, 6, 16), **meta)
+    with pytest.raises(ValueError, match=r"\(B, Hkv, Sk, D\)"):
+        fa.flash_attention_cuda(q, k, k, causal=False)
+    with pytest.raises(ValueError, match="causal attention needs Sq == Sk"):
+        fa.flash_attention_cuda(q, q[:, :, :5], q[:, :, :5])
     with pytest.raises(ValueError, match="contiguous"):
         fa.flash_attention_cuda(q.transpose(1, 2).contiguous().transpose(1, 2), q, q)
 

@@ -27,6 +27,10 @@ so they run where the card is:
 * The recurrent families (`models/hybrid.py`, `models/xlstm_model.py`,
   plain torch but for jamba's attention through B9): the reduced jamba
   and xlstm served and trained on the card against the CPU.
+* The vlm and audio families (`models/vlm.py`, `models/encdec.py`): B9
+  at cross-attention shapes (Sq != Sk, full mask) against its twin, and
+  the reduced llava and seamless served and trained on the card against
+  the CPU.
 * The attention gradient (B9's backward kernel): against
   `ref.mha_backward_reference` on a small matrix (bf16, the tensor-core
   kernels, also within 1e-3 relative L2), bit-identical on a repeat
@@ -590,6 +594,106 @@ def test_reduced_recurrent_model_on_card_matches_the_cpu(arch):
     assert out["cuda"][3] == attn_layers
     assert out["cuda"][4] == {"flash_attention_cuda": 2 * attn_layers,
                               "flash_attention_bwd_cuda": attn_layers}
+    for x, y in zip(out["cuda"][0], out["cpu"][0]):
+        assert float((x - y).abs().max()) <= 1e-4 * float(y.abs().max())
+    assert abs(out["cuda"][1] - out["cpu"][1]) <= 1e-5 * abs(out["cpu"][1])
+    for x, y in zip(out["cuda"][2], out["cpu"][2]):
+        assert float((x - y).abs().max()) <= 1e-4 * float(y.abs().max())
+
+
+# ---------------------------------------------------------------------------
+# cross-attention (B9 at Sq != Sk) and the vlm and audio families
+# ---------------------------------------------------------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [("float32", 2e-5), ("bfloat16", 2e-2)])
+def test_attention_kernel_at_sq_ne_sk_matches_twin_on_card(dtype, tol):
+    """B9's forward at cross-attention shapes (full mask, Sq != Sk):
+    seamless's cross shape, a ragged one, Sq > Sk, D = 32 and 128, one
+    query, within the reference's tolerance of the plain twin, the
+    log-sum-exp within 1e-5; causal at Sq != Sk and a gradient at
+    Sq != Sk raise before anything launches."""
+    from repro_torch.kernels import flash_attention as fa
+    dev = _card()
+    g = torch.Generator(device=dev).manual_seed(13)
+    dt = getattr(torch, dtype)
+    for b, hq, hkv, sq, sk, d in ((2, 16, 16, 256, 3072, 64), (2, 4, 2, 77, 300, 64),
+                                  (1, 8, 2, 1000, 130, 64), (1, 4, 1, 33, 65, 32),
+                                  (1, 8, 2, 129, 63, 128), (2, 4, 4, 1, 500, 64)):
+        q = torch.randn((b, hq, sq, d), generator=g, device=dev).to(dt)
+        k, v = (torch.randn((b, hkv, sk, d), generator=g, device=dev).to(dt)
+                for _ in range(2))
+        fa.reset_launch_counts()
+        got, lse = fa.flash_attention_cuda(q, k, v, causal=False, return_lse=True)
+        assert fa.LAUNCHES["flash_attention_cuda"] == 1
+        want, want_lse = ref.mha_reference_lse(q, k, v, causal=False)
+        torch.cuda.synchronize()
+        assert got.shape == q.shape and got.dtype == dt
+        assert torch.allclose(got.float(), want.float(), atol=tol, rtol=tol), (b, hq, sq, sk, d)
+        assert torch.allclose(lse, want_lse, atol=1e-5, rtol=1e-5)
+    fa.reset_launch_counts()
+    with pytest.raises(ValueError, match="causal attention needs Sq == Sk"):
+        fa.flash_attention_cuda(q, k, v, causal=True)
+    with pytest.raises(ValueError, match="backward kernel takes Sq == Sk only"):
+        fa.flash_attention_cuda(q.clone().requires_grad_(True), k, v, causal=False)
+    assert fa.LAUNCHES == {"flash_attention_cuda": 0, "flash_attention_bwd_cuda": 0}
+
+
+def _multimodal_inputs(cfg, rng, b, s, where):
+    """The reduced vlm's patches or the audio family's frames (unit
+    normal, float32) beside ``s`` text tokens."""
+    toks = torch.as_tensor(rng.integers(0, cfg.vocab_size, (b, s + 1)), dtype=torch.int32,
+                           device=where)
+    if cfg.family == "vlm":
+        extra = {"patches": rng.standard_normal((b, cfg.frontend_tokens, cfg.frontend_dim))}
+    else:
+        extra = {"frames": rng.standard_normal((b, s, cfg.frontend_dim))}
+    return toks, {k: torch.as_tensor(a, dtype=torch.float32, device=where)
+                  for k, a in extra.items()}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["llava-next-mistral-7b", "seamless-m4t-large-v2"])
+def test_reduced_multimodal_model_on_card_matches_the_cpu(arch):
+    """The reduced llava and seamless (float32, TF32 off) on the card
+    against the CPU: prefill's logits and 6 decode steps' within 1e-4 x
+    max, the loss within 1e-5 relative and every gradient within 1e-4 x
+    its leaf's max (seamless at equal source and target lengths, as the
+    registry's train spec); B9 launches once an attention a prefill
+    (seamless: encoder, decoder self and cross), twice (remat) forward
+    and once backward a training step, and no plain attention."""
+    import dataclasses
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import get_model, transformer
+    from repro_torch.train.optimizer import tree_leaves, tree_map
+    from repro_torch.train.train_step import loss_and_grads
+    _card()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dataclasses.replace(get_arch(arch, reduced=True), dtype="float32")
+    attn = cfg.num_layers + (cfg.num_encoder_layers + cfg.num_layers
+                             if cfg.family == "audio" else 0)
+    base = get_model(cfg, "cpu").init(torch.Generator().manual_seed(0))
+    out = {}
+    for name in ("cpu", "cuda"):
+        api = get_model(cfg, name)
+        params = tree_map(lambda t: t.to(name), base)
+        toks, extra = _multimodal_inputs(cfg, np.random.default_rng(0), 2, 24, name)
+        fa.reset_launch_counts()
+        logits, cache = api.prefill(params, {"tokens": toks[:, :24], **extra})
+        prefill_launches = fa.LAUNCHES["flash_attention_cuda"]
+        full = transformer.extend_cache(cache, cache["len"] + 8)
+        steps = [logits]
+        for i in range(6):
+            step, full = api.decode(params, full, toks[:, i])
+            steps.append(step)
+        fa.reset_launch_counts()
+        loss, _, grads = loss_and_grads(api.loss, params, {"tokens": toks[:, :-1],
+                                                          "labels": toks[:, 1:], **extra})
+        out[name] = ([x.cpu() for x in steps], float(loss), [g.cpu() for g in tree_leaves(grads)],
+                     prefill_launches, dict(fa.LAUNCHES))
+    assert out["cuda"][3] == attn
+    assert out["cuda"][4] == {"flash_attention_cuda": 2 * attn, "flash_attention_bwd_cuda": attn}
     for x, y in zip(out["cuda"][0], out["cpu"][0]):
         assert float((x - y).abs().max()) <= 1e-4 * float(y.abs().max())
     assert abs(out["cuda"][1] - out["cpu"][1]) <= 1e-5 * abs(out["cpu"][1])

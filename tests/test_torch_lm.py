@@ -154,18 +154,37 @@ def test_configs_are_the_references():
     ("seamless-m4t-large-v2", "audio"),
 ])
 def test_families_not_ported_raise(name, item):
-    """The families still in ROADMAP queue A raise, naming it; the MoE
-    (queue A item 5), ssm and hybrid families (item 6) build: their init
-    draws the config's shapes on the CPU and a prefill runs."""
-    if item in ("vlm", "audio"):
-        with pytest.raises(NotImplementedError, match=f"{item}.*ROADMAP queue A"):
-            get_model(REDUCED[name], "cpu")
-        return
-    from repro_torch.models import hybrid, transformer, xlstm
+    """No family raises any more: the MoE (queue A item 5), ssm, hybrid,
+    vlm and audio families (item 6) build; their init draws the config's
+    shapes on the CPU and a prefill runs (the vlm's over [image ; text],
+    the audio family's over source frames and a text prompt)."""
+    from repro_torch.models import encdec, hybrid, transformer, vlm, xlstm
     from repro_torch.train.optimizer import tree_leaves
     cfg = REDUCED[name]
     api = get_model(cfg, "cpu")
     params = api.init(torch.Generator().manual_seed(0))
+    if item in ("vlm", "audio"):
+        assert all(w.device.type == "cpu" and w.dtype == torch.bfloat16
+                   for w in tree_leaves(params))
+        toks = torch.zeros((1, 5), dtype=torch.int32)
+        if item == "vlm":
+            assert {n: tuple(params[n].shape) for n in vlm.projector_shapes(cfg)} == (
+                vlm.projector_shapes(cfg))
+            assert [{n: tuple(w.shape) for n, w in blk.items()} for blk in params["blocks"]] == (
+                [transformer.block_param_shapes(cfg)] * cfg.num_layers)
+            extra = {"patches": torch.zeros((1, cfg.frontend_tokens, cfg.frontend_dim))}
+            length = cfg.frontend_tokens + 5
+        else:
+            assert [{n: tuple(w.shape) for n, w in blk.items()} for blk in params["dec"]] == (
+                [encdec.dec_param_shapes(cfg)] * cfg.num_layers)
+            assert [{n: tuple(w.shape) for n, w in blk.items()} for blk in params["enc"]] == (
+                [encdec.enc_param_shapes(cfg)] * cfg.num_encoder_layers)
+            extra = {"frames": torch.zeros((1, 7, cfg.frontend_dim))}
+            length = 5
+        logits, cache = api.prefill(params, {"tokens": toks, **extra})
+        assert logits.shape == (1, cfg.padded_vocab)
+        assert bool(torch.isfinite(logits.float()).all()) and cache["len"] == length
+        return
     if item == "MoE":
         want = [transformer.block_param_shapes(cfg)] * cfg.num_layers
         assert {"router", "we_gate", "we_up", "we_down"} <= set(want[0])
