@@ -21,10 +21,14 @@ log-sum-exp).  The backward, at the training microbatch: both
 gradients from the same output, log-sum-exp and output gradient, held
 to each other at `chip_smoke.py`'s bf16 tolerance (max |Δ| <= 2e-2 x
 max |parent|, relative L2 <= 1e-2), not bit for bit (the designs sum in
-other orders).  Times are CUDA events, kernels in turns (parent, change,
-change, parent, parent, change; both trees the same repetitions); the
-change's backward is also split by launch (its four kernels' mean device
-time under `torch.profiler`).
+other orders).  With ``--bwd-bits`` (a parent of the same backward
+design) the backward must instead give the parent's bits there and at
+`BWD_BITS_SHAPES` (square shapes in both dtypes, causal and full, ragged
+lengths, every head dim), and its time must stay within `RATIO_BAND`
+of the parent's.  Times are CUDA events, kernels in turns (parent,
+change, change, parent, parent, change; both trees the same
+repetitions); the change's backward is also split by launch (its four
+kernels' mean device time under `torch.profiler`).
 
 The control of `chip_smoke.py`'s relative L2 bound on the bf16 gradient
 (`ATTN_BWD_SPLIT_REL_L2`): this tree's backward built as well with
@@ -56,6 +60,10 @@ BWD_SHAPE = cs.TRAIN_ATTN_SHAPE
 TURNS = ("parent", "change", "change", "parent", "parent", "change")
 # (B, Hq, Hkv, S, D, causal) of the control, the last the training shape
 CONTROL_SHAPES = ((1, 4, 2, 77, 64, False), (1, 8, 2, 1000, 128, True), (*BWD_SHAPE, True))
+# (B, Hq, Hkv, S, D) of the square backward held bit for bit with --bwd-bits
+BWD_BITS_SHAPES = ((1, 4, 2, 77, 32), (2, 8, 2, 130, 64), (1, 8, 1, 64, 128),
+                   (1, 16, 4, 1000, 128), (2, 16, 16, 3072, 64))
+RATIO_BAND = (0.97, 1.03)
 
 
 def emit(obj) -> None:
@@ -86,12 +94,12 @@ def _control(dev, g, control_lib):
         d_out = torch.randn(out.shape, generator=g, device=dev).to(torch.bfloat16)
         split = fa.flash_attention_bwd_cuda(q, k, v, out, lse, d_out, causal=causal)
         single = [torch.empty_like(t) for t in (q, k, v)]
-        scratch = torch.empty(fa._bwd_scratch_floats(q.dtype, b, hq, s, d),
+        scratch = torch.empty(fa._bwd_scratch_floats(q.dtype, b, hq, s, s, d),
                               dtype=torch.float32, device=dev)
         err = control_lib.flash_attention_bwd_launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), d_out.data_ptr(),
             lse.data_ptr(), scratch.data_ptr(), *(t.data_ptr() for t in single),
-            b, hq, hkv, s, d, 1, 1.0 / math.sqrt(d), int(causal),
+            b, hq, hkv, s, s, d, 1, 1.0 / math.sqrt(d), int(causal),
             torch.cuda.current_stream(dev).cuda_stream)
         nvcc.raise_on_error(err, "single-bf16 flash_attention_bwd")
         want = ref.mha_backward_reference(q, k, v, out, lse, d_out, causal=causal)
@@ -109,6 +117,30 @@ def _control(dev, g, control_lib):
         cs.check(row["split_within"], f"bf16 backward over its relative L2 bound: {row}")
         rows.append(row)
         del q, k, v, out, lse, d_out, split, single, scratch, want
+    return rows
+
+
+def _bwd_bits(dev, g, parent_fa, fa):
+    """Whether the change's backward gives the parent's bits at each of
+    `BWD_BITS_SHAPES`, in both dtypes, causal and full."""
+    import torch
+    rows = []
+    for b, hq, hkv, s, d in BWD_BITS_SHAPES:
+        for dt in (torch.float32, torch.bfloat16):
+            for causal in (True, False):
+                q, k, v = (torch.randn((b, h, s, d), generator=g, device=dev).to(dt)
+                           for h in (hq, hkv, hkv))
+                with torch.no_grad():
+                    out, lse = fa.flash_attention_cuda(q, k, v, causal=causal, return_lse=True)
+                d_out = torch.randn(out.shape, generator=g, device=dev).to(dt)
+                want = parent_fa.flash_attention_bwd_cuda(q, k, v, out, lse, d_out,
+                                                          causal=causal)
+                got = fa.flash_attention_bwd_cuda(q, k, v, out, lse, d_out, causal=causal)
+                equal = all(torch.equal(x, w) for x, w in zip(got, want))
+                row = {"shape": [b, hq, hkv, s, d], "dtype": str(dt).split(".")[1],
+                       "causal": causal, "bits_equal": equal}
+                cs.check(equal, f"backward parent and change differ in bits: {row}")
+                rows.append(row)
     return rows
 
 
@@ -154,6 +186,8 @@ def main(argv=None) -> int:
     ap.add_argument("--parent", type=pathlib.Path, required=True,
                     help="root of the earlier checkout")
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--bwd-bits", action="store_true",
+                    help="the parent has this backward design: hold its bits and time")
     args = ap.parse_args(argv)
 
     import torch
@@ -223,7 +257,7 @@ def main(argv=None) -> int:
     grads, got = parent_bwd(), change_bwd()
     torch.cuda.synchronize()
     tol, rel_tol = cs.ATTN_BWD_TOL["bfloat16"], cs.ATTN_BWD_REL_L2
-    held = {}
+    held = {"bits_equal": all(torch.equal(x, w) for x, w in zip(got, grads))}
     for tag, x, w in zip(("dq", "dk", "dv"), got, grads):
         x, w = x.float(), w.float()
         held[tag] = {"max_abs_err": float((x - w).abs().max()),
@@ -233,11 +267,16 @@ def main(argv=None) -> int:
                  and held[tag]["rel_l2"] <= rel_tol,
                  f"backward parent and change differ in {tag}: {held[tag]}")
     times = _in_turns(parent_bwd, change_bwd, 20)
+    ratio = sum(times["change"]) / sum(times["parent"])
     row = {"kernel": "flash_attention_bwd_cuda", "shape": [b, hq, hkv, s, d],
            "dtype": "bfloat16", "causal": True, "vs_parent": held,
-           "parent_ms": times["parent"], "change_ms": times["change"],
-           "ratio": sum(times["change"]) / sum(times["parent"]),
+           "parent_ms": times["parent"], "change_ms": times["change"], "ratio": ratio,
            "change_launch_ms": _by_launch(change_bwd, reps=5)}
+    if args.bwd_bits:
+        cs.check(held["bits_equal"], "backward parent and change differ in bits")
+        cs.check(RATIO_BAND[0] <= ratio <= RATIO_BAND[1],
+                 f"backward time ratio {ratio} outside {RATIO_BAND}")
+        row["bits_shapes"] = _bwd_bits(dev, g, parent_fa, fa)
     emit(row)
     rows.append(row)
     del q, k, v, out, lse, d_out, grads, got

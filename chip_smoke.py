@@ -2170,6 +2170,11 @@ ATTN_BWD_SPLIT_REL_L2 = 1e-3
 ATTN_BWD_EARLIER_MS = 16.16
 ATTN_LSE_TOL = 1e-5
 TRAIN_ATTN_SHAPE = (1, 32, 4, 4096, 128)   # (B, Hq, Hkv, S, D) of one training microbatch
+# lm_train (a): the backward at cross-attention shapes (full mask, Sq != Sk),
+# (B, Hq, Hkv, Sq, Sk, D), both dtypes; the first is timed
+ATTN_BWD_CROSS_SHAPES = ((2, 16, 16, 256, 3072, 64),  # seamless's, over 3,072 source frames
+                         (1, 4, 2, 77, 1000, 64),     # ragged in both lengths
+                         (2, 8, 2, 1000, 130, 128))   # GQA, Sq > Sk
 SERVE_ARGV = ["--arch", LM_ARCH, "--requests", "16", "--max-new", "32",
               "--batch-slots", "8", "--max-len", "512"]
 
@@ -2282,14 +2287,16 @@ def attention_ptxas():
             "bf16_d128_backward": bwd}
 
 
-def attention_bwd_bound(b, hq, hkv, s, d, elem_bytes, causal=True):
-    """The least time for the attention gradient: its operations, 2.5x
-    the forward's (five products of the forward's two sizes), over the
-    bf16 peak, against its bytes (q, k, v, o, dO and lse read once, dq,
-    dk and dv written once) over the memory rate."""
-    fwd = attention_bound(b, hq, hkv, s, d, elem_bytes, causal)
+def attention_bwd_bound(b, hq, hkv, s, d, elem_bytes, causal=True, sk=None):
+    """The least time for the attention gradient of S queries over Sk
+    keys (Sk = S unless given): its operations, 2.5x the forward's (five
+    products of the forward's two sizes), over the bf16 peak, against its
+    bytes (q, o, dO and lse read once over S rows, k and v over Sk; dq
+    written over S rows, dk and dv over Sk) over the memory rate."""
+    sk = s if sk is None else sk
+    fwd = attention_bound(b, hq, hkv, s, d, elem_bytes, causal, sk=sk)
     flops = 2.5 * fwd["flops"]
-    moved = elem_bytes * d * s * b * (4 * hq + 4 * hkv) + 4 * b * hq * s
+    moved = elem_bytes * d * b * (4 * hq * s + 4 * hkv * sk) + 4 * b * hq * s
     flops_ms = flops / BF16_FLOPS_PER_S * 1e3
     bytes_ms = moved / HBM_BYTES_PER_S * 1e3
     return {"flops": flops, "bytes": moved, "bound_ms": max(flops_ms, bytes_ms),
@@ -2322,7 +2329,8 @@ def compare_attention_backward(dev, seed, record):
     """(a) of `lm_train`: the backward kernel against
     `ref.mha_backward_reference` on the card (float32 and bf16 x D 32 /
     64 / 128 x causal and full x S 1 / 77 / 1000 x GQA groups 1 / 4 / 8,
-    plus the training shape in bf16), two launches bit-identical; the
+    plus the training shape in bf16, and `ATTN_BWD_CROSS_SHAPES`, full
+    mask at Sq != Sk, in both dtypes), two launches bit-identical; the
     forward with ``return_lse=True`` bit-identical to the inference call
     and its log-sum-exp against `ref.mha_reference_lse`.  Returns the
     largest error over tol x scale seen (<= 1 everywhere passes)."""
@@ -2331,15 +2339,17 @@ def compare_attention_backward(dev, seed, record):
     from repro_torch.kernels.flash_attention import (flash_attention_bwd_cuda,
                                                      flash_attention_cuda)
     g = torch.Generator(device=dev).manual_seed(seed)
-    cases = [(1, 2 * grp, 2, s, d, name, causal)
+    cases = [(1, 2 * grp, 2, s, s, d, name, causal)
              for s in ATTN_BWD_SEQS for d in ATTN_BWD_DIMS for grp in ATTN_BWD_GROUPS
              for name in ATTN_BWD_TOL for causal in (True, False)]
-    cases.append((*TRAIN_ATTN_SHAPE, "bfloat16", True))
+    b, hq, hkv, s, d = TRAIN_ATTN_SHAPE
+    cases.append((b, hq, hkv, s, s, d, "bfloat16", True))
+    cases += [(*shape, name, False) for shape in ATTN_BWD_CROSS_SHAPES for name in ATTN_BWD_TOL]
     worst = 0.0
-    for b, hq, hkv, s, d, name, causal in cases:
+    for b, hq, hkv, s, sk, d, name, causal in cases:
         dt = getattr(torch, name)
-        q, k, v = (torch.randn((b, h, s, d), generator=g, device=dev).to(dt)
-                   for h in (hq, hkv, hkv))
+        q, k, v = (torch.randn((b, h, n, d), generator=g, device=dev).to(dt)
+                   for h, n in ((hq, s), (hkv, sk), (hkv, sk)))
         with torch.no_grad():
             plain_out = flash_attention_cuda(q, k, v, causal=causal)
             out, lse = flash_attention_cuda(q, k, v, causal=causal, return_lse=True)
@@ -2349,7 +2359,8 @@ def compare_attention_backward(dev, seed, record):
             again = flash_attention_bwd_cuda(q, k, v, out, lse, d_out, causal=causal)
             want = ref.mha_backward_reference(q, k, v, out, lse, d_out, causal=causal)
         torch.cuda.synchronize()
-        row = {"shape": [b, hq, hkv, s, d], "dtype": name, "causal": causal,
+        row = {"shape": [b, hq, hkv, s, d] if sk == s else [b, hq, hkv, s, sk, d],
+               "dtype": name, "causal": causal,
                "out_bits_equal": bool(torch.equal(out, plain_out)),
                "lse_max_abs_err": float((lse - lse_twin).abs().max()),
                "repeat_bits_equal": all(torch.equal(x, y) for x, y in zip(got, again)),
@@ -2358,7 +2369,7 @@ def compare_attention_backward(dev, seed, record):
         row["within_tol"] = (row["out_bits_equal"] and row["lse_ok"] and row["repeat_bits_equal"]
                              and all(row[t]["ok"] for t in ("dq", "dk", "dv")))
         record.append(row)
-        check(row["within_tol"], f"attention backward {b, hq, hkv, s, d} {name} "
+        check(row["within_tol"], f"attention backward {b, hq, hkv, s, sk, d} {name} "
                                  f"causal={causal}: {row}")
         worst = max([worst] + [row[t]["max_abs_err"] / max(row[t]["max_abs_twin"], 1e-30)
                                / ATTN_BWD_TOL[name] for t in ("dq", "dk", "dv")])
@@ -2374,10 +2385,9 @@ def time_attention_backward(dev, seed):
     at the training shape, and the forward kernel with and without its
     log-sum-exp there; beside the bound, the bf16 design's floor (ten
     products where the bound counts five) and the CUDA-core kernel's
-    time it replaced."""
+    time it replaced.  Under ``cross`` the same three at seamless's cross
+    shape (`ATTN_BWD_CROSS_SHAPES[0]`) beside its bound."""
     import torch
-    import torch.nn.functional as F
-    from torch.nn.attention import SDPBackend, sdpa_kernel
     from repro_torch.kernels import ref
     from repro_torch.kernels.flash_attention import (flash_attention_bwd_cuda,
                                                      flash_attention_cuda)
@@ -2396,14 +2406,49 @@ def time_attention_backward(dev, seed):
                "forward_ms": time_ms(lambda: flash_attention_cuda(q, k, v), reps=10),
                "forward_lse_ms": time_ms(lambda: flash_attention_cuda(
                    q, k, v, return_lse=True), reps=10)}
+    library, backend = _sdpa_backward_ms(q, k, v, d_out, True)
+    bound = attention_bwd_bound(b, hq, hkv, s, d, 2)
+    row.update(library_ms=library, library_backend=backend, **bound,
+               design_floor_ms=max(2 * bound["flops"] / BF16_FLOPS_PER_S * 1e3,
+                                   bound["bound_ms"]),
+               earlier_ms=ATTN_BWD_EARLIER_MS)
+    del q, k, v, out, lse, d_out
+
+    # seamless's cross shape (full mask, Sq != Sk)
+    b, hq, hkv, sq, sk, d = ATTN_BWD_CROSS_SHAPES[0]
+    q = torch.randn((b, hq, sq, d), generator=g, device=dev).to(torch.bfloat16)
+    k, v = (torch.randn((b, hkv, sk, d), generator=g, device=dev).to(torch.bfloat16)
+            for _ in range(2))
+    with torch.no_grad():
+        out, lse = flash_attention_cuda(q, k, v, causal=False, return_lse=True)
+        d_out = torch.randn(out.shape, generator=g, device=dev).to(torch.bfloat16)
+        cross = {"shape": [b, hq, hkv, sq, sk, d], "dtype": "bfloat16", "causal": False,
+                 "ms": time_ms(lambda: flash_attention_bwd_cuda(q, k, v, out, lse, d_out,
+                                                                causal=False), reps=20),
+                 "plain_ms": time_ms(lambda: ref.mha_backward_reference(
+                     q, k, v, out, lse, d_out, causal=False), reps=3, warmup=1)}
+    cross["library_ms"], cross["library_backend"] = _sdpa_backward_ms(q, k, v, d_out, False)
+    cross.update(attention_bwd_bound(b, hq, hkv, sq, d, 2, causal=False, sk=sk))
+    row["cross"] = cross
+    del q, k, v, out, lse, d_out
+    torch.cuda.empty_cache()
+    return row
+
+
+def _sdpa_backward_ms(q, k, v, d_out, causal):
+    """SDPA's backward time (timed only, never called by the port): the
+    first backend that takes the call, its forward-and-backward less its
+    forward; (ms, backend name)."""
+    import torch
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
     qs, ks, vs = (t.clone().requires_grad_(True) for t in (q, k, v))
-    library, backend = None, None
     for be in (SDPBackend.FLASH_ATTENTION, SDPBackend.EFFICIENT_ATTENTION,
                SDPBackend.CUDNN_ATTENTION, SDPBackend.MATH):
         try:
             with sdpa_kernel([be]):
                 def fwd():
-                    return F.scaled_dot_product_attention(qs, ks, vs, is_causal=True,
+                    return F.scaled_dot_product_attention(qs, ks, vs, is_causal=causal,
                                                           enable_gqa=True)
 
                 def fwd_bwd():
@@ -2412,18 +2457,10 @@ def time_attention_backward(dev, seed):
                 both = time_ms(fwd_bwd, reps=5, warmup=1)
                 with torch.no_grad():
                     alone = time_ms(fwd, reps=5, warmup=1)
-            library, backend = both - alone, be.name
-            break
+            return both - alone, be.name
         except RuntimeError:
             continue
-    bound = attention_bwd_bound(b, hq, hkv, s, d, 2)
-    row.update(library_ms=library, library_backend=backend, **bound,
-               design_floor_ms=max(2 * bound["flops"] / BF16_FLOPS_PER_S * 1e3,
-                                   bound["bound_ms"]),
-               earlier_ms=ATTN_BWD_EARLIER_MS)
-    del q, k, v, qs, ks, vs, out, lse, d_out
-    torch.cuda.empty_cache()
-    return row
+    return None, None
 
 
 def _lm_tokens(rng, cfg, b, s, dev):
@@ -2679,7 +2716,7 @@ def count_plain_attention():
             setattr(mod, name, fn)
 
 
-def check_model_gradient(dev, seed, arch=LM_ARCH):
+def check_model_gradient(dev, seed, arch=LM_ARCH, frames=None):
     """(b): the reduced ``arch``'s loss and gradients (float32, TF32 off)
     on the card, through both attention kernels, against the CPU's plain
     loop: the loss within 1e-5 relative, the MoE aux loss within 1e-6
@@ -2687,7 +2724,8 @@ def check_model_gradient(dev, seed, arch=LM_ARCH):
     max; two forward launches (the remat recompute) and one backward
     launch of B9 an attention (`_attention_calls`).  The vlm's batch
     carries patches, the audio family's as many frames as tokens (the
-    registry's train spec, so the backward kernel sees Sq = Sk)."""
+    registry's train spec) unless ``frames`` gives another count (the
+    cross-attention's backward then at Sq != Sk)."""
     import dataclasses
     import torch
     from repro_torch.configs import get_arch
@@ -2699,7 +2737,7 @@ def check_model_gradient(dev, seed, arch=LM_ARCH):
     cfg = dataclasses.replace(get_arch(arch, reduced=True), dtype="float32")
     rng = np.random.default_rng((seed, 3))
     toks = rng.integers(0, cfg.vocab_size, (4, 65))
-    extra = _modality(cfg, rng, 4, 64, "cpu", torch.float32)
+    extra = _modality(cfg, rng, 4, frames or 64, "cpu", torch.float32)
     params = get_model(cfg, "cpu").init(torch.Generator().manual_seed(seed))
     got = {}
     reset_counts()
@@ -2716,7 +2754,8 @@ def check_model_gradient(dev, seed, arch=LM_ARCH):
                                                                          got[str(dev)])
     leaf_err = max(float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
                    for a, b in zip(grads_card, grads_cpu))
-    out = {"arch": cfg.name, "dtype": "float32", "tf32": False, "loss_cpu": loss_cpu,
+    out = {"arch": cfg.name, "dtype": "float32", "tf32": False, "frames": frames,
+           "loss_cpu": loss_cpu,
            "loss_card": loss_card, "loss_rel_err": abs(loss_card - loss_cpu) / abs(loss_cpu),
            "max_leaf_err_over_max": leaf_err, "aux_cpu": aux_cpu, "aux_card": aux_card,
            "aux_rel_err": abs(aux_card - aux_cpu) / max(abs(aux_cpu), 1e-30),
@@ -3715,6 +3754,8 @@ VLM_ARCH, AUDIO_ARCH = "llava-next-mistral-7b", "seamless-m4t-large-v2"
 VLM_CHECK_TAIL = 8               # text tokens decoded after the shortened prompt's prefill
 AUDIO_TGT = 256                  # target tokens of seamless's prefill
 AUDIO_CHECK_SEQ = 64             # target tokens fed to sequential decode
+AUDIO_TRAIN_STEPS = 3            # (e): full-width seamless training steps (the first warms up)
+AUDIO_GRAD_FRAMES = 96           # (d): the reduced seamless's frames under 64 tokens
 MULTIMODAL_PREFILLS = 2          # prefill calls a model (the first warms up)
 MULTIMODAL_REL_L2 = 1e-2         # bf16 against float32, layer by layer
 VLM_SERVE_ARGV = ["--arch", VLM_ARCH] + SERVE_ARGV[2:]
@@ -3806,8 +3847,9 @@ def vlm_layer_bf16(cfg, p, rng, dev, s):
 def time_cross_attention(dev, seed):
     """(a): B9 at seamless's cross shape (bf16, full mask, 256 queries
     over 3,072 keys), its twin and SDPA (`enable_gqa`, timed only) beside
-    the bound; and the refusals: causal at Sq != Sk and a gradient at
-    Sq != Sk raise before anything launches."""
+    the bound; causal at Sq != Sk raises before anything launches, and a
+    gradient at Sq != Sk is taken (one forward and one backward launch
+    through `FlashAttention`)."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import ref
@@ -3819,17 +3861,24 @@ def time_cross_attention(dev, seed):
             for _ in range(2))
     reset_counts()
     refused = {}
-    for name, fn in (("causal", lambda: flash_attention_cuda(q, k, v, causal=True)),
-                     ("grad", lambda: flash_attention_cuda(q.clone().requires_grad_(True), k,
-                                                           v, causal=False))):
-        try:
-            fn()
-            refused[name] = False
-        except ValueError:
-            refused[name] = True
+    try:
+        flash_attention_cuda(q, k, v, causal=True)
+        refused["causal"] = False
+    except ValueError:
+        refused["causal"] = True
     refused["launches"] = sum(read_counts().values())
-    check(refused["causal"] and refused["grad"] and refused["launches"] == 0,
-          f"lm_multimodal (a): Sq != Sk not refused before a launch: {refused}")
+    qg = q.clone().requires_grad_(True)
+    flash_attention_cuda(qg, k, v, causal=False).sum().backward()
+    torch.cuda.synchronize()
+    refused["grad_launches"] = {k: v for k, v in read_counts().items() if "attention" in k}
+    refused["grad_finite"] = bool(torch.isfinite(qg.grad).all())
+    check(refused["causal"] and refused["launches"] == 0,
+          f"lm_multimodal (a): causal at Sq != Sk not refused before a launch: {refused}")
+    check(refused["grad_launches"] == {"flash_attention_cuda": 1,
+                                       "flash_attention_bwd_cuda": 1}
+          and refused["grad_finite"],
+          f"lm_multimodal (a): a gradient at Sq != Sk did not go through B9: {refused}")
+    del qg
     row = {"shape": [b, hq, hkv, sq, sk, d], "dtype": "bfloat16", "causal": False,
            "ms": time_ms(lambda: flash_attention_cuda(q, k, v, causal=False), reps=50),
            "plain_ms": time_ms(lambda: ref.mha_reference(q, k, v, causal=False), reps=10),
@@ -4028,11 +4077,68 @@ def run_audio(args, dev, card, rng):
     return out, launches
 
 
+def run_audio_train(args, dev, card):
+    """(e): one seamless-m4t-large-v2 training step at full width and
+    depth (bf16, AdamW, remat as configured) on 2 x (3,072 frames + 256
+    tokens), so every cross-attention's backward runs at Sq != Sk: the
+    batch goes straight to `api.loss` and `make_train_step` (the
+    registry's train spec keeps equal lengths).  A finite loss and
+    gradient norm, B9's backward launches (one an attention of a step),
+    the step's seconds (median of the steps after the first) and peak
+    memory."""
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.models import get_model, registry
+    from repro_torch.train.optimizer import OptimizerConfig, adamw_init
+    from repro_torch.train.train_step import make_train_step
+    cfg = get_arch(AUDIO_ARCH, reduced=args.lm_reduced)
+    src = registry.ENCDEC_DECODE_SRC_LEN if not args.lm_reduced else 96
+    tgt = AUDIO_TGT if not args.lm_reduced else 32
+    b = LM_BATCH
+    rng = np.random.default_rng((args.seed, 11))
+    t0 = time.perf_counter()
+    api = get_model(cfg, dev)
+    params = api.init(torch.Generator(device=dev).manual_seed(args.seed))
+    opt = adamw_init(params)
+    step = make_train_step(api.loss, OptimizerConfig(lr=3e-4, warmup_steps=1, total_steps=8))
+    toks = rng.integers(0, cfg.vocab_size, (b, tgt + 1))
+    batch = {"tokens": torch.as_tensor(toks[:, :-1], dtype=torch.int32, device=dev),
+             "labels": torch.as_tensor(toks[:, 1:], dtype=torch.int32, device=dev),
+             **_modality(cfg, rng, b, src, dev, torch.bfloat16)}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    init_s = time.perf_counter() - t0
+    times, losses, norms = [], [], []
+    reset_counts()
+    for _ in range(AUDIO_TRAIN_STEPS):
+        t1 = time.perf_counter()
+        params, opt, metrics = step(params, opt, batch)
+        losses.append(float(metrics["loss"]))
+        norms.append(float(metrics["grad_norm"]))
+        times.append(time.perf_counter() - t1)
+    launches = read_counts()
+    out = {"arch": cfg.name, "params": _param_count(params), "batch": b, "src_frames": src,
+           "tgt_tokens": tgt, "steps": AUDIO_TRAIN_STEPS, "init_s": init_s,
+           "step_s": times, "step_median_s": float(np.median(times[1:])), "losses": losses,
+           "grad_norms": norms, "launches": launches,
+           "bwd_launches_per_step": launches["flash_attention_bwd_cuda"] / AUDIO_TRAIN_STEPS,
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+    attn = _attention_calls(cfg)
+    out["ok"] = (all(np.isfinite(losses)) and all(np.isfinite(norms))
+                 and launches["flash_attention_bwd_cuda"] == attn * AUDIO_TRAIN_STEPS)
+    del params, opt, batch, api
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
 def run_lm_multimodal(args, dev, card):
     """The vlm and audio families, the failover guard around them: (a)
-    B9 at seamless's cross shape timed and its refusals; (b) llava at
-    full size; (c) seamless at full size; (d) the reduced llava and
-    seamless card against CPU and through `launch.serve`; (e) no plain
+    B9 at seamless's cross shape timed, causal refused and a gradient
+    taken there; (b) llava at full size; (c) seamless at full size; (d)
+    the reduced llava and seamless card against CPU and through
+    `launch.serve` (seamless's gradient also at Sq != Sk); (e) one
+    seamless training step at full size at Sq != Sk; (f) no plain
     attention over (b) and (c).  Each model is released before the
     next."""
     import torch
@@ -4053,9 +4159,9 @@ def run_lm_multimodal(args, dev, card):
         t0 = time.perf_counter()
         audio_out, audio_launches = run_audio(args, dev, card, rng)
         parts["c"] = {**audio_out, "seconds": time.perf_counter() - t0}
-    parts["e"] = {"plain_attention": dict(plain), "seconds": 0.0}
-    emit({"phase": "lm_multimodal", "part": "e_plain_attention", **parts["e"]})
-    check(not plain, f"lm_multimodal (e): plain attention ran on the main path: {dict(plain)}")
+    parts["f"] = {"plain_attention": dict(plain), "seconds": 0.0}
+    emit({"phase": "lm_multimodal", "part": "f_plain_attention", **parts["f"]})
+    check(not plain, f"lm_multimodal (f): plain attention ran on the main path: {dict(plain)}")
 
     t0 = time.perf_counter()
     reduced = {}
@@ -4067,11 +4173,18 @@ def run_lm_multimodal(args, dev, card):
         reduced[arch] = {"serving": check_model_serving(dev, args.seed, arch),
                          "gradient": check_model_gradient(dev, args.seed, arch),
                          "serve": {"argv": argv, **served, "ok": served_ok}}
+    # the reduced seamless's gradient at Sq != Sk: 64 tokens over 96 frames
+    reduced[AUDIO_ARCH]["gradient_sq_ne_sk"] = check_model_gradient(
+        dev, args.seed, AUDIO_ARCH, frames=AUDIO_GRAD_FRAMES)
     parts["d"] = {**reduced, "seconds": time.perf_counter() - t0}
     emit({"phase": "lm_multimodal", "part": "d_reduced_card_vs_cpu", **parts["d"]})
     check(all(r["serving"]["ok"] and r["gradient"]["ok"] and r["serve"]["ok"]
-              for r in reduced.values()),
+              for r in reduced.values()) and reduced[AUDIO_ARCH]["gradient_sq_ne_sk"]["ok"],
           f"lm_multimodal (d): the reduced models on the card: {reduced}")
+    t0 = time.perf_counter()
+    parts["e"] = {**run_audio_train(args, dev, card), "seconds": time.perf_counter() - t0}
+    emit({"phase": "lm_multimodal", "part": "e_audio_train", "card": card, **parts["e"]})
+    check(parts["e"]["ok"], f"lm_multimodal (e): seamless training at Sq != Sk: {parts['e']}")
     seconds = time.perf_counter() - t_phase
     emit({"phase": "lm_multimodal", "part": "all", "card": card, "seconds": seconds,
           "parts_s": {n: p["seconds"] for n, p in parts.items()}})
@@ -4084,8 +4197,197 @@ def run_lm_multimodal(args, dev, card):
     return {"launches": launches, "vlm_launches": vlm_launches,
             "audio_launches": audio_launches,
             "bwd_launches": sum(r["gradient"]["attention_bwd_launches"]
-                                for r in reduced.values()),
+                                for r in reduced.values())
+            + reduced[AUDIO_ARCH]["gradient_sq_ne_sk"]["attention_bwd_launches"]
+            + parts["e"]["launches"]["flash_attention_bwd_cuda"],
+            "audio_train_bwd_launches": parts["e"]["launches"]["flash_attention_bwd_cuda"],
             "cross": parts["a"], "parts": parts, "seconds": seconds}
+
+
+# ---------------------------------------------------------------------------
+# distributed: the mesh, the sharding rules, the int8 all-reduce, the dry run
+# ---------------------------------------------------------------------------
+
+# the dry run's cells: (arch, shape, --mesh), each `python -m
+# repro_torch.launch.dryrun --subprocess` of its own, started at the top of
+# `main` and read back in `run_distributed` (host work beside the card's)
+DRYRUN_CELLS = (("yi-6b", "train_4k", "single"), ("jamba-1.5-large-398b", "decode_32k", "multi"))
+DRYRUN_OUT = ROOT / "build" / "dryrun"
+DRYRUN_TIMEOUT_S = 600
+ALLREDUCE_STEPS = 3              # error-feedback steps held to the one-rank identities
+ALLREDUCE_TIMED = 5              # calls timed (median)
+ALLREDUCE_CPU_LEAVES = ("blocks/0/wq", "blocks/1/w_down", "final_norm")
+CARD_BYTES = 80e9                # the card's memory
+
+
+def start_dryruns():
+    """One dry-run process a cell of `DRYRUN_CELLS`, started now; each
+    writes its JSON under `DRYRUN_OUT` and its output to a log beside
+    it.  Every process is stopped at exit if still running."""
+    import atexit
+    import os
+    DRYRUN_OUT.mkdir(parents=True, exist_ok=True)
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    procs = []
+    for arch, shape, mesh in DRYRUN_CELLS:
+        log = open(DRYRUN_OUT / f"{arch}__{shape}__{mesh}.log", "w")
+        cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--subprocess",
+               "--arch", arch, "--shape", shape, "--mesh", mesh, "--out", str(DRYRUN_OUT)]
+        procs.append(((arch, shape, mesh), subprocess.Popen(
+            cmd, env=env, stdout=log, stderr=subprocess.STDOUT), time.perf_counter(), log))
+    atexit.register(lambda: [p.kill() for _, p, _, _ in procs if p.poll() is None])
+    return procs
+
+
+def collect_dryruns(procs):
+    """Each cell's JSON once its process has ended: status, the process's
+    seconds and the per-device argument bytes against the card's."""
+    out = []
+    for (arch, shape, mesh), proc, t0, log in procs:
+        try:
+            rc = proc.wait(timeout=max(1.0, DRYRUN_TIMEOUT_S - (time.perf_counter() - t0)))
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            rc = proc.wait()
+        log.close()
+        mesh_name = "2x16x16" if mesh == "multi" else "16x16"
+        path = DRYRUN_OUT / f"{arch}__{shape}__{mesh_name}.json"
+        rec = json.loads(path.read_text()) if path.exists() else {"status": "missing"}
+        arg = (rec.get("memory") or {}).get("argument_bytes")
+        out.append({"cell": f"{arch}__{shape}__{mesh_name}", "rc": rc,
+                    "status": rec.get("status"), "error": rec.get("error"),
+                    "wall_s": rec.get("wall_s"), "process_s": time.perf_counter() - t0,
+                    "argument_gb_per_device": None if arg is None else arg / 1e9,
+                    "output_gb_per_device": None if arg is None
+                    else rec["memory"]["output_bytes"] / 1e9
+                    if rec["memory"]["output_bytes"] is not None else None,
+                    "fits_card": arg is not None and arg < CARD_BYTES,
+                    "flops_per_device": rec.get("flops_per_device"),
+                    "params": rec.get("params")})
+    return out
+
+
+def _bits_equal(a, b) -> bool:
+    """Whether two float32 tensors hold the same bits."""
+    import torch
+    return torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+def run_distributed(args, dev, card, dryruns):
+    """The distributed phase, the failover guard after it: (a)
+    `make_host_mesh(1)` on the card (an NCCL world of one) and yi-6b's
+    full-width training state cut to TRAIN_LAYERS layers (the cut of
+    `lm_train`'s (c)) placed through `param_shardings`,
+    `opt_state_shardings` and `device_put`: every leaf stays the same
+    plain card tensor; (b) `make_compressed_allreduce` over NCCL on a
+    float32 gradient tree of that model with its error state, for
+    ALLREDUCE_STEPS steps of error feedback: on one rank the output is
+    dequantize(quantize(g + err)) and the residual g + err less it, bit
+    for bit, and ALLREDUCE_CPU_LEAVES equal the same call on the CPU;
+    then ALLREDUCE_TIMED calls timed beside one pass over g, err, the
+    output and the residual at the memory rate; (c) the dry-run cells
+    started at the top of `main`, each ``ok`` with its per-device
+    argument bytes under the card's; (d) the process group destroyed."""
+    import dataclasses
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs import get_arch
+    from repro_torch.distributed import collectives as col
+    from repro_torch.distributed import sharding as sh
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import get_model
+    from repro_torch.train.optimizer import adamw_init
+    t_phase = time.perf_counter()
+    parts = {}
+
+    t0 = time.perf_counter()
+    mesh = make_host_mesh(1, dev)
+    full = get_arch(LM_ARCH, reduced=args.lm_reduced)
+    cfg = dataclasses.replace(full, num_layers=min(TRAIN_LAYERS, full.num_layers))
+    params = get_model(cfg, dev).init(torch.Generator(device=dev).manual_seed(args.seed))
+    opt = adamw_init(params)
+    with sh.use_mesh(mesh):
+        psh = sh.param_shardings(params, cfg, mesh)
+        osh = sh.opt_state_shardings(opt, cfg, mesh)
+        placed = sh.device_put((params, opt), (psh, osh))
+    torch.cuda.synchronize()
+    leaves = sh.tree_leaves_with_path((params, opt))
+    got = sh.tree_leaves_with_path(placed)
+    specs = [s.spec for _, s in sh.tree_leaves_with_path((psh, osh))]
+    same = sum(a is b for (_, a), (_, b) in zip(leaves, got))
+    plain = sum(type(b) is torch.Tensor and b.device.type == dev.type for _, b in got)
+    parts["a"] = {"backend": dist.get_backend(), "world": dist.get_world_size(),
+                  "mesh": dict(zip(mesh.mesh_dim_names, mesh.mesh.shape)),
+                  "layers": cfg.num_layers, "params": _param_count(params),
+                  "leaves": len(leaves), "same_tensor": same, "plain_card_tensors": plain,
+                  "sharded_specs": sum(any(p is not None for p in s) for s in specs),
+                  "seconds": time.perf_counter() - t0}
+    parts["a"]["ok"] = same == plain == len(leaves) and parts["a"]["world"] == 1
+    emit({"phase": "distributed", "part": "a_mesh_and_placement", **parts["a"]})
+    check(parts["a"]["ok"], f"distributed (a): placement on a mesh of one: {parts['a']}")
+    shapes = [(path, tuple(x.shape)) for path, x in sh.tree_leaves_with_path(params)]
+    del params, opt, placed, leaves, got, psh, osh
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    g = torch.Generator(device=dev).manual_seed(args.seed + 7)
+    grads = {path: torch.randn(shape, generator=g, device=dev) for path, shape in shapes}
+    err = col.init_error_state(grads)
+    reduce_fn = col.make_compressed_allreduce(mesh)
+    n_floats = sum(math.prod(shape) for _, shape in shapes)
+    identities = True
+    cpu_equal = {}
+    for step in range(ALLREDUCE_STEPS):
+        out, new_err = reduce_fn(grads, err)
+        for path in grads:
+            xf = grads[path] + err[path]
+            q, scale = col.quantize_int8(xf)
+            identities &= _bits_equal(out[path], col.dequantize_int8(q, scale))
+            identities &= _bits_equal(new_err[path], xf - out[path])
+            del xf, q, scale
+        if step == ALLREDUCE_STEPS - 1:
+            for path in ALLREDUCE_CPU_LEAVES:
+                o, e = col.compressed_psum_leaf(grads[path].cpu(), err[path].cpu(), ())
+                cpu_equal[path] = (_bits_equal(o, out[path].cpu())
+                                   and _bits_equal(e, new_err[path].cpu()))
+        err = new_err
+        del out
+    torch.cuda.synchronize()
+    ms = [time_ms(lambda: reduce_fn(grads, err), reps=1, warmup=0)
+          for _ in range(ALLREDUCE_TIMED)]
+    moved = 4 * 4 * n_floats   # g and err read, the output and the residual written
+    parts["b"] = {"leaves": len(shapes), "floats": n_floats, "grad_gb": 4 * n_floats / 1e9,
+                  "steps": ALLREDUCE_STEPS, "identities_bit_equal": bool(identities),
+                  "cpu_leaves_bit_equal": cpu_equal, "ms": ms,
+                  "median_ms": float(np.median(ms)), "bytes": moved,
+                  "stream_ms": moved / HBM_BYTES_PER_S * 1e3,
+                  "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+                  "seconds": time.perf_counter() - t0}
+    parts["b"]["ok"] = identities and len(cpu_equal) == 3 and all(cpu_equal.values())
+    emit({"phase": "distributed", "part": "b_compressed_allreduce", "card": card,
+          **parts["b"]})
+    check(parts["b"]["ok"], f"distributed (b): the int8 all-reduce on one rank: {parts['b']}")
+    del grads, err, new_err
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    cells = collect_dryruns(dryruns)
+    parts["c"] = {"cells": cells, "wait_s": time.perf_counter() - t0,
+                  "seconds": time.perf_counter() - t0}
+    emit({"phase": "distributed", "part": "c_dryrun", **parts["c"]})
+    check(all(c["status"] == "ok" and c["rc"] == 0 and c["fits_card"] for c in cells),
+          f"distributed (c): the dry-run cells: {cells}")
+
+    dist.destroy_process_group()
+    parts["d"] = {"group_destroyed": not dist.is_initialized(), "seconds": 0.0}
+    check(parts["d"]["group_destroyed"], "distributed (d): the process group outlived the phase")
+    seconds = time.perf_counter() - t_phase
+    emit({"phase": "distributed", "part": "all", "card": card, "seconds": seconds,
+          "parts_s": {n: p["seconds"] for n, p in parts.items()}})
+    return {"parts": parts, "seconds": seconds}
 
 
 def reset_counts():
@@ -5010,6 +5312,7 @@ def main(argv=None) -> int:
                              (rmi_lookup.build, rmi_scan.build, hash_probe.build,
                               flash_attention.build, flash_attention.build_backward)))
     build_s = time.perf_counter() - t0
+    dryruns = start_dryruns()
     # the scan kernels' tile and shared-memory buffers (dynamic shared
     # memory, which ptxas does not report; the range, page and sharded
     # kernels take the same); the lookups take none
@@ -5109,6 +5412,13 @@ def main(argv=None) -> int:
 
     # ---- the vlm and audio families (llava, seamless) ---------------------
     multimodal = run_lm_multimodal(args, dev, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- the mesh, the sharding rules, the int8 all-reduce, the dry run ----
+    guard = start_failover_guard()
+    distributed = run_distributed(args, dev, card, dryruns)
+    failover_guard("distributed", guard)
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -5239,10 +5549,18 @@ def main(argv=None) -> int:
          "bound_ms": trained["timing"]["bound_ms"], "bound_by": trained["timing"]["bound_by"],
          "library_ms": trained["timing"]["library_ms"],
          "library_backend": trained["timing"]["library_backend"],
+         "cross_shape": trained["timing"]["cross"]["shape"],
+         "cross_ms": trained["timing"]["cross"]["ms"],
+         "cross_plain_ms": trained["timing"]["cross"]["plain_ms"],
+         "cross_bound_ms": trained["timing"]["cross"]["bound_ms"],
+         "cross_bound_by": trained["timing"]["cross"]["bound_by"],
+         "cross_library_ms": trained["timing"]["cross"]["library_ms"],
+         "audio_train_launches": multimodal["audio_train_bwd_launches"],
          "ptxas": attn_ptxas["backward"]},
     ], "batch": big["batch"], "scan_rows": sbig["rows"], "n": single["n"], "shards": slook["S"],
         "sharded_scan_rows": sscan["rows"], "attention_shape": lm["timing"]["shape"],
         "attention_bwd_shape": trained["timing"]["shape"],
+        "distributed_s": distributed["seconds"],
         "card": smi,
         "total_s": time.perf_counter() - T_START})
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

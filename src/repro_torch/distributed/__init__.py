@@ -1,9 +1,8 @@
-"""Fault tolerance for the port: crash-safe tree and index checkpoints,
-restart, and the straggler policy (the reference's
-`repro.distributed.fault_tolerance`).  The reference package's
-`distributed/__init__` exports its sharding rules; the port has no
-sharding module yet (ROADMAP queue A), so this one exports the
-fault-tolerance names only."""
+"""The port's distributed layer (the reference's `repro.distributed`):
+the sharding rules (exported here, as the reference exports them), the
+int8 compressed all-reduce (`distributed.collectives`), and fault
+tolerance: crash-safe tree and index checkpoints, restart, and the
+straggler policy."""
 
 from repro_torch.distributed.fault_tolerance import (
     CheckpointCorrupt,
@@ -18,10 +17,16 @@ from repro_torch.distributed.fault_tolerance import (
     save_checkpoint,
     verify_step,
 )
+from repro_torch.distributed.sharding import (
+    batch_shardings,
+    cache_shardings,
+    opt_state_shardings,
+    param_shardings,
+)
 
 __all__ = [
     "CheckpointCorrupt", "CheckpointManager", "IndexCheckpointer",
-    "StragglerPolicy", "config_fingerprint", "latest_step",
-    "newest_intact_step", "quarantine_step", "restore_checkpoint",
-    "save_checkpoint", "verify_step",
+    "StragglerPolicy", "batch_shardings", "cache_shardings", "config_fingerprint",
+    "latest_step", "newest_intact_step", "opt_state_shardings", "param_shardings",
+    "quarantine_step", "restore_checkpoint", "save_checkpoint", "verify_step",
 ]

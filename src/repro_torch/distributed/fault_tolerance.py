@@ -325,14 +325,18 @@ def newest_intact_step(
 
 
 def restore_checkpoint(
-    root: str, like: Any, *, step: Optional[int] = None, device=None,
+    root: str, like: Any, *, step: Optional[int] = None, shardings: Any = None,
+    device=None,
 ) -> Tuple[Any, int]:
     """Restore into the structure of ``like``: each leaf a tensor of
-    ``like``'s leaf dtype on ``device`` (None = "cuda").  The checkpoint
-    has no device baked in, so a restart may use another one.  Steps are
-    checksum-verified before use; a torn or corrupt step is quarantined
-    and restore falls back to the newest intact one."""
-    dev = resolve_device(device)
+    ``like``'s leaf dtype.  With ``shardings`` (a tree of
+    `distributed.sharding.NamedSharding`) the leaves are placed on the
+    *current* mesh through `distributed.sharding.device_put` (the
+    elastic-restart path: the checkpoint has no mesh baked in); without,
+    on ``device`` (None = "cuda").  Steps are checksum-verified before
+    use; a torn or corrupt step is quarantined and restore falls back to
+    the newest intact one."""
+    dev = None if shardings is not None else resolve_device(device)
     explicit = step is not None
     while True:
         step, manifest = newest_intact_step(root, step=step)
@@ -354,6 +358,9 @@ def restore_checkpoint(
             f"checkpoint has {len(arrs)} leaves, expected {len(flat_like)}")
     out = [a.to(device=dev, dtype=torch.as_tensor(l).dtype)
            for a, l in zip(arrs, flat_like)]
+    if shardings is not None:
+        from repro_torch.distributed.sharding import device_put
+        return device_put(_unflatten(like, iter(out)), shardings), step
     return _unflatten(like, iter(out)), step
 
 

@@ -65,6 +65,7 @@ import torch
 
 from repro_torch import faults
 from repro_torch.device import resolve_device
+from repro_torch.distributed.sharding import index_shard_mesh, place_index_shards
 from repro_torch.index_service.delta import (
     count_less,
     iter_levels,
@@ -144,8 +145,9 @@ def _upload(a: np.ndarray, device: torch.device) -> torch.Tensor:
     """A device tensor that never aliases ``a``: the host mirrors mutate
     in place on the next incremental build, and on the CPU
     `torch.from_numpy` / `torch.as_tensor` would share their memory.
-    Every shard's rows go to the service's one device: shard-per-device
-    placement across several cards is a later slice of the port."""
+    Every shard's rows go to the service's device; where the process
+    group holds several ranks, `_shard_mesh` spreads the plain
+    strategies' stacked rows over them."""
     return torch.from_numpy(np.ascontiguousarray(a)).to(device, copy=True)
 
 
@@ -797,6 +799,14 @@ class ShardedIndexService:
             self._scan_cache = plane  # atomic publish of the finished plane
             return plane
 
+    def _shard_mesh(self):
+        """1-D shard mesh for the plain (non-kernel) strategies, or None
+        (always None for the kernel strategies, which stay on one card,
+        and on one card)."""
+        if self.config.strategy in KERNEL_STRATEGIES:
+            return None
+        return index_shard_mesh(self.num_shards, self.device.type)
+
     def _static_stack(self, snaps):
         """Snapshot-derived stacks (base keys, leaf SoA, stage-0, base
         offsets) — rebuilt only when a compaction/rebalance publishes a
@@ -834,6 +844,9 @@ class ShardedIndexService:
             base_off_np = np.zeros(len(snaps), np.int64)
             base_off_np[1:] = np.cumsum(base_n[:-1])
             stacked["base_off"] = _upload(base_off_np.astype(np.int32), self.device)
+            mesh = self._shard_mesh()
+            if mesh is not None:
+                stacked = place_index_shards(stacked, mesh)
             cached = (static_key, stacked, hidden, max_window,
                       [sn.keys.normalize for sn in snaps], base_off_np)
             self._static_plan = cached
@@ -890,14 +903,20 @@ class ShardedIndexService:
                 )
             merged_off_np = np.zeros(len(caps), np.int64)
             merged_off_np[1:] = np.cumsum(live[:-1])
+            delta = {
+                "dkeys": _upload(dkeys, self.device),
+                "dprefix": _upload(dprefix, self.device),
+                "merged_off": _upload(merged_off_np.astype(np.int32), self.device),
+            }
+            mesh = self._shard_mesh()
+            if mesh is not None:
+                delta = place_index_shards(delta, mesh)
             plan = _DevicePlan(
                 key=key,
                 caps=caps,
                 q_normalizers=normalizers,
                 **stacked,
-                dkeys=_upload(dkeys, self.device),
-                dprefix=_upload(dprefix, self.device),
-                merged_off=_upload(merged_off_np.astype(np.int32), self.device),
+                **delta,
                 hidden=hidden,
                 max_window=max_window,
                 dkeys_np=dkeys,

@@ -6,15 +6,16 @@
 // (src/repro/models/attention.py:33, `chunked_attention`) with
 // `jax.value_and_grad` (src/repro/train/train_step.py:34); this source
 // computes that gradient for the function the forward kernel computes,
-// with its conventions: q (B, Hq, S, D), k and v (B, Hkv, S, D), all
-// contiguous, bfloat16 or float32, D in {32, 64, 128}, any S >= 1;
-// query head h reads KV head h / (Hq / Hkv); scores s = (q . k) * scale
-// in float32, scaled after the dot; causal or full; keys past S and,
-// under the causal mask, keys past the query are masked (P = 0, as
-// exp(-1e30 - lse) is in float32).
+// with its conventions: q (B, Hq, Sq, D), k and v (B, Hkv, Sk, D), all
+// contiguous, bfloat16 or float32, D in {32, 64, 128}, any Sq, Sk >= 1
+// (causal needs Sq == Sk; the full mask with Sq != Sk is
+// cross-attention); query head h reads KV head h / (Hq / Hkv); scores
+// s = (q . k) * scale in float32, scaled after the dot; causal or full;
+// keys past Sk, queries past Sq and, under the causal mask, keys past
+// the query are masked (P = 0, as exp(-1e30 - lse) is in float32).
 //
 // From the forward's output o and its row log-sum-exp lse (float32,
-// (B, Hq, S), m + log(l) in the units of the scaled scores), with
+// (B, Hq, Sq), m + log(l) in the units of the scaled scores), with
 // P = exp(s - lse):
 //   Di = rowsum(dO o O)                        (pre-pass, float32)
 //   dV = P^T dO,  dP = dO V^T,  dS = P o (dP - Di)
@@ -30,7 +31,8 @@
 // rate of 989 TFLOP/s, against ~26 MB of bytes.
 //
 // bfloat16: the tensor cores, four launches, in the forward's pieces
-// (sm90.cuh: tensor maps over (D, S, B * H) with rows past S zero and
+// (sm90.cuh: tensor maps over (D, Sq or Sk, B * H) with rows past the
+// length zero and
 // D = 32 carried as 64 columns, TMA into the 128-byte swizzle, mbarriers,
 // wgmma).  P and dS keep float32 precision as in the forward: each is
 // split into bf16(x) and bf16(x - bf16(x)), and both halves go through a
@@ -40,7 +42,7 @@
 // dQ take two products each: ten products where the bound counts five,
 // a floor of 2x the bound (~0.7 ms at the shape above).
 //   (a) `attention_bwd_prepass_pairs`: `attention_bwd_prepass`'s Di beside
-//       each row's lse (times log2 e), as float pairs, each head's rows
+//       each row's lse (times log2 e), as float pairs, each head's Sq rows
 //       padded to a multiple of 64 with zeros, so a tile's pairs arrive
 //       by one bulk copy.
 //   (b) `attention_dkdv_bf16_kernel`: one block a (batch, query head,
@@ -67,7 +69,13 @@
 //       S = Q K^T and dP = dO V^T from shared memory, P and dS in
 //       registers from the rows' pairs, then dQ += dS K (register-A, K
 //       read MN-major from the tile that fed S), issued with the next
-//       tile's S and dP.  Each dQ row is written once, rows < S only.
+//       tile's S and dP.  Each dQ row is written once, rows < Sq only.
+// Sq and Sk are each three things in (b) and (d): the rows of their
+// tensor maps, the tile counts (query tiles and dQ blocks from Sq, key
+// tiles and dK/dV blocks from Sk) and the masks.  A key row past Sk
+// arrives zero-filled and would still score 0 (P = exp(-lse), not 0),
+// so keys >= Sk are masked in every tile of both kernels, and queries
+// >= Sq in the dK/dV kernel (its P^T columns).
 // Both kernels run two warpgroups and no producer warp: thread 0 issues
 // every load, two tiles ahead of the one in use, into the stage of a
 // tile both warpgroups released two tiles back, so it does not wait in
@@ -254,8 +262,8 @@ template <int D>
 __device__ __forceinline__ void probs_and_dscores(const float* Qs, const float* Os,
                                                   const float* Ks, const float* Vs,
                                                   const float* Ls, const float* Ds, float* Ps,
-                                                  float* Ss, int i0, int k0, int S, float scale,
-                                                  int causal) {
+                                                  float* Ss, int i0, int k0, int Sq, int Sk,
+                                                  float scale, int causal) {
   const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
   float s[4][4], dp[4][4];
   tile_dot<D>(s, Qs, Ks, ty, tx);
@@ -269,7 +277,7 @@ __device__ __forceinline__ void probs_and_dscores(const float* Qs, const float* 
     for (int c = 0; c < 4; ++c) {
       const int jl = tx + 16 * c;
       const int j = k0 + jl;
-      const bool live = i < S && j < S && !(causal && j > i);
+      const bool live = i < Sq && j < Sk && !(causal && j > i);
       const float p = live ? expf(s[a][c] * scale - lse) : 0.f;
       if (Ps != nullptr) Ps[r * PROW + jl] = p;
       Ss[r * PROW + jl] = p * (dp[a][c] - di);
@@ -322,9 +330,8 @@ __global__ void __launch_bounds__(THREADS, 1)
 attention_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
                       const float* __restrict__ v, const float* __restrict__ dout,
                       const float* __restrict__ lse, const float* __restrict__ di,
-                      float* __restrict__ dk, float* __restrict__ dv, int B, int S, int Hq,
-                      int Hkv,
-                      float scale, int causal) {
+                      float* __restrict__ dk, float* __restrict__ dv, int B, int Sq, int Sk,
+                      int Hq, int Hkv, float scale, int causal) {
   using A = Acc<D>;
   constexpr int LD = A::LD;
   extern __shared__ float4 smem4[];
@@ -342,11 +349,11 @@ attention_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int b = bhkv / Hkv, hk = bhkv % Hkv;
   const int group = Hq / Hkv;
   const int k0 = kt * BK;
-  const size_t kvoff = (size_t)bhkv * S * D;
+  const size_t kvoff = (size_t)bhkv * Sk * D;
   const int y = threadIdx.x / A::TX, x = threadIdx.x % A::TX;
 
-  stage<D>(Ks, k + kvoff, k0, S);
-  stage<D>(Vs, v + kvoff, k0, S);
+  stage<D>(Ks, k + kvoff, k0, Sk);
+  stage<D>(Vs, v + kvoff, k0, Sk);
 
   float4 dka[A::R][A::NC], dva[A::R][A::NC];
 #pragma unroll
@@ -357,20 +364,20 @@ attention_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
       dva[r][c] = make_float4(0.f, 0.f, 0.f, 0.f);
     }
 
-  const int nqt = (S + BQ - 1) / BQ;
-  // causal: query tiles from the diagonal on (BQ == BK)
+  const int nqt = (Sq + BQ - 1) / BQ;
+  // causal (Sq == Sk): query tiles from the diagonal on (BQ == BK)
   const int qt0 = causal ? kt : 0;
   for (int g = 0; g < group; ++g) {
     const size_t bh = (size_t)b * Hq + hk * group + g;
-    const size_t qoff = bh * S * D;
+    const size_t qoff = bh * Sq * D;
     for (int qt = qt0; qt < nqt; ++qt) {
       const int i0 = qt * BQ;
       __syncthreads();  // every reader of the previous tiles is done
-      stage<D>(Qs, q + qoff, i0, S);
-      stage<D>(Os, dout + qoff, i0, S);
-      stage_rows(Ls, Ds, lse, di, bh * S, i0, S);
+      stage<D>(Qs, q + qoff, i0, Sq);
+      stage<D>(Os, dout + qoff, i0, Sq);
+      stage_rows(Ls, Ds, lse, di, bh * Sq, i0, Sq);
       __syncthreads();
-      probs_and_dscores<D>(Qs, Os, Ks, Vs, Ls, Ds, Ps, Ss, i0, k0, S, scale, causal);
+      probs_and_dscores<D>(Qs, Os, Ks, Vs, Ls, Ds, Ps, Ss, i0, k0, Sq, Sk, scale, causal);
       __syncthreads();
       acc_tn<D>(dva, Ps, Os, y, x);
       acc_tn<D>(dka, Ss, Qs, y, x);
@@ -380,7 +387,7 @@ attention_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
   for (int r = 0; r < A::R; ++r) {
     const int row = k0 + y + A::TY * r;
-    if (row < S) {
+    if (row < Sk) {
 #pragma unroll
       for (int c = 0; c < A::NC; ++c) {
         const size_t off = kvoff + (size_t)row * D + 4 * (x + A::TX * c);
@@ -398,8 +405,8 @@ __global__ void __launch_bounds__(THREADS, 1)
 attention_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
                     const float* __restrict__ v, const float* __restrict__ dout,
                     const float* __restrict__ lse, const float* __restrict__ di,
-                    float* __restrict__ dq, int B, int S, int Hq, int Hkv, float scale,
-                    int causal) {
+                    float* __restrict__ dq, int B, int Sq, int Sk, int Hq, int Hkv,
+                    float scale, int causal) {
   using A = Acc<D>;
   constexpr int LD = A::LD;
   extern __shared__ float4 smem4[];
@@ -411,18 +418,18 @@ attention_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
   float* Ls = Ss + BQ * PROW;
   float* Ds = Ls + BQ;
 
-  const int nqt = (S + BQ - 1) / BQ;
+  const int nqt = (Sq + BQ - 1) / BQ;
   const int bh = blockIdx.x % (B * Hq);
   const int qt = nqt - 1 - blockIdx.x / (B * Hq);
   const int b = bh / Hq, h = bh % Hq;
-  const size_t kvoff = ((size_t)b * Hkv + h / (Hq / Hkv)) * S * D;
-  const size_t qoff = (size_t)bh * S * D;
+  const size_t kvoff = ((size_t)b * Hkv + h / (Hq / Hkv)) * Sk * D;
+  const size_t qoff = (size_t)bh * Sq * D;
   const int i0 = qt * BQ;
   const int y = threadIdx.x / A::TX, x = threadIdx.x % A::TX;
 
-  stage<D>(Qs, q + qoff, i0, S);
-  stage<D>(Os, dout + qoff, i0, S);
-  stage_rows(Ls, Ds, lse, di, (size_t)bh * S, i0, S);
+  stage<D>(Qs, q + qoff, i0, Sq);
+  stage<D>(Os, dout + qoff, i0, Sq);
+  stage_rows(Ls, Ds, lse, di, (size_t)bh * Sq, i0, Sq);
 
   float4 dqa[A::R][A::NC];
 #pragma unroll
@@ -430,15 +437,15 @@ attention_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
     for (int c = 0; c < A::NC; ++c) dqa[r][c] = make_float4(0.f, 0.f, 0.f, 0.f);
 
-  // causal: key tiles up to the diagonal (BQ == BK)
-  const int nkt = causal ? qt + 1 : (S + BK - 1) / BK;
+  // causal (Sq == Sk): key tiles up to the diagonal (BQ == BK)
+  const int nkt = causal ? qt + 1 : (Sk + BK - 1) / BK;
   for (int kt = 0; kt < nkt; ++kt) {
     const int k0 = kt * BK;
     __syncthreads();  // every reader of the previous tiles is done
-    stage<D>(Ks, k + kvoff, k0, S);
-    stage<D>(Vs, v + kvoff, k0, S);
+    stage<D>(Ks, k + kvoff, k0, Sk);
+    stage<D>(Vs, v + kvoff, k0, Sk);
     __syncthreads();
-    probs_and_dscores<D>(Qs, Os, Ks, Vs, Ls, Ds, nullptr, Ss, i0, k0, S, scale, causal);
+    probs_and_dscores<D>(Qs, Os, Ks, Vs, Ls, Ds, nullptr, Ss, i0, k0, Sq, Sk, scale, causal);
     __syncthreads();
     acc_nn<D>(dqa, Ss, Ks, y, x);
   }
@@ -446,7 +453,7 @@ attention_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
   for (int r = 0; r < A::R; ++r) {
     const int row = i0 + y + A::TY * r;
-    if (row < S) {
+    if (row < Sq) {
 #pragma unroll
       for (int c = 0; c < A::NC; ++c)
         store4(dq + qoff + (size_t)row * D + 4 * (x + A::TX * c), scaled(dqa[r][c], scale));
@@ -457,13 +464,14 @@ attention_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
 template <int D>
 int launch_f32(const void* q, const void* k, const void* v, const void* o, const void* dout,
                const float* lse, float* di, void* dq, void* dk, void* dv, int B, int Hq,
-               int Hkv, int S, float scale, int causal, cudaStream_t stream) {
+               int Hkv, int Sq, int Sk, float scale, int causal, cudaStream_t stream) {
   constexpr int LD = Acc<D>::LD;
   const size_t smem_kv = (size_t)(2 * BK * LD + 2 * BQ * LD + 2 * BQ * PROW + 2 * BQ) * 4;
   const size_t smem_q = (size_t)(2 * BQ * LD + 2 * BK * LD + BQ * PROW + 2 * BQ) * 4;
-  const long long rows = (long long)B * Hq * S;
-  const long long tiles = (S + BQ - 1) / BQ;
-  if ((rows + 7) / 8 > 0x7fffffffLL || tiles * B * Hq > 0x7fffffffLL)
+  const long long rows = (long long)B * Hq * Sq;
+  const long long qtiles = (Sq + BQ - 1) / BQ, ktiles = (Sk + BK - 1) / BK;
+  if ((rows + 7) / 8 > 0x7fffffffLL || qtiles * B * Hq > 0x7fffffffLL ||
+      ktiles * B * Hkv > 0x7fffffffLL)
     return (int)cudaErrorInvalidValue;
   const float* qp = static_cast<const float*>(q);
   const float* kp = static_cast<const float*>(k);
@@ -479,9 +487,9 @@ int launch_f32(const void* q, const void* k, const void* v, const void* o, const
   err = cudaFuncSetAttribute(kv_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                              (int)smem_kv);
   if (err != cudaSuccess) return (int)err;
-  kv_kernel<<<(unsigned)(tiles * B * Hkv), THREADS, smem_kv, stream>>>(
-      qp, kp, vp, dop, lse, di, static_cast<float*>(dk), static_cast<float*>(dv), B, S, Hq, Hkv,
-      scale, causal);
+  kv_kernel<<<(unsigned)(ktiles * B * Hkv), THREADS, smem_kv, stream>>>(
+      qp, kp, vp, dop, lse, di, static_cast<float*>(dk), static_cast<float*>(dv), B, Sq, Sk, Hq,
+      Hkv, scale, causal);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
 
@@ -489,8 +497,8 @@ int launch_f32(const void* q, const void* k, const void* v, const void* o, const
   err = cudaFuncSetAttribute(q_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                              (int)smem_q);
   if (err != cudaSuccess) return (int)err;
-  q_kernel<<<(unsigned)(tiles * B * Hq), THREADS, smem_q, stream>>>(
-      qp, kp, vp, dop, lse, di, static_cast<float*>(dq), B, S, Hq, Hkv, scale, causal);
+  q_kernel<<<(unsigned)(qtiles * B * Hq), THREADS, smem_q, stream>>>(
+      qp, kp, vp, dop, lse, di, static_cast<float*>(dq), B, Sq, Sk, Hq, Hkv, scale, causal);
   return (int)cudaGetLastError();
 }
 
@@ -636,8 +644,8 @@ attention_dkdv_bf16_kernel(const __grid_constant__ CUtensorMap qmap,
                            const __grid_constant__ CUtensorMap vmap,
                            const __grid_constant__ CUtensorMap domap,
                            const float2* __restrict__ pairs, float* __restrict__ dk_part,
-                           float* __restrict__ dv_part, int B, int S, int Hq, int Hkv,
-                           float scale, int causal) {
+                           float* __restrict__ dv_part, int B, int Sq, int Sk, int Hq,
+                           int Hkv, float scale, int causal) {
   using L = DkdvLayout<D>;
   constexpr int DP = L::DP;
   extern __shared__ uint8_t smem_raw[];
@@ -656,8 +664,8 @@ attention_dkdv_bf16_kernel(const __grid_constant__ CUtensorMap qmap,
   const int b = bh / Hq, h = bh % Hq;
   const int bhkv = b * Hkv + h / (Hq / Hkv);
   const int qt0 = causal ? k0 / QT : 0;             // the diagonal's query tile
-  const int ntiles = (S + QT - 1) / QT - qt0;
-  const float2* pairs_bh = pairs + (size_t)bh * ((S + ROW_PAD - 1) / ROW_PAD * ROW_PAD);
+  const int ntiles = (Sq + QT - 1) / QT - qt0;
+  const float2* pairs_bh = pairs + (size_t)bh * ((Sq + ROW_PAD - 1) / ROW_PAD * ROW_PAD);
   init_barriers(kv_full, full, empty);
 
   // thread 0 loads: tile i's Q, dO and pairs into stage i % STAGES once
@@ -728,7 +736,7 @@ attention_dkdv_bf16_kernel(const __grid_constant__ CUtensorMap qmap,
   // 16 kk .. 16 kk + 15 are k-step kk, registers {key A, key B} x
   // {columns 2t, 2t + 8}; rs holds the tile's (lse log2 e, Di) pairs
   auto probs = [&](int q0, const float* rs) {
-    const bool masked = q0 + QT > S || kw0 + 64 > S || (causal && kw0 + 63 > q0);
+    const bool masked = q0 + QT > Sq || kw0 + 64 > Sk || (causal && kw0 + 63 > q0);
 #pragma unroll
     for (int j = 0; j < QT / 8; ++j) {
       const int c = 8 * j + 2 * t;
@@ -740,8 +748,8 @@ attention_dkdv_bf16_kernel(const __grid_constant__ CUtensorMap qmap,
 #pragma unroll
         for (int e = 0; e < 2; ++e) {
           const int qp = q0 + c + e;
-          if (qp >= S || kA >= S || (causal && kA > qp)) p[e] = 0.f;
-          if (qp >= S || kB >= S || (causal && kB > qp)) p[2 + e] = 0.f;
+          if (qp >= Sq || kA >= Sk || (causal && kA > qp)) p[e] = 0.f;
+          if (qp >= Sq || kB >= Sk || (causal && kB > qp)) p[2 + e] = 0.f;
         }
       }
       const int r = 4 * (j / 2) + 2 * (j % 2);
@@ -819,20 +827,20 @@ attention_dkdv_bf16_kernel(const __grid_constant__ CUtensorMap qmap,
   for (int i = 0; i + 1 < ntiles; ++i) step(i, std::true_type{});
   step(ntiles - 1, std::false_type{});
 
-  // ---- epilogue: this head's dK (times scale) and dV in float32, keys < S ----
-  float* dkb = dk_part + (size_t)bh * S * D;
-  float* dvb = dv_part + (size_t)bh * S * D;
+  // ---- epilogue: this head's dK (times scale) and dV in float32, keys < Sk ----
+  float* dkb = dk_part + (size_t)bh * Sk * D;
+  float* dvb = dv_part + (size_t)bh * Sk * D;
 #pragma unroll
   for (int j = 0; j < DP / 8; ++j) {
     const int col = 8 * j + 2 * t;
     if (col < D) {
-      if (kA < S) {
+      if (kA < Sk) {
         *reinterpret_cast<float2*>(dkb + (size_t)kA * D + col) =
             make_float2(dk[4 * j] * scale, dk[4 * j + 1] * scale);
         *reinterpret_cast<float2*>(dvb + (size_t)kA * D + col) =
             make_float2(dv[4 * j], dv[4 * j + 1]);
       }
-      if (kB < S) {
+      if (kB < Sk) {
         *reinterpret_cast<float2*>(dkb + (size_t)kB * D + col) =
             make_float2(dk[4 * j + 2] * scale, dk[4 * j + 3] * scale);
         *reinterpret_cast<float2*>(dvb + (size_t)kB * D + col) =
@@ -847,7 +855,7 @@ attention_dkdv_bf16_kernel(const __grid_constant__ CUtensorMap qmap,
 __global__ void __launch_bounds__(256)
 attention_group_sum(const float4* __restrict__ part, __nv_bfloat16* __restrict__ dk,
                     __nv_bfloat16* __restrict__ dv, long long n4, long long slab4, int group) {
-  // n4: float4s of one output, slab4: of one head's (S, D)
+  // n4: float4s of one output, slab4: of one head's (Sk, D)
   const long long i = (long long)blockIdx.x * 256 + threadIdx.x;
   if (i >= 2 * n4) return;
   const int which = i >= n4;  // 0: dK, 1: dV
@@ -873,7 +881,7 @@ attention_dq_bf16_kernel(const __grid_constant__ CUtensorMap qmap,
                          const __grid_constant__ CUtensorMap vmap,
                          const __grid_constant__ CUtensorMap domap,
                          const float2* __restrict__ pairs, __nv_bfloat16* __restrict__ dq,
-                         int B, int S, int Hq, int Hkv, float scale, int causal) {
+                         int B, int Sq, int Sk, int Hq, int Hkv, float scale, int causal) {
   using L = DqLayout<D>;
   constexpr int DP = L::DP;
   extern __shared__ uint8_t smem_raw[];
@@ -885,10 +893,10 @@ attention_dq_bf16_kernel(const __grid_constant__ CUtensorMap qmap,
 
   // the last query tiles (the most keys under the causal mask) start first
   const int bh = blockIdx.x % (B * Hq);
-  const int q0 = ((S + KT - 1) / KT - 1 - blockIdx.x / (B * Hq)) * KT;
+  const int q0 = ((Sq + KT - 1) / KT - 1 - blockIdx.x / (B * Hq)) * KT;
   const int b = bh / Hq, h = bh % Hq;
   const int bhkv = b * Hkv + h / (Hq / Hkv);
-  const int ntiles = ((causal ? min(q0 + KT, S) : S) + KS - 1) / KS;
+  const int ntiles = ((causal ? min(q0 + KT, Sq) : Sk) + KS - 1) / KS;
   init_barriers(q_full, full, empty);
 
   // thread 0 loads: key tile j's K and V into stage j % STAGES once every
@@ -923,9 +931,9 @@ attention_dq_bf16_kernel(const __grid_constant__ CUtensorMap qmap,
   const int rB = rA + 8;
   const uint32_t sq_wg = sq + wg * 64 * 128, sdo_wg = sdo + wg * 64 * 128;
   const float sl2 = scale * LOG2E;
-  const float2* pairs_bh = pairs + (size_t)bh * ((S + ROW_PAD - 1) / ROW_PAD * ROW_PAD);
-  const float2 pa = rA < S ? pairs_bh[rA] : make_float2(0.f, 0.f);  // (lse log2 e, Di)
-  const float2 pb = rB < S ? pairs_bh[rB] : make_float2(0.f, 0.f);
+  const float2* pairs_bh = pairs + (size_t)bh * ((Sq + ROW_PAD - 1) / ROW_PAD * ROW_PAD);
+  const float2 pa = rA < Sq ? pairs_bh[rA] : make_float2(0.f, 0.f);  // (lse log2 e, Di)
+  const float2 pb = rB < Sq ? pairs_bh[rB] : make_float2(0.f, 0.f);
 
   float sacc[KS / 2], dpacc[KS / 2];     // S and dP of a tile
   float dqa[DP / 2];                     // the accumulator
@@ -960,7 +968,7 @@ attention_dq_bf16_kernel(const __grid_constant__ CUtensorMap qmap,
   // ragged tiles), split into bf16 halves
   auto dscores = [&](int kt) {
     const int kbase = kt * KS;
-    const bool masked = kbase + KS > S || (causal && kbase + KS - 1 > row0);
+    const bool masked = kbase + KS > Sk || (causal && kbase + KS - 1 > row0);
 #pragma unroll
     for (int j = 0; j < KS / 8; ++j) {
       float x[4];
@@ -970,8 +978,8 @@ attention_dq_bf16_kernel(const __grid_constant__ CUtensorMap qmap,
         float p1 = ex2(fmaf(sacc[4 * j + 2 + e], sl2, -pb.x));
         if (masked) {
           const int key = kbase + 8 * j + 2 * t + e;
-          if (key >= S || (causal && key > rA)) p0 = 0.f;
-          if (key >= S || (causal && key > rB)) p1 = 0.f;
+          if (key >= Sk || (causal && key > rA)) p0 = 0.f;
+          if (key >= Sk || (causal && key > rB)) p1 = 0.f;
         }
         x[e] = p0 * (dpacc[4 * j + e] - pa.y);
         x[2 + e] = p1 * (dpacc[4 * j + 2 + e] - pb.y);
@@ -1026,16 +1034,16 @@ attention_dq_bf16_kernel(const __grid_constant__ CUtensorMap qmap,
   for (int j = 0; j + 1 < ntiles; ++j) step(j, std::true_type{});
   step(ntiles - 1, std::false_type{});
 
-  // ---- epilogue: dQ times scale in bf16, rows < S only ----
-  __nv_bfloat16* qb = dq + (size_t)bh * S * D;
+  // ---- epilogue: dQ times scale in bf16, rows < Sq only ----
+  __nv_bfloat16* qb = dq + (size_t)bh * Sq * D;
 #pragma unroll
   for (int j = 0; j < DP / 8; ++j) {
     const int col = 8 * j + 2 * t;
     if (col < D) {
-      if (rA < S)
+      if (rA < Sq)
         *reinterpret_cast<__nv_bfloat162*>(qb + (size_t)rA * D + col) =
             __floats2bfloat162_rn(dqa[4 * j] * scale, dqa[4 * j + 1] * scale);
-      if (rB < S)
+      if (rB < Sq)
         *reinterpret_cast<__nv_bfloat162*>(qb + (size_t)rB * D + col) =
             __floats2bfloat162_rn(dqa[4 * j + 2] * scale, dqa[4 * j + 3] * scale);
     }
@@ -1045,12 +1053,13 @@ attention_dq_bf16_kernel(const __grid_constant__ CUtensorMap qmap,
 template <int D>
 int launch_bf16(const void* q, const void* k, const void* v, const void* o, const void* dout,
                 const float* lse, float* scratch, void* dq, void* dk, void* dv, int B, int Hq,
-                int Hkv, int S, float scale, int causal, cudaStream_t stream) {
-  const int Sp = (S + ROW_PAD - 1) / ROW_PAD * ROW_PAD;
+                int Hkv, int Sq, int Sk, float scale, int causal, cudaStream_t stream) {
+  const int Sp = (Sq + ROW_PAD - 1) / ROW_PAD * ROW_PAD;
   const long long rows = (long long)B * Hq * Sp;           // padded (lse, Di) rows
-  const long long blocks = (long long)((S + KT - 1) / KT) * B * Hq;
-  const long long n4 = (long long)B * Hkv * S * D / 4;     // float4s of dk (and of dv)
-  if ((rows + 7) / 8 > 0x7fffffffLL || blocks > 0x7fffffffLL ||
+  const long long kv_blocks = (long long)((Sk + KT - 1) / KT) * B * Hq;
+  const long long q_blocks = (long long)((Sq + KT - 1) / KT) * B * Hq;
+  const long long n4 = (long long)B * Hkv * Sk * D / 4;    // float4s of dk (and of dv)
+  if ((rows + 7) / 8 > 0x7fffffffLL || kv_blocks > 0x7fffffffLL || q_blocks > 0x7fffffffLL ||
       (2 * n4 + 255) / 256 > 0x7fffffffLL)
     return (int)cudaErrorInvalidValue;
   EncodeTiled fn = encode_tiled();
@@ -1058,20 +1067,20 @@ int launch_bf16(const void* q, const void* k, const void* v, const void* o, cons
   const long long bhq = (long long)B * Hq, bhkv = (long long)B * Hkv;
   // (b) streams QT-query tiles past 128 keys, (d) 64-key tiles past 128 queries
   CUtensorMap qs, dos, k128, v128, q128, do128, k64, v64;
-  if (!encode(fn, &qs, q, D, S, bhq, QT) || !encode(fn, &dos, dout, D, S, bhq, QT) ||
-      !encode(fn, &k128, k, D, S, bhkv, KT) || !encode(fn, &v128, v, D, S, bhkv, KT) ||
-      !encode(fn, &q128, q, D, S, bhq, KT) || !encode(fn, &do128, dout, D, S, bhq, KT) ||
-      !encode(fn, &k64, k, D, S, bhkv, KS) || !encode(fn, &v64, v, D, S, bhkv, KS))
+  if (!encode(fn, &qs, q, D, Sq, bhq, QT) || !encode(fn, &dos, dout, D, Sq, bhq, QT) ||
+      !encode(fn, &k128, k, D, Sk, bhkv, KT) || !encode(fn, &v128, v, D, Sk, bhkv, KT) ||
+      !encode(fn, &q128, q, D, Sq, bhq, KT) || !encode(fn, &do128, dout, D, Sq, bhq, KT) ||
+      !encode(fn, &k64, k, D, Sk, bhkv, KS) || !encode(fn, &v64, v, D, Sk, bhkv, KS))
     return (int)cudaErrorInvalidValue;
 
   // scratch: the pairs (B * Hq * Sp float2), then dK's and dV's per-head
-  // partials (B * Hq * S * D floats each)
+  // partials (B * Hq * Sk * D floats each)
   float2* pairs = reinterpret_cast<float2*>(scratch);
   float* dk_part = scratch + 2 * rows;
-  float* dv_part = dk_part + (size_t)B * Hq * S * D;
+  float* dv_part = dk_part + (size_t)B * Hq * Sk * D;
   attention_bwd_prepass_pairs<<<(unsigned)((rows + 7) / 8), 256, 0, stream>>>(
       static_cast<const __nv_bfloat16*>(o), static_cast<const __nv_bfloat16*>(dout), lse,
-      pairs, rows, S, Sp, D);
+      pairs, rows, Sq, Sp, D);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
 
@@ -1079,14 +1088,14 @@ int launch_bf16(const void* q, const void* k, const void* v, const void* o, cons
   err = cudaFuncSetAttribute(kv_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                              DkdvLayout<D>::SMEM);
   if (err != cudaSuccess) return (int)err;
-  kv_kernel<<<(unsigned)blocks, TC_THREADS, DkdvLayout<D>::SMEM, stream>>>(
-      qs, k128, v128, dos, pairs, dk_part, dv_part, B, S, Hq, Hkv, scale, causal);
+  kv_kernel<<<(unsigned)kv_blocks, TC_THREADS, DkdvLayout<D>::SMEM, stream>>>(
+      qs, k128, v128, dos, pairs, dk_part, dv_part, B, Sq, Sk, Hq, Hkv, scale, causal);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
 
   attention_group_sum<<<(unsigned)((2 * n4 + 255) / 256), 256, 0, stream>>>(
       reinterpret_cast<const float4*>(dk_part), static_cast<__nv_bfloat16*>(dk),
-      static_cast<__nv_bfloat16*>(dv), n4, (long long)S * D / 4, Hq / Hkv);
+      static_cast<__nv_bfloat16*>(dv), n4, (long long)Sk * D / 4, Hq / Hkv);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
 
@@ -1094,8 +1103,8 @@ int launch_bf16(const void* q, const void* k, const void* v, const void* o, cons
   err = cudaFuncSetAttribute(q_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                              DqLayout<D>::SMEM);
   if (err != cudaSuccess) return (int)err;
-  q_kernel<<<(unsigned)blocks, TC_THREADS, DqLayout<D>::SMEM, stream>>>(
-      q128, k64, v64, do128, pairs, static_cast<__nv_bfloat16*>(dq), B, S, Hq, Hkv, scale,
+  q_kernel<<<(unsigned)q_blocks, TC_THREADS, DqLayout<D>::SMEM, stream>>>(
+      q128, k64, v64, do128, pairs, static_cast<__nv_bfloat16*>(dq), B, Sq, Sk, Hq, Hkv, scale,
       causal);
   return (int)cudaGetLastError();
 }
@@ -1115,16 +1124,18 @@ int by_head_dim(int D, F f) {
 }  // namespace
 
 // dtype: 0 = float32 (CUDA cores), 1 = bfloat16 (tensor cores).  `scratch`
-// is float32: for float32 B * Hq * S entries (Di); for bfloat16
-// 2 * B * Hq * Sp + 2 * B * Hq * S * D, Sp = S rounded up to a multiple of
-// 64 (each row's (lse log2 e, Di), then the per-head dK and dV).  Returns
-// cudaGetLastError() after the last launch (0 = all launched).
+// is float32: for float32 B * Hq * Sq entries (Di); for bfloat16
+// 2 * B * Hq * Sp + 2 * B * Hq * Sk * D, Sp = Sq rounded up to a multiple
+// of 64 (each row's (lse log2 e, Di), then the per-head dK and dV).
+// Causal needs Sq == Sk.  Returns cudaGetLastError() after the last
+// launch (0 = all launched).
 extern "C" int flash_attention_bwd_launch(const void* q, const void* k, const void* v,
                                           const void* o, const void* dout, const void* lse,
                                           void* scratch, void* dq, void* dk, void* dv, int B,
-                                          int Hq, int Hkv, int S, int D, int dtype,
+                                          int Hq, int Hkv, int Sq, int Sk, int D, int dtype,
                                           float scale, int causal, void* stream) {
-  if (B <= 0 || Hq <= 0 || Hkv <= 0 || S <= 0 || Hq % Hkv != 0)
+  if (B <= 0 || Hq <= 0 || Hkv <= 0 || Sq <= 0 || Sk <= 0 || Hq % Hkv != 0 ||
+      (causal && Sq != Sk))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float* l = static_cast<const float*>(lse);
@@ -1132,12 +1143,12 @@ extern "C" int flash_attention_bwd_launch(const void* q, const void* k, const vo
   if (dtype == 0)
     return by_head_dim(D, [&](auto dd) {
       return launch_f32<decltype(dd)::value>(q, k, v, o, dout, l, sc, dq, dk, dv, B, Hq, Hkv,
-                                             S, scale, causal, st);
+                                             Sq, Sk, scale, causal, st);
     });
   if (dtype == 1)
     return by_head_dim(D, [&](auto dd) {
       return tc::launch_bf16<decltype(dd)::value>(q, k, v, o, dout, l, sc, dq, dk, dv, B, Hq,
-                                                  Hkv, S, scale, causal, st);
+                                                  Hkv, Sq, Sk, scale, causal, st);
     });
   return (int)cudaErrorInvalidValue;
 }

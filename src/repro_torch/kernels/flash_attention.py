@@ -14,9 +14,8 @@ wrappers and the autograd Function that joins them.
     ``return_lse=True`` also returns each row's log-sum-exp (float32,
     (B, Hq, Sq)).
 ``flash_attention_bwd_cuda`` — its gradient (dq, dk, dv) from q, k, v,
-    the output, the log-sum-exp and the output's gradient, for Sq == Sk
-    only (a gradient at Sq != Sk raises before anything launches: ROADMAP
-    queue C 13).  bfloat16 runs
+    the output, the log-sum-exp and the output's gradient, at the
+    forward's shapes (causal needs Sq == Sk).  bfloat16 runs
     on the tensor cores (wgmma fed by TMA, P and dS split into two bf16
     halves; dK and dV per query head in float32 scratch, then summed over
     each GQA group), float32 on the CUDA cores.  The reference has no
@@ -101,7 +100,7 @@ def declare_backward(lib) -> None:
     lib.flash_attention_bwd_launch.argtypes = [
         p, p, p, p, p, p,           # q, k, v, out, d_out, lse
         p, p, p, p,                 # scratch (float32, `_bwd_scratch_floats`), dq, dk, dv
-        i, i, i, i, i,              # B, Hq, Hkv, S, D
+        i, i, i, i, i, i,           # B, Hq, Hkv, Sq, Sk, D
         i, ctypes.c_float, i,       # dtype, scale, causal
         p,                          # stream
     ]
@@ -129,14 +128,6 @@ def _check_qkv(q, k, v, causal: bool) -> Tuple[int, int, int, int, int, int]:
     if b > 65535 or hq > 65535 or max(s, sk) >= 2**31 - 64:
         raise ValueError("B and Hq must be <= 65535 and Sq, Sk < 2**31 - 64")
     return b, hq, hkv, s, sk, d
-
-
-def _check_square(q, k) -> None:
-    """The backward kernel takes one length: Sq != Sk raises (ROADMAP
-    queue C 13)."""
-    if q.ndim == 4 and k.ndim == 4 and q.shape[2] != k.shape[2]:
-        raise ValueError("the attention backward kernel takes Sq == Sk only "
-                         f"(got Sq={q.shape[2]}, Sk={k.shape[2]}): ROADMAP queue C 13")
 
 
 def _pointers(tensors, names, dtype, dev, ndim=4):
@@ -185,14 +176,10 @@ def _forward(q, k, v, causal: bool, return_lse: bool):
 class FlashAttention(torch.autograd.Function):
     """Attention with its gradient: the forward kernel (saving q, k, v,
     the output and the log-sum-exp), then the backward kernel; on CPU
-    tensors the plain forward and the plain backward.  On the card
-    Sq != Sk raises before the forward launches: the backward kernel
-    takes one length (ROADMAP queue C 13)."""
+    tensors the plain forward and the plain backward."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal):
-        if q.device.type != "cpu":
-            _check_square(q, k)
         out, lse = _forward(q, k, v, bool(causal), True)
         ctx.save_for_backward(q, k, v, out, lse)
         ctx.causal = bool(causal)
@@ -220,27 +207,26 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return _forward(q, k, v, bool(causal), return_lse)
 
 
-def _bwd_scratch_floats(dtype, b: int, hq: int, s: int, d: int) -> int:
-    """float32 scratch of the backward launch: each row's Di (float32);
-    for bfloat16 each row's (lse log2 e, Di) pair, every head's rows
-    padded to a multiple of 64, then dK and dV per query head before each
-    GQA group is summed."""
+def _bwd_scratch_floats(dtype, b: int, hq: int, sq: int, sk: int, d: int) -> int:
+    """float32 scratch of the backward launch: each query row's Di
+    (float32); for bfloat16 each query row's (lse log2 e, Di) pair, every
+    head's Sq rows padded to a multiple of 64, then dK and dV (Sk rows) per
+    query head before each GQA group is summed."""
     if dtype == torch.float32:
-        return b * hq * s
-    return 2 * b * hq * (-(-s // 64) * 64) + 2 * b * hq * s * d
+        return b * hq * sq
+    return 2 * b * hq * (-(-sq // 64) * 64) + 2 * b * hq * sk * d
 
 
 def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                              out: torch.Tensor, lse: torch.Tensor, d_out: torch.Tensor, *,
                              causal: bool = True):
     """(dq, dk, dv) in q's dtype: the gradient of the attention whose
-    output is ``out`` and row log-sum-exp ``lse`` (float32, (B, Hq, S)),
+    output is ``out`` and row log-sum-exp ``lse`` (float32, (B, Hq, Sq)),
     given the output's gradient ``d_out``."""
     if q.device.type == "cpu":
         return ref.mha_backward_reference(q, k, v, out, lse, d_out, causal=causal)
     dev = q.device
-    _check_square(q, k)
-    b, hq, hkv, s, _, d = _check_qkv(q, k, v, causal)
+    b, hq, hkv, s, sk, d = _check_qkv(q, k, v, causal)
     if out.shape != q.shape or d_out.shape != q.shape:
         raise ValueError(f"out and d_out must be {tuple(q.shape)}, got "
                          f"{tuple(out.shape)} and {tuple(d_out.shape)}")
@@ -252,12 +238,12 @@ def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return torch.zeros_like(q), torch.zeros_like(k), torch.zeros_like(v)
     qp, kp, vp, op, dop = _padded((q, k, v, out, d_out), d)
     dq, dk, dv = torch.empty_like(qp), torch.empty_like(kp), torch.empty_like(vp)
-    scratch = torch.empty(_bwd_scratch_floats(q.dtype, b, hq, s, qp.shape[3]),
+    scratch = torch.empty(_bwd_scratch_floats(q.dtype, b, hq, s, sk, qp.shape[3]),
                           dtype=torch.float32, device=dev)
     err = nvcc.load(BWD_SOURCE, declare_backward, FLAGS).flash_attention_bwd_launch(
         qp.data_ptr(), kp.data_ptr(), vp.data_ptr(), op.data_ptr(), dop.data_ptr(),
         lse.data_ptr(), scratch.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-        b, hq, hkv, s, qp.shape[3], _DTYPES[q.dtype], 1.0 / math.sqrt(d),
+        b, hq, hkv, s, sk, qp.shape[3], _DTYPES[q.dtype], 1.0 / math.sqrt(d),
         int(bool(causal)), torch.cuda.current_stream(dev).cuda_stream)
     nvcc.raise_on_error(err, "flash_attention_bwd")
     LAUNCHES["flash_attention_bwd_cuda"] += 1

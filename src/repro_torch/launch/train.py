@@ -1,5 +1,5 @@
-"""Training entry point: data pipeline -> train loop -> checkpoints, on
-one card.
+"""Training entry point: data pipeline -> sharded train loop ->
+checkpoints.
 
     PYTHONPATH=src python -m repro_torch.launch.train \
         --arch yi-9b --reduced --steps 200 --global-batch 8 --seq 128
@@ -11,9 +11,14 @@ the newest intact checkpoint on start, atomic periodic checkpoints, a
 straggler policy watching step times, and a data order that derives
 any step's batch from the step number alone.  Parameters come from
 ``torch.Generator(device).manual_seed(0)`` (the reference's
-``PRNGKey(0)``; the numbers differ).  One device only: ``--model-axis``
-other than 1 raises until the mesh and shardings are ported (ROADMAP
-queue A item 7).
+``PRNGKey(0)``; the numbers differ) and are placed on
+``make_host_mesh(--model-axis)`` through `param_shardings` and
+`device_put`, as the reference places them; a restart restores into the
+same shardings.  The mesh's rule is the reference's: its size must
+divide by ``--model-axis`` (on one card ``--model-axis 2`` fails that
+assertion before anything launches).  A mesh of more than one rank
+raises `NotImplementedError` before the first step: eager PyTorch has
+no twin of GSPMD's partitioned step (ROADMAP queue C).
 """
 
 from __future__ import annotations
@@ -23,6 +28,7 @@ import json
 import time
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.configs import get_arch
 from repro_torch.data.pipeline import DataPipeline, make_synthetic_corpus
@@ -33,6 +39,13 @@ from repro_torch.distributed.fault_tolerance import (
     config_fingerprint,
     restore_checkpoint,
 )
+from repro_torch.distributed.sharding import (
+    device_put,
+    opt_state_shardings,
+    param_shardings,
+    use_mesh,
+)
+from repro_torch.launch.mesh import make_host_mesh
 from repro_torch.models import get_model
 from repro_torch.train.optimizer import OptimizerConfig, adamw_init
 from repro_torch.train.train_step import make_train_step
@@ -54,58 +67,76 @@ def main(argv=None) -> dict:
     ap.add_argument("--log-every", type=int, default=10)
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
-    if args.model_axis != 1:
-        raise NotImplementedError(
-            f"--model-axis {args.model_axis}: the mesh and the parameter shardings are "
-            "not ported yet (ROADMAP queue A item 7); the port trains on one device")
 
     dev = resolve_device(args.device)
+    own_group = not dist.is_initialized()
+    try:
+        return _train(args, dev)
+    finally:
+        if own_group and dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def _train(args, dev) -> dict:
+    """`main` on ``dev`` under the process group `make_host_mesh` finds or
+    starts (`main` destroys one it started)."""
     cfg = get_arch(args.arch, reduced=args.reduced)
     api = get_model(cfg, dev)
+    mesh = make_host_mesh(args.model_axis, dev)
+    if mesh.size() > 1:
+        raise NotImplementedError(
+            f"a {tuple(mesh.mesh.shape)} mesh: the port has no partitioned train step "
+            "(eager PyTorch has no twin of GSPMD's; ROADMAP queue C)")
     opt_cfg = OptimizerConfig(lr=args.lr, warmup_steps=args.warmup, total_steps=args.steps)
 
     corpus = make_synthetic_corpus(total_tokens=2_000_000, vocab_size=cfg.vocab_size,
                                    device=dev)
     pipeline = DataPipeline(corpus, global_batch=args.global_batch, seq_len=args.seq)
 
-    params = api.init(torch.Generator(device=dev).manual_seed(0))
-    opt_state = adamw_init(params)
-    step_fn = make_train_step(api.loss, opt_cfg, microbatches=args.microbatches)
+    with use_mesh(mesh):
+        params = api.init(torch.Generator(device=dev).manual_seed(0))
+        psh = param_shardings(params, cfg, mesh)
+        params = device_put(params, psh)
+        opt_state = adamw_init(params)
+        step_fn = make_train_step(api.loss, opt_cfg, microbatches=args.microbatches)
 
-    start_step = 0
-    ckpt = None
-    if args.checkpoint_dir:
-        ckpt = CheckpointManager(args.checkpoint_dir, every=args.checkpoint_every)
-        try:
-            (params, opt_state), start_step = restore_checkpoint(
-                args.checkpoint_dir, (params, opt_state), device=dev)
-            print(f"[train] resumed from step {start_step}")
-        except FileNotFoundError:
-            pass
+        start_step = 0
+        ckpt = None
+        if args.checkpoint_dir:
+            ckpt = CheckpointManager(args.checkpoint_dir, every=args.checkpoint_every)
+            try:
+                (params, opt_state), start_step = restore_checkpoint(
+                    args.checkpoint_dir, (params, opt_state),
+                    shardings=(psh, opt_state_shardings(opt_state, cfg, mesh)))
+                print(f"[train] resumed from step {start_step}")
+            except FileNotFoundError:
+                pass
 
-    straggler = StragglerPolicy()
-    history = []
-    t_tokens = args.global_batch * args.seq
-    for step in range(start_step, args.steps):
-        batch = {k: torch.as_tensor(v, device=dev) for k, v in pipeline.batch_at(step).items()}
-        t0 = time.time()
-        params, opt_state, metrics = step_fn(params, opt_state, batch)
-        loss = float(metrics["loss"])
-        dt = time.time() - t0
-        if straggler.observe(dt):
-            print(f"[train] straggler event at step {step}: {dt:.2f}s")
-        if step % args.log_every == 0 or step == args.steps - 1:
-            print(
-                f"[train] step {step:5d} loss={loss:7.4f} "
-                f"lr={float(metrics['lr']):.2e} "
-                f"gnorm={float(metrics['grad_norm']):.2f} "
-                f"{t_tokens / dt:,.0f} tok/s"
-            )
-        history.append(loss)
-        if ckpt and ckpt.should_save(step):
-            ckpt.save(step, (params, opt_state), meta={"config": config_fingerprint(cfg)})
-    if ckpt:
-        ckpt.save(args.steps, (params, opt_state))
+        straggler = StragglerPolicy()
+        history = []
+        t_tokens = args.global_batch * args.seq
+        for step in range(start_step, args.steps):
+            batch = {k: torch.as_tensor(v, device=dev)
+                     for k, v in pipeline.batch_at(step).items()}
+            t0 = time.time()
+            params, opt_state, metrics = step_fn(params, opt_state, batch)
+            loss = float(metrics["loss"])
+            dt = time.time() - t0
+            if straggler.observe(dt):
+                print(f"[train] straggler event at step {step}: {dt:.2f}s")
+            if step % args.log_every == 0 or step == args.steps - 1:
+                print(
+                    f"[train] step {step:5d} loss={loss:7.4f} "
+                    f"lr={float(metrics['lr']):.2e} "
+                    f"gnorm={float(metrics['grad_norm']):.2f} "
+                    f"{t_tokens / dt:,.0f} tok/s"
+                )
+            history.append(loss)
+            if ckpt and ckpt.should_save(step):
+                ckpt.save(step, (params, opt_state),
+                          meta={"config": config_fingerprint(cfg)})
+        if ckpt:
+            ckpt.save(args.steps, (params, opt_state))
     return {
         "first_loss": history[0] if history else None,
         "last_loss": history[-1] if history else None,

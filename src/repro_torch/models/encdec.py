@@ -152,7 +152,7 @@ def encode(cfg, params: Params, frames: torch.Tensor) -> torch.Tensor:
     if cfg.remat:
         block = L.remat(block)
     for p in params["enc"]:
-        x = block(p, x)
+        x = block(p, L.pin_dp(x))
     return L.rmsnorm(x, params["enc_norm"])
 
 
@@ -179,7 +179,7 @@ def forward_train(cfg, params: Params, frames: torch.Tensor,
     if cfg.remat:
         block = L.remat(block)
     for p in params["dec"]:
-        x = block(p, x, enc_out)
+        x = block(p, L.pin_dp(x), enc_out)
     x = L.rmsnorm(x, params["final_norm"])
     return L.logits_from_hidden(x, params["embed"])
 
@@ -222,6 +222,7 @@ def prefill(cfg, params: Params, frames: torch.Tensor, tokens: torch.Tensor):
     xks: List[torch.Tensor] = []
     xvs: List[torch.Tensor] = []
     for p in params["dec"]:
+        x = L.pin_dp(x)
         x, (k, v) = _self_attn(cfg, p, x, positions, causal=True)
         xk, xv = _enc_kv(cfg, p, enc_out)
         x = _cross_attn(cfg, p, x, (xk, xv))
@@ -244,6 +245,7 @@ def decode_step(cfg, params: Params, cache, token: torch.Tensor):
     x = L.embed(token[:, None], params["embed"])
     posv = torch.full((1,), pos, dtype=torch.int32, device=token.device)
     for i, p in enumerate(params["dec"]):
+        x = L.pin_dp(x)
         kc, vc, xk, xv = cache["k"][i], cache["v"][i], cache["xk"][i], cache["xv"][i]
         hh = L.rmsnorm(x, p["ln"])
         q = L.apply_rope(_heads(cfg, hh, p["wq"], cfg.num_heads), posv, cfg.rope_theta)

@@ -157,6 +157,7 @@ def forward_train(cfg, params: Params, tokens: torch.Tensor) -> Tuple[torch.Tens
     positions = torch.arange(tokens.shape[1], device=tokens.device)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for p in params["blocks"]:
+        x = L.pin_dp(x)
         x, a = superblock_train(cfg, p, x, positions)
         aux = aux + a
     x = L.rmsnorm(x, params["final_norm"])
@@ -200,6 +201,7 @@ def decode_step(cfg, params: Params, cache, token: torch.Tensor):
     per = cfg.attn_period
     mstate = cache["mamba"]
     for j, p in enumerate(params["blocks"]):
+        x = L.pin_dp(x)
         for i in range(per):
             if i < per - 1:
                 x, st = M.mamba_decode(cfg, p[f"mix{i}"], x,
@@ -224,6 +226,7 @@ def prefill(cfg, params: Params, tokens: torch.Tensor):
     per = cfg.attn_period
     states, ks, vs = [], [], []
     for p in params["blocks"]:
+        x = L.pin_dp(x)
         layer_states = []
         for i in range(per):
             if i < per - 1:

@@ -6,9 +6,10 @@ Plain functions over explicit parameter tensors, as in the reference
 rounds: `rmsnorm` casts back to x's dtype before the scale, and
 `apply_rope` casts cos and sin to x's dtype before the multiply.  The
 reference's remat policies become `torch.utils.checkpoint` around
-a whole block or its two halves (`remat`); its `pin_dp` sharding hint is
-a no-op without a mesh and waits for the sharding slice (ROADMAP queue
-A item 7).
+a whole block or its two halves (`remat`).  `pin_dp` is the reference's
+sharding hint at the top of every layer loop's body: the identity on a
+plain tensor (every tensor on a mesh of one rank) or without an active
+mesh (`distributed.sharding.maybe_constrain`).
 """
 
 from __future__ import annotations
@@ -19,6 +20,14 @@ from typing import Callable, Dict, Tuple
 import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
+
+from repro_torch.distributed.sharding import maybe_constrain
+
+
+def pin_dp(x: torch.Tensor) -> torch.Tensor:
+    """Pin the batch dim of an activation to the data-parallel mesh axes
+    (the reference's `pin_dp`): a no-op where no mesh is active."""
+    return maybe_constrain(x, "dp", *([None] * (x.ndim - 1)))
 
 
 def dtype_of(name: str) -> torch.dtype:

@@ -14,9 +14,10 @@ follow arrival order; the port forms the same key and mirrors it
 (ROADMAP queue C 23).
 
 Expert compute is a dense batched product over (G, E, C, D) buffers.
-The group axis G is the reference's one group per data-parallel shard;
-without a mesh (ROADMAP queue A item 7) it is 1, and the reference's
-sharding constraints are the identity.
+The group axis G is the reference's one group per data-parallel shard
+of the active mesh (`distributed.sharding.use_mesh`); without one it is
+1, and on plain tensors the reference's four sharding constraints
+(`maybe_constrain`) are the identity.
 
 Every step is deterministic on the card, so a repeat, and the recompute
 under `torch.utils.checkpoint`, routes the same way: stable sorts, a
@@ -35,6 +36,8 @@ from typing import Dict, Tuple
 
 import torch
 import torch.nn.functional as F
+
+from repro_torch.distributed.sharding import active_mesh, maybe_constrain
 
 
 def moe_router_init(generator: torch.Generator, d_model: int, num_experts: int,
@@ -133,9 +136,17 @@ def cdf_dispatch_slots(
 
 
 def _num_dispatch_groups(t: int) -> int:
-    """One dispatch group per data-parallel shard.  The port runs on one
-    device with no mesh (ROADMAP queue A item 7): one group."""
-    return 1
+    """Group-local dispatch: one group per data-parallel shard, the
+    product of the active mesh's pod and data dims (1 when no mesh is
+    active, or when they do not divide the tokens)."""
+    m = active_mesh()
+    if m is None:
+        return 1
+    g = 1
+    for ax, size in zip(m.mesh_dim_names, m.mesh.shape):
+        if ax in ("pod", "data"):
+            g *= size
+    return g if t % g == 0 else 1
 
 
 def _dispatch_one_group(xt, scores, gate, eidx, *, num_experts, capacity, dispatch):
@@ -216,21 +227,23 @@ def moe_ffn(
     tg = t // groups
     capacity = max(1, int(tg * k / e * capacity_factor))
 
+    xg = maybe_constrain(xt.reshape(groups, tg, d), "dp", None, None)
     dispatched = [
         _dispatch_one_group(xx, ss, gg, ee, num_experts=e, capacity=capacity,
                             dispatch=dispatch)
-        for xx, ss, gg, ee in zip(xt.reshape(groups, tg, d), scores.reshape(groups, tg, e),
+        for xx, ss, gg, ee in zip(xg, scores.reshape(groups, tg, e),
                                   gate.reshape(groups, tg, k), eidx.reshape(groups, tg, k))
     ]
-    buffers = torch.stack([g[0] for g in dispatched])     # (G, E, C, D)
+    # buffers (G, E, C, D): groups over dp, experts over model (EP)
+    buffers = maybe_constrain(torch.stack([g[0] for g in dispatched]), "dp", "tp", None, None)
 
-    y = _experts(buffers, w_gate, w_up, w_down)
+    y = maybe_constrain(_experts(buffers, w_gate, w_up, w_down), "dp", "tp", None, None)
 
     # ---- combine (per group) ------------------------------------------
-    out = torch.stack([
+    out = maybe_constrain(torch.stack([
         _combine_one(yy.reshape(e * capacity, d), dest, st, sg, tg)
         for yy, (_, dest, st, sg) in zip(y, dispatched)
-    ]).reshape(t, d)
+    ]), "dp", None, None).reshape(t, d)
 
     # aux: load-balance loss (Switch-style, top-1 density) + drop fraction
     top1 = eidx[:, 0]

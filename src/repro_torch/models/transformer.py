@@ -151,6 +151,7 @@ def _forward_hidden(cfg, params: Params, x: torch.Tensor) -> Tuple[torch.Tensor,
     block = _train_block(cfg)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for p in params["blocks"]:
+        x = L.pin_dp(x)
         x, a = block(p, x, positions)
         aux = aux + a
     return L.rmsnorm(x, params["final_norm"]), aux
@@ -208,6 +209,7 @@ def _prefill_hidden(cfg, params: Params, x: torch.Tensor) -> Tuple[torch.Tensor,
     ks: List[torch.Tensor] = []
     vs: List[torch.Tensor] = []
     for p in params["blocks"]:
+        x = L.pin_dp(x)
         x, (k, v) = _attn_train(cfg, p, x, positions)
         x, _ = _ffn(cfg, p, x)
         ks.append(k)
@@ -255,6 +257,7 @@ def decode_step(cfg, params: Params, cache, token: torch.Tensor) -> Tuple[torch.
     pos = int(cache["len"])
     x = L.embed(token[:, None], params["embed"])
     for i, p in enumerate(params["blocks"]):
+        x = L.pin_dp(x)
         x, _, _ = block_decode(cfg, p, x, cache["k"][i], cache["v"][i], pos)
     x = L.rmsnorm(x[:, 0], params["final_norm"])
     logits = L.logits_from_hidden(x, params["embed"])

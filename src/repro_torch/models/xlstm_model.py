@@ -55,6 +55,7 @@ def forward_train(cfg, params: Params, tokens: torch.Tensor) -> Tuple[torch.Tens
     if cfg.remat:
         mblock, sblock = L.remat(mblock), L.remat(sblock)
     for bp in params["blocks"]:
+        x = L.pin_dp(x)
         for mp in bp["mlstm"]:
             x = mblock(mp, x)
         x = sblock(bp["slstm"], x)
@@ -90,6 +91,7 @@ def decode_step(cfg, params: Params, cache, token: torch.Tensor):
     x = L.embed(token[:, None], params["embed"])
     mstate, sstate = cache["m"], cache["s"]
     for j, bp in enumerate(params["blocks"]):
+        x = L.pin_dp(x)
         for i, mp in enumerate(bp["mlstm"]):
             x, st = X.mlstm_decode(cfg, mp, x, {n: t[j, i] for n, t in mstate.items()})
             for n, t in st.items():
@@ -108,6 +110,7 @@ def prefill(cfg, params: Params, tokens: torch.Tensor):
     x = L.embed(tokens, params["embed"])
     m_all, s_all = [], []
     for bp in params["blocks"]:
+        x = L.pin_dp(x)
         mstates = []
         for mp in bp["mlstm"]:
             x, st = X.mlstm_train(cfg, mp, x, return_state=True)

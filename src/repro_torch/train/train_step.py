@@ -8,8 +8,8 @@ of the batch's leading axis that accumulates each microbatch's
 gradients into ``accum_dtype`` buffers and then divides by their
 number, as the reference's `lax.scan` does; the loss and metrics are
 the microbatches' means.  ``compress_fn`` is the hook between
-accumulation and the optimizer (its compressed collectives wait for
-ROADMAP queue A item 7).
+accumulation and the optimizer (for instance a closure over
+`distributed.collectives.make_compressed_allreduce`).
 """
 
 from __future__ import annotations

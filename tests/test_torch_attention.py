@@ -4,8 +4,8 @@ reference's `flash_attention` (Pallas, interpret mode) and its
 `ref.mha_reference`, on the reference's four test shapes and ragged
 ones, and at cross-attention shapes (Sq != Sk, full mask), at the
 reference's tolerances (2e-5 in float32, 2e-2 in bfloat16); what the
-card refuses (ROADMAP queue C 13: causal Sq != Sk, a query offset, a
-gradient at Sq != Sk); the model's `chunked_attention` (padding, query offset,
+card refuses (causal Sq != Sk, a query offset; a gradient at Sq != Sk
+is taken); the model's `chunked_attention` (padding, query offset,
 non-causal), `decode_attention` and `update_kv_cache` against the
 reference's.  The kernel's numerics (bf16 tensor-core products with P
 split into two bf16 halves) are emulated in plain torch and held to the
@@ -133,14 +133,15 @@ def test_chunked_attention_matches_reference(sq, sk, chunk, q_offset, causal, dt
 
 
 def test_chunked_attention_on_the_card_refuses_what_the_kernel_cannot_compute(monkeypatch):
-    """ROADMAP queue C 13, narrowed: on the card the kernel takes causal
-    attention with Sq == Sk and full attention with any Sq and Sk (the
-    audio family's cross-attention), both from position 0.  A full call
-    at Sq != Sk reaches `ops.attention_op`; a query offset, or causal
-    with Sq != Sk, raises before anything launches (a stand-in that
-    reports a CUDA device: only the device and the shapes are read).  A
-    grad-requiring call at Sq != Sk raises in the autograd Function
-    before the forward launches: the backward kernel takes one length."""
+    """On the card the kernel takes causal attention with Sq == Sk and
+    full attention with any Sq and Sk (the audio family's
+    cross-attention), both from position 0.  A full call at Sq != Sk
+    reaches `ops.attention_op`; a query offset, or causal with Sq != Sk,
+    raises before anything launches (a stand-in that reports a CUDA
+    device: only the device and the shapes are read).  A grad-requiring
+    call at Sq != Sk is taken: the autograd Function reaches the forward
+    launch, and the backward hands the kernel Sq and Sk with scratch
+    sized for both."""
     q = torch.empty((1, 2, 4, 32), device="meta")
     k = torch.empty((1, 2, 8, 32), device="meta")
 
@@ -162,20 +163,58 @@ def test_chunked_attention_on_the_card_refuses_what_the_kernel_cannot_compute(mo
     with pytest.raises(ValueError, match="from position 0"):
         attention.chunked_attention(_Card(q), _Card(k), _Card(k), causal=False, q_offset=3)
     assert len(calls) == 1
-    # the wrapper on a non-CPU tensor: causal Sq != Sk, and grad at
-    # Sq != Sk, raise before anything is built or launched
+    # the wrapper on a non-CPU tensor: causal Sq != Sk raises before
+    # anything is built or launched
     from repro_torch.kernels import nvcc
     fa.reset_launch_counts()
     with pytest.raises(ValueError, match="causal attention needs Sq == Sk"):
         fa.flash_attention_cuda(q, k, k, causal=True)
-    qg = q.clone().requires_grad_(True)
-    with pytest.raises(ValueError, match="backward kernel takes Sq == Sk only"):
-        fa.flash_attention_cuda(qg, k, k, causal=False)
-    with pytest.raises(ValueError, match="backward kernel takes Sq == Sk only"):
-        fa.flash_attention_bwd_cuda(q, k, k, q, torch.empty((1, 2, 4), device="meta"), q,
-                                    causal=False)
     assert fa.LAUNCHES == {"flash_attention_cuda": 0, "flash_attention_bwd_cuda": 0}
     assert all(source not in (fa.SOURCE, fa.BWD_SOURCE) for source, _ in nvcc._LIBS)
+    # a gradient at Sq != Sk: the Function reaches the forward launch
+    # (stood in for here) without raising ...
+    forwards = []
+    monkeypatch.setattr(fa, "_forward", lambda q, k, v, causal, lse: forwards.append(
+        (q.shape, k.shape, causal)) or (torch.zeros_like(q), torch.zeros(q.shape[:3])))
+    qg = torch.zeros((1, 2, 4, 32), requires_grad=True)
+    fa.FlashAttention.apply(qg, torch.zeros((1, 2, 8, 32)), torch.zeros((1, 2, 8, 32)), False)
+    assert forwards == [(qg.shape, k.shape, False)]
+    # ... and the backward hands the kernel Sq and Sk, its scratch sized
+    # by both (a stand-in library; only the device, shapes and dtypes are
+    # read)
+    launches, scratch = [], []
+
+    class _Lib:
+        @staticmethod
+        def flash_attention_bwd_launch(*args):
+            launches.append(args)
+            return 0
+
+    class _CardTensor:
+        def __init__(self, shape, dtype):
+            self.shape, self.ndim, self.dtype = torch.Size(shape), len(shape), dtype
+            self.device = torch.device("cuda")
+
+        def numel(self):
+            return self.shape.numel()
+
+        def data_ptr(self):
+            return 0
+
+    real_empty = torch.empty
+    monkeypatch.setattr(nvcc, "load", lambda *a: _Lib)
+    monkeypatch.setattr(fa, "_pointers", lambda *a, **kw: [0])
+    monkeypatch.setattr(torch, "empty_like", lambda t: t)
+    monkeypatch.setattr(torch, "empty", lambda n, **kw: scratch.append(n) or real_empty(1))
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda dev: type("Stream", (), {"cuda_stream": 0}))
+    for dt in (torch.float32, torch.bfloat16):
+        qc, kc = _CardTensor((1, 2, 4, 32), dt), _CardTensor((1, 2, 8, 32), dt)
+        fa.flash_attention_bwd_cuda(qc, kc, kc, qc, _CardTensor((1, 2, 4), torch.float32), qc,
+                                    causal=False)
+    # B, Hq, Hkv, Sq, Sk, D
+    assert [a[10:16] for a in launches] == [(1, 2, 2, 4, 8, 32)] * 2
+    assert scratch == [1 * 2 * 4, 2 * 1 * 2 * 64 + 2 * 1 * 2 * 8 * 32]
 
 
 @pytest.mark.parametrize("sq,sk,group", [(40, 72, 2), (77, 300, 4), (130, 40, 1), (1, 9, 2)])

@@ -611,8 +611,8 @@ def test_attention_kernel_at_sq_ne_sk_matches_twin_on_card(dtype, tol):
     """B9's forward at cross-attention shapes (full mask, Sq != Sk):
     seamless's cross shape, a ragged one, Sq > Sk, D = 32 and 128, one
     query, within the reference's tolerance of the plain twin, the
-    log-sum-exp within 1e-5; causal at Sq != Sk and a gradient at
-    Sq != Sk raise before anything launches."""
+    log-sum-exp within 1e-5; causal at Sq != Sk raises before anything
+    launches."""
     from repro_torch.kernels import flash_attention as fa
     dev = _card()
     g = torch.Generator(device=dev).manual_seed(13)
@@ -634,9 +634,49 @@ def test_attention_kernel_at_sq_ne_sk_matches_twin_on_card(dtype, tol):
     fa.reset_launch_counts()
     with pytest.raises(ValueError, match="causal attention needs Sq == Sk"):
         fa.flash_attention_cuda(q, k, v, causal=True)
-    with pytest.raises(ValueError, match="backward kernel takes Sq == Sk only"):
-        fa.flash_attention_cuda(q.clone().requires_grad_(True), k, v, causal=False)
     assert fa.LAUNCHES == {"flash_attention_cuda": 0, "flash_attention_bwd_cuda": 0}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [("float32", 1e-4), ("bfloat16", 2e-2)])
+def test_attention_backward_kernel_at_sq_ne_sk_matches_twin_on_card(dtype, tol):
+    """B9's backward at cross-attention shapes (full mask, Sq != Sk):
+    seamless's cross shape, a ragged one (77 queries over 1,000 keys),
+    GQA with Sq > Sk, D = 32 and 128, one query, against
+    `ref.mha_backward_reference` (bf16 also within 1e-3 relative L2),
+    bit-identical on a repeat launch; through `FlashAttention` one
+    forward and one backward launch."""
+    from repro_torch.kernels import flash_attention as fa
+    dev = _card()
+    g = torch.Generator(device=dev).manual_seed(29)
+    dt = getattr(torch, dtype)
+    for b, hq, hkv, sq, sk, d in ((2, 16, 16, 256, 3072, 64), (1, 4, 2, 77, 1000, 64),
+                                  (2, 8, 2, 1000, 130, 128), (1, 4, 1, 33, 65, 32),
+                                  (2, 4, 4, 1, 500, 64)):
+        q = torch.randn((b, hq, sq, d), generator=g, device=dev).to(dt)
+        k, v = (torch.randn((b, hkv, sk, d), generator=g, device=dev).to(dt)
+                for _ in range(2))
+        with torch.no_grad():
+            out, lse = fa.flash_attention_cuda(q, k, v, causal=False, return_lse=True)
+        d_out = torch.randn(out.shape, generator=g, device=dev).to(dt)
+        got = fa.flash_attention_bwd_cuda(q, k, v, out, lse, d_out, causal=False)
+        again = fa.flash_attention_bwd_cuda(q, k, v, out, lse, d_out, causal=False)
+        want = ref.mha_backward_reference(q, k, v, out, lse, d_out, causal=False)
+        torch.cuda.synchronize()
+        shape = (b, hq, hkv, sq, sk, d)
+        for x, y, w, like in zip(got, again, want, (q, k, v)):
+            assert x.dtype == dt and x.shape == like.shape and torch.equal(x, y), shape
+            err = float((x.float() - w.float()).abs().max())
+            assert err <= tol * float(w.float().abs().max()), (shape, err)
+            if dtype == "bfloat16":
+                rel = float((x.float() - w.float()).norm() / w.float().norm())
+                assert rel <= 1e-3, (shape, rel)
+        fa.reset_launch_counts()
+        qg, kg, vg = (t.clone().requires_grad_(True) for t in (q, k, v))
+        fa.flash_attention_cuda(qg, kg, vg, causal=False).backward(d_out)
+        assert fa.LAUNCHES == {"flash_attention_cuda": 1, "flash_attention_bwd_cuda": 1}
+        for x, w in zip((qg.grad, kg.grad, vg.grad), got):
+            assert torch.equal(x, w), shape
 
 
 def _multimodal_inputs(cfg, rng, b, s, where):

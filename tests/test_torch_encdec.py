@@ -38,8 +38,13 @@ from repro_torch.configs.base import ShapeConfig  # noqa: E402
 from repro_torch.models import encdec, get_model, registry, transformer  # noqa: E402
 from repro_torch.obs.metrics import MetricsRegistry  # noqa: E402
 from repro_torch.serve import engine  # noqa: E402
-from repro_torch.train.optimizer import tree_leaves  # noqa: E402
-from repro_torch.train.train_step import loss_and_grads  # noqa: E402
+from repro_torch.train.optimizer import (  # noqa: E402
+    OptimizerConfig,
+    adamw_init,
+    tree_leaves,
+    tree_map,
+)
+from repro_torch.train.train_step import loss_and_grads, make_train_step  # noqa: E402
 
 ARCH = "seamless-m4t-large-v2"
 SRC, TGT = 72, 40          # source frames, target tokens: Sq != Sk, ragged chunks
@@ -220,8 +225,9 @@ def _reference_grads(src, tgt):
 def test_reduced_seamless_loss_and_grads_match_reference(remat, src, tgt):
     """The loss within 1e-5 relative and every gradient within 1e-4 x its
     max, with and without remat; at Sq != Sk (the CPU's loop; the card's
-    backward kernel takes Sq == Sk only, ROADMAP queue C 13) and at the
-    registry's train spec, where source and target lengths are equal."""
+    backward kernel at Sq != Sk is held in `tests/test_torch_card.py`) and
+    at the registry's train spec, where source and target lengths are
+    equal."""
     batch, jloss, jnll, jgrads = _reference_grads(src, tgt)
     _, _, params = _pair()
     _, cfg = _cfgs(remat=remat)
@@ -232,6 +238,30 @@ def test_reduced_seamless_loss_and_grads_match_reference(remat, src, tgt):
     assert float(np.abs(_np(grads["frontend"])).max()) > 0
     for g, w in zip(tree_leaves(grads), tree_leaves(want)):
         _close(g, w)
+
+
+def test_reduced_seamless_train_step_at_unequal_lengths_matches_reference():
+    """One `make_train_step` step (AdamW) of the reduced seamless at
+    Sq != Sk in cross-attention (SRC frames, TGT tokens): the step's loss
+    within 1e-5 relative of the reference's `jax.value_and_grad`, the
+    gradients it hands the optimizer (read through ``compress_fn``)
+    within 1e-4 x their max, and its gradient norm within 1e-5."""
+    batch, jloss, _, jgrads = _reference_grads(SRC, TGT)
+    _, _, shared = _pair()
+    params = tree_map(lambda t: t.clone(), shared)   # the step updates in place
+    _, cfg = _cfgs()
+    seen = []
+    step = make_train_step(get_model(cfg, "cpu").loss, OptimizerConfig(),
+                           compress_fn=lambda g: seen.append(g) or g)
+    params, _, metrics = step(params, adamw_init(params), _tx(batch))
+    assert float(metrics["loss"]) == pytest.approx(jloss, rel=1e-5)
+    want = convert.lm_params_from_reference(jgrads, cfg, "cpu")
+    for g, w in zip(tree_leaves(seen[0]), tree_leaves(want)):
+        _close(g, w)
+    norm = float(np.sqrt(sum(float((np.asarray(g, np.float64) ** 2).sum())
+                             for g in jax.tree.leaves(jgrads))))
+    assert float(metrics["grad_norm"]) == pytest.approx(norm, rel=1e-5)
+    assert all(bool(torch.isfinite(p).all()) for p in tree_leaves(params))
 
 
 # ---------------------------------------------------------------------------

@@ -1,6 +1,8 @@
 """The port stands alone: importing every module of `repro_torch` pulls in
-neither JAX nor any module of the reference package, and its entry
-points refuse to run without a card unless the caller asks for the CPU.
+neither JAX nor any module of the reference package (and starts no
+process group: the dry run's fake group lives only in its own process),
+and its entry points refuse to run without a card unless the caller
+asks for the CPU.
 """
 
 import os
@@ -34,6 +36,8 @@ names = ["repro_torch"] + [m.name for m in pkgutil.walk_packages(
     repro_torch.__path__, "repro_torch.")]
 for name in names:
     importlib.import_module(name)
+import torch.distributed as dist
+assert not dist.is_initialized(), "a module started a process group at import"
 bad = sorted(k for k in sys.modules
              if k == "jax" or k.startswith("jax.") or k == "repro"
              or k.startswith("repro."))
@@ -56,7 +60,9 @@ def test_port_imports_no_jax_and_no_reference():
                  "repro_torch.core.learned_hash", "repro_torch.kernels.hash_probe",
                  "repro_torch.kernels.bloom_probe", "repro_torch.distributed",
                  "repro_torch.distributed.fault_tolerance", "repro_torch.obs.export",
-                 "repro_torch.serve.frontend", "repro_torch.models.moe"):
+                 "repro_torch.serve.frontend", "repro_torch.models.moe",
+                 "repro_torch.launch.mesh", "repro_torch.launch.dryrun",
+                 "repro_torch.distributed.sharding", "repro_torch.distributed.collectives"):
         assert name in out[2:], name
 
 
