@@ -4267,13 +4267,127 @@ def collect_dryruns(procs):
     return out
 
 
+PARTITIONED_STEPS = 3            # (d): steps of the partitioned path (the first warms up)
+PARTITIONED_LOSS_RTOL = 2e-3     # (d): losses against lm_train (c)'s, relative
+
+
+def run_partitioned_step(args, dev, mesh, trained):
+    """(d): lm_train (c)'s model (yi-6b at full width cut to TRAIN_LAYERS,
+    the same seed) and batches as the partitioned train step on the mesh
+    of one: every parameter and optimizer leaf made a DTensor by
+    `distribute_tensor` with its `NamedSharding`'s placements (the
+    package keeps plain tensors on a mesh of one, so this part does it
+    itself), each batch by `batch_shardings`'s, then PARTITIONED_STEPS
+    steps of TRAIN_BATCH x TRAIN_SEQ in TRAIN_MICRO microbatches through
+    `make_train_step`.  Each step's B9 launches (forward and backward)
+    and `sharding.on_local_heads` calls are counted; the losses are held
+    to (c)'s first ones (``trained``: its per-step rows) within
+    PARTITIONED_LOSS_RTOL, bit equality reported."""
+    import dataclasses
+    import torch
+    from torch.distributed.tensor import distribute_tensor
+    from repro_torch.configs import get_arch
+    from repro_torch.data.pipeline import DataPipeline, make_synthetic_corpus
+    from repro_torch.distributed import sharding as sh
+    from repro_torch.models import get_model
+    from repro_torch.train import OptimizerConfig, adamw_init, make_train_step
+    full = get_arch(LM_ARCH, reduced=args.lm_reduced)
+    cfg = dataclasses.replace(full, num_layers=min(TRAIN_LAYERS, full.num_layers))
+    seq = TRAIN_SEQ if not args.lm_reduced else 64
+    api = get_model(cfg, dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with sh.use_mesh(mesh):
+        params = api.init(torch.Generator(device=dev).manual_seed(args.seed))
+        psh = sh.param_shardings(params, cfg, mesh)
+        params = sh.tree_map_with_path(
+            lambda path, x, s: distribute_tensor(x, mesh, s.placements()), params, psh)
+        state = adamw_init(params, sh.opt_state_shardings(params, cfg, mesh))
+    corpus = make_synthetic_corpus(total_tokens=TRAIN_CORPUS_TOKENS,
+                                   vocab_size=cfg.vocab_size, device=dev)
+    pipeline = DataPipeline(corpus, global_batch=TRAIN_BATCH, seq_len=seq)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    leaves = sh.tree_leaves_with_path((params, state))
+    dtensors = sum(sh.is_dtensor(x) for _, x in leaves)
+
+    local_calls = [0]
+    real_local = sh.on_local_heads
+
+    def counted(*a, **kw):
+        local_calls[0] += 1
+        return real_local(*a, **kw)
+
+    step_fn = make_train_step(api.loss, OptimizerConfig(**TRAIN_OPT), microbatches=TRAIN_MICRO)
+    steps = []
+    torch.cuda.reset_peak_memory_stats()
+    sh.on_local_heads = counted
+    try:
+        with count_plain_attention() as plain_calls, sh.use_mesh(mesh):
+            for step in range(PARTITIONED_STEPS):
+                batch = {k: torch.as_tensor(v, device=dev)
+                         for k, v in pipeline.batch_at(step).items()}
+                bsh = sh.batch_shardings(batch, mesh)
+                batch = {k: distribute_tensor(v, mesh, bsh[k].placements())
+                         for k, v in batch.items()}
+                reset_counts()
+                local_calls[0] = 0
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                params, state, metrics = step_fn(params, state, batch)
+                loss = float(metrics["loss"])
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t1
+                launches = read_counts()
+                want = trained["per_step"][step]["loss"]
+                steps.append({"step": step, "loss": loss, "loss_c": want,
+                              "loss_rel_err": abs(loss - want) / abs(want),
+                              "loss_bits_equal": loss == want,
+                              "grad_norm": float(metrics["grad_norm"]), "step_s": wall,
+                              "step_s_c": trained["per_step"][step]["step_s"],
+                              "attention_launches": launches["flash_attention_cuda"],
+                              "attention_bwd_launches": launches["flash_attention_bwd_cuda"],
+                              "local_map_calls": local_calls[0],
+                              "other_launches": sum(v for k, v in launches.items()
+                                                    if not k.startswith("flash_attention"))})
+    finally:
+        sh.on_local_heads = real_local
+    peak = torch.cuda.max_memory_allocated()
+    per_fwd = cfg.num_layers * TRAIN_MICRO * 2
+    per_bwd = cfg.num_layers * TRAIN_MICRO
+    warm = steps[1:] or steps
+    out = {"arch": cfg.name, "layers": cfg.num_layers, "seq": seq,
+           "global_batch": TRAIN_BATCH, "microbatches": TRAIN_MICRO,
+           "steps": PARTITIONED_STEPS, "mesh": dict(zip(mesh.mesh_dim_names, mesh.mesh.shape)),
+           "leaves": len(leaves), "dtensor_leaves": dtensors, "init_s": init_s,
+           "step_s_median": float(np.median([r["step_s"] for r in warm])),
+           "step_s_median_c": trained["step_s_median"],
+           "peak_mem_gb": peak / 1e9, "peak_mem_gb_c": trained["peak_mem_gb"],
+           "plain_or_library_attention_calls": plain_calls, "per_step": steps,
+           "launches": {"flash_attention_cuda": sum(r["attention_launches"] for r in steps),
+                        "flash_attention_bwd_cuda": sum(r["attention_bwd_launches"]
+                                                        for r in steps)}}
+    out["step_ratio_to_c"] = out["step_s_median"] / out["step_s_median_c"]
+    out["ok"] = (dtensors == len(leaves) and not plain_calls
+                 and all(np.isfinite(r["loss"]) and np.isfinite(r["grad_norm"])
+                         and r["loss_rel_err"] <= PARTITIONED_LOSS_RTOL
+                         and r["attention_launches"] == per_fwd
+                         and r["attention_bwd_launches"] == per_bwd
+                         and r["local_map_calls"] == per_fwd and r["other_launches"] == 0
+                         for r in steps))
+    del params, state, api, corpus, pipeline
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
 def _bits_equal(a, b) -> bool:
     """Whether two float32 tensors hold the same bits."""
     import torch
     return torch.equal(a.view(torch.int32), b.view(torch.int32))
 
 
-def run_distributed(args, dev, card, dryruns):
+def run_distributed(args, dev, card, dryruns, trained):
     """The distributed phase, the failover guard after it: (a)
     `make_host_mesh(1)` on the card (an NCCL world of one) and yi-6b's
     full-width training state cut to TRAIN_LAYERS layers (the cut of
@@ -4287,7 +4401,9 @@ def run_distributed(args, dev, card, dryruns):
     then ALLREDUCE_TIMED calls timed beside one pass over g, err, the
     output and the residual at the memory rate; (c) the dry-run cells
     started at the top of `main`, each ``ok`` with its per-device
-    argument bytes under the card's; (d) the process group destroyed."""
+    argument bytes under the card's; (d) `run_partitioned_step` on the
+    mesh against ``trained`` (lm_train (c)'s result); (e) the process
+    group destroyed."""
     import dataclasses
     import torch
     import torch.distributed as dist
@@ -4381,13 +4497,19 @@ def run_distributed(args, dev, card, dryruns):
     check(all(c["status"] == "ok" and c["rc"] == 0 and c["fits_card"] for c in cells),
           f"distributed (c): the dry-run cells: {cells}")
 
+    t0 = time.perf_counter()
+    parts["d"] = run_partitioned_step(args, dev, mesh, trained)
+    parts["d"]["seconds"] = time.perf_counter() - t0
+    emit({"phase": "distributed", "part": "d_partitioned_step", "card": card, **parts["d"]})
+    check(parts["d"]["ok"], f"distributed (d): the partitioned step on the mesh: {parts['d']}")
+
     dist.destroy_process_group()
-    parts["d"] = {"group_destroyed": not dist.is_initialized(), "seconds": 0.0}
-    check(parts["d"]["group_destroyed"], "distributed (d): the process group outlived the phase")
+    parts["e"] = {"group_destroyed": not dist.is_initialized(), "seconds": 0.0}
+    check(parts["e"]["group_destroyed"], "distributed (e): the process group outlived the phase")
     seconds = time.perf_counter() - t_phase
     emit({"phase": "distributed", "part": "all", "card": card, "seconds": seconds,
           "parts_s": {n: p["seconds"] for n, p in parts.items()}})
-    return {"parts": parts, "seconds": seconds}
+    return {"parts": parts, "seconds": seconds, "launches": parts["d"]["launches"]}
 
 
 def reset_counts():
@@ -5417,7 +5539,7 @@ def main(argv=None) -> int:
 
     # ---- the mesh, the sharding rules, the int8 all-reduce, the dry run ----
     guard = start_failover_guard()
-    distributed = run_distributed(args, dev, card, dryruns)
+    distributed = run_distributed(args, dev, card, dryruns, trained["full"])
     failover_guard("distributed", guard)
     gc.collect()
     torch.cuda.empty_cache()
@@ -5519,12 +5641,14 @@ def main(argv=None) -> int:
          "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
          "replaces": "src/repro/kernels/flash_attention.py:83",
          "launches": lm["launches"] + trained["full"]["launches"]["flash_attention_cuda"]
-         + moe_lm["launches"] + recurrent["launches"] + multimodal["launches"],
+         + moe_lm["launches"] + recurrent["launches"] + multimodal["launches"]
+         + distributed["launches"]["flash_attention_cuda"],
          "prefill_launches": lm["launches"],
          "moe_prefill_launches": moe_lm["launches"],
          "hybrid_launches": recurrent["launches"],
          "multimodal_launches": multimodal["launches"],
          "train_launches": trained["full"]["launches"]["flash_attention_cuda"],
+         "partitioned_train_launches": distributed["launches"]["flash_attention_cuda"],
          "max_abs_err": attn_worst, "within_tol": attn_ok,
          "ms": lm["timing"]["ms"], "plain_ms": lm["timing"]["plain_ms"],
          "bound_ms": lm["timing"]["bound_ms"], "bound_by": lm["timing"]["bound_by"],
@@ -5540,7 +5664,9 @@ def main(argv=None) -> int:
          "replaces": "the gradient of src/repro/models/attention.py:33, taken at "
                      "src/repro/train/train_step.py:34",
          "launches": trained["full"]["launches"]["flash_attention_bwd_cuda"]
-         + recurrent["hybrid"]["bwd_launches"] + multimodal["bwd_launches"],
+         + recurrent["hybrid"]["bwd_launches"] + multimodal["bwd_launches"]
+         + distributed["launches"]["flash_attention_bwd_cuda"],
+         "partitioned_train_launches": distributed["launches"]["flash_attention_bwd_cuda"],
          "hybrid_train_launches": recurrent["hybrid"]["bwd_launches"],
          "multimodal_train_launches": multimodal["bwd_launches"],
          "max_abs_err": trained["max_abs_err"], "worst_err_over_tol": trained["worst"],

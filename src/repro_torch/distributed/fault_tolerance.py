@@ -16,7 +16,9 @@ the path strings that ``jax.tree_util.tree_flatten_with_path`` gives
 (dict keys sorted, list indices as digits), and bf16 leaves are stored
 as their uint16 bit pattern with the logical dtype ``"bfloat16"``, so
 either package reads the other's steps.  Leaves are full host arrays:
-a restart places them on whatever device it names.
+a restart places them on whatever device it names, or on whatever mesh
+(`restore_checkpoint(..., shardings=)`); a tree of DTensors is gathered
+and written by rank 0 alone (`save_checkpoint`).
 
 Straggler mitigation (`StragglerPolicy`): per-step wall-clock deadline
 tracking with an EWMA baseline; a step exceeding k× the EWMA raises a
@@ -36,9 +38,11 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch import faults
 from repro_torch.device import resolve_device
+from repro_torch.distributed.sharding import is_dtensor
 from repro_torch.obs import metrics as obs_metrics
 from repro_torch.obs import trace as obs_trace
 
@@ -214,25 +218,45 @@ def save_checkpoint(
     root: str, step: int, tree: Any, *, meta: Optional[Dict] = None,
     keep_last: int = 3,
 ) -> str:
-    tmp, final = _fresh_tmp(root, step)
-    manifest = {
-        "step": step,
-        "meta": meta or {},
-        "leaves": [],
-        "written_at": time.time(),
-    }
-    for i, (p, leaf) in enumerate(_flatten(tree)):
-        arr, logical_dtype = _host_array(leaf)
-        fn = f"arr_{i:05d}.npy"
-        np.save(os.path.join(tmp, fn), arr)
-        manifest["leaves"].append(
-            {"path": p, "file": fn, "shape": list(arr.shape),
-             "dtype": logical_dtype, "sha256": _sha256_file(
-                 os.path.join(tmp, fn))}
-        )
-    with open(os.path.join(tmp, "manifest.json"), "w") as f:
-        json.dump(manifest, f)
-    _publish(root, tmp, final, step, keep_last)
+    """Write ``tree`` as step ``step`` under ``root``; returns the step's
+    directory.  A tree of DTensors (the partitioned train step) is saved
+    by every rank together: each leaf gathered whole (`full_tensor`, a
+    collective), rank 0 alone writing and publishing one file set, the
+    other ranks waiting at a barrier until it is done or has failed, so
+    LATEST only ever names a step rank 0 published whole."""
+    leaves = _flatten(tree)
+    on_mesh = any(is_dtensor(leaf) for _, leaf in leaves)
+    writer = not on_mesh or dist.get_rank() == 0
+    final = os.path.join(root, f"step_{step:010d}")
+    try:
+        if writer:
+            tmp, final = _fresh_tmp(root, step)
+        manifest = {
+            "step": step,
+            "meta": meta or {},
+            "leaves": [],
+            "written_at": time.time(),
+        }
+        for i, (p, leaf) in enumerate(leaves):
+            if is_dtensor(leaf):
+                leaf = leaf.full_tensor()
+            if not writer:
+                continue
+            arr, logical_dtype = _host_array(leaf)
+            fn = f"arr_{i:05d}.npy"
+            np.save(os.path.join(tmp, fn), arr)
+            manifest["leaves"].append(
+                {"path": p, "file": fn, "shape": list(arr.shape),
+                 "dtype": logical_dtype, "sha256": _sha256_file(
+                     os.path.join(tmp, fn))}
+            )
+        if writer:
+            with open(os.path.join(tmp, "manifest.json"), "w") as f:
+                json.dump(manifest, f)
+            _publish(root, tmp, final, step, keep_last)
+    finally:
+        if on_mesh:
+            dist.barrier()
     return final
 
 

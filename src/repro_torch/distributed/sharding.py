@@ -31,6 +31,14 @@ mesh of one rank each leaf stays a plain tensor on the mesh's device
 through DTensor dispatch); on a larger mesh each leaf becomes a
 `DTensor` (`distribute_tensor`).  The reference's active mesh (``with
 mesh:``) is `use_mesh` / `active_mesh`, a context this module owns.
+
+The partitioned train step is the one-rank step run under DTensor
+dispatch on those leaves (the port's twin of GSPMD): `place_batch` and
+`batch_rows` place a batch and its microbatches, `placed_like`,
+`replicate` and `unsplit_dim` join plain tensors, partial sums and
+head views to the DTensor ops, and `on_local_heads` hands a kernel (or
+the CPU's plain attention) each rank's local batch rows and heads
+(`head_sharding`) through `local_map`.
 """
 
 from __future__ import annotations
@@ -214,10 +222,14 @@ class NamedSharding:
     def placements(self) -> tuple:
         """One DTensor placement a mesh dim: ``Shard(i)`` where tensor dim
         i names it, else ``Replicate()``; a dim named by a tuple of axes
-        is split major to minor in mesh order, as the reference's is."""
+        is split major to minor in mesh order, as the reference's is.  A
+        mesh dim of size 1 holds the whole tensor either way and gets
+        ``Replicate()`` (DTensor's view rules refuse to squeeze a dim
+        of size 1 sharded over it, as a one-row microbatch's)."""
         from torch.distributed.tensor import Replicate, Shard
-        return tuple(Replicate() if (i := self._dims_of(name)) is None else Shard(i)
-                     for name in self.mesh.mesh_dim_names)
+        sizes = _axes(self.mesh).shape
+        return tuple(Replicate() if (i := self._dims_of(name)) is None or sizes[name] == 1
+                     else Shard(i) for name in self.mesh.mesh_dim_names)
 
     def local_shape(self, shape) -> Tuple[int, ...]:
         """A rank's shape of a leaf of global ``shape`` (the rules shard
@@ -428,6 +440,122 @@ def maybe_constrain(x, *spec):
         return x
     target = NamedSharding(mesh, _constrain_spec(x.shape, _axes(mesh).shape, spec))
     return x.redistribute(mesh, target.placements())
+
+
+# --- the partitioned step: DTensor leaves meet plain tensors and kernels ----
+
+def is_dtensor(x) -> bool:
+    from torch.distributed.tensor import DTensor
+    return isinstance(x, DTensor)
+
+
+def replicate(x):
+    """A `DTensor` redistributed to `Replicate` on every mesh dim (a
+    partial sum reduced, shards gathered); a plain tensor unchanged."""
+    if not is_dtensor(x):
+        return x
+    from torch.distributed.tensor import Replicate
+    return x.redistribute(x.device_mesh, (Replicate(),) * x.device_mesh.ndim)
+
+
+def placed_like(x, like):
+    """``x`` redistributed to ``like``'s placements when both are
+    DTensors; a plain tensor ``x`` beside a DTensor ``like`` becomes a
+    DTensor replicated on its mesh (a constant such as RoPE's angles);
+    otherwise ``x`` unchanged."""
+    if not is_dtensor(like):
+        return x
+    from torch.distributed.tensor import DTensor, Replicate
+    mesh = like.device_mesh
+    if not is_dtensor(x):
+        return DTensor.from_local(x, mesh, (Replicate(),) * mesh.ndim, run_check=False)
+    if tuple(x.placements) == tuple(like.placements):
+        return x
+    return x.redistribute(mesh, like.placements)
+
+
+def place_batch(batch, mesh):
+    """A batch of global arrays placed by `batch_shardings`: on a larger
+    mesh every rank keeps its own rows of the global batch it built (no
+    rank reads another's); on a mesh of one plain tensors on its device."""
+    batch = {k: torch.as_tensor(v) for k, v in batch.items()}
+    return device_put(batch, batch_shardings(batch, mesh), src_data_rank=None)
+
+
+def batch_rows(x, lo: int, hi: int):
+    """Global rows ``[lo, hi)`` of a batch leaf: a plain slice, or for a
+    `DTensor` the rows gathered and then placed by `batch_shardings` of
+    their own shape (the reference's microbatch split: microbatch i holds
+    global rows, not rows of each rank's local block)."""
+    if not is_dtensor(x):
+        return x[lo:hi]
+    rows = replicate(x)[lo:hi]
+    sh = batch_shardings(rows, x.device_mesh)
+    return rows.redistribute(x.device_mesh, sh.placements())
+
+
+def head_sharding(mesh, shape) -> NamedSharding:
+    """The sharding of a (B, H, S, D) activation where it meets a
+    kernel: batch over the dp axes (with `_resolve`'s divisibility
+    fallback), heads over ``model`` when they divide it and the batch
+    leaves it free, else replicated there (the reference's ``kvh``
+    fallback)."""
+    axes = _axes(mesh)
+    b = _resolve("dp", shape[0], axes, fsdp=False, batch_shardable=True)
+    heads = None
+    if "model" in axes.shape and "model" not in _used_axes([b]):
+        heads = _resolve("kvh", shape[1], axes, fsdp=False, batch_shardable=True)
+    return NamedSharding(mesh, P(b, heads, None, None))
+
+
+def unsplit_dim(x, dim: int, heads: int = 1):
+    """``x`` whose dim ``dim`` (H·D) is ready to be viewed as (H, D): a
+    `DTensor` whose ``dim`` a mesh dim splits inside a head (H does not
+    divide that mesh dim's size) is replicated there; otherwise ``x``.
+    With ``heads`` 1 the dim ends whole on every rank."""
+    if not is_dtensor(x):
+        return x
+    from torch.distributed.tensor import Replicate, Shard
+    mesh, dim = x.device_mesh, dim % x.ndim
+    placements = [Replicate() if isinstance(p, Shard) and p.dim % x.ndim == dim
+                  and heads % mesh.size(i) else p for i, p in enumerate(x.placements)]
+    if placements == list(x.placements):
+        return x
+    return x.redistribute(mesh, placements)
+
+
+def on_local_heads(fn, q, k, v):
+    """``fn(q, k, v)`` on each rank's local blocks of DTensors ``q`` (B,
+    Hq, Sq, D) and ``k``, ``v`` (B, Hkv, Sk, D), through `local_map`:
+    the inputs are redistributed to `head_sharding` (batch over the dp
+    axes, heads over ``model``), and where Hq divides the model axis but
+    Hkv does not, k and v are replicated there and each kv head repeated
+    for its group of query heads before they are sharded as q, so every
+    rank holds the kv heads of its own query heads.  The output is a
+    DTensor placed as q; its gradient flows back the same way.  Any
+    other input raises."""
+    from torch.distributed.tensor.experimental import local_map
+    if not all(is_dtensor(t) for t in (q, k, v)) or q.ndim != 4 or k.ndim != 4:
+        raise ValueError("on_local_heads takes 4-D DTensors q, k and v")
+    mesh = q.device_mesh
+    if k.device_mesh != mesh or v.device_mesh != mesh:
+        raise ValueError("q, k and v must lie on one mesh")
+    b, hq, _, d = q.shape
+    hkv, sk = k.shape[1], k.shape[2]
+    qs = head_sharding(mesh, q.shape)
+    ks = head_sharding(mesh, k.shape)
+    q = q.redistribute(mesh, qs.placements())
+    k = k.redistribute(mesh, ks.placements())
+    v = v.redistribute(mesh, ks.placements())
+    if qs.spec[1] is not None and ks.spec[1] is None and hkv != hq:
+        group = hq // hkv
+        k, v = (t[:, :, None].expand(b, hkv, group, sk, d).reshape(b, hq, sk, d)
+                .redistribute(mesh, qs.placements()) for t in (k, v))
+        ks = qs
+    # lists: local_map reads a tuple of placements as one entry an output
+    qp, kp = list(qs.placements()), list(ks.placements())
+    return local_map(fn, out_placements=qp, in_placements=(qp, kp, kp),
+                     device_mesh=mesh)(q, k, v)
 
 
 # --- learned-index shard placement -----------------------------------------

@@ -24,6 +24,7 @@ from repro_torch.core.bloom import words_tensor
 from repro_torch.core.models import pack_stage0
 from repro_torch.core.rmi import LEAF_FIELDS
 from repro_torch.device import resolve_device
+from repro_torch.distributed import sharding
 from repro_torch.kernels import ref, rmi_lookup, rmi_scan
 from repro_torch.kernels.bloom_probe import as_u32_bits, bloom_probe_cuda
 from repro_torch.kernels.flash_attention import flash_attention_cuda
@@ -690,7 +691,13 @@ def attention_op(q, k, v, *, causal=True, use_kernel=True) -> torch.Tensor:
     and backward kernels on the card (Sq == Sk only: ROADMAP queue C
     13), their plain versions on the CPU.
     ``use_kernel=False`` runs `ref.mha_reference` on any device, through
-    torch autograd."""
+    torch autograd.  DTensors q, k and v (the partitioned train step)
+    go through `distributed.sharding.on_local_heads`: each rank's local
+    batch rows and heads through this op, the output a DTensor placed
+    as q."""
+    if sharding.is_dtensor(q):
+        return sharding.on_local_heads(
+            functools.partial(attention_op, causal=causal, use_kernel=use_kernel), q, k, v)
     kernel = use_kernel and _on_card(q)
     with dispatch_span("attention", kernel=kernel, strategy="cuda",
                        sig=(_shape(q), _shape(k), str(q.dtype), causal)):

@@ -16,9 +16,19 @@ any step's batch from the step number alone.  Parameters come from
 `device_put`, as the reference places them; a restart restores into the
 same shardings.  The mesh's rule is the reference's: its size must
 divide by ``--model-axis`` (on one card ``--model-axis 2`` fails that
-assertion before anything launches).  A mesh of more than one rank
-raises `NotImplementedError` before the first step: eager PyTorch has
-no twin of GSPMD's partitioned step (ROADMAP queue C).
+assertion before anything launches).
+
+On a mesh of more than one rank (a process group started by the caller,
+one process a rank) the dense family (yi-6b, yi-9b, mistral-nemo-12b,
+mistral-large-123b) trains partitioned as the reference's jitted step
+does over its mesh: the parameters are DTensors placed by
+`param_shardings`, the optimizer state by `opt_state_shardings`
+(ZeRO-1), each batch by `batch_shardings` (every rank builds the global
+batch and keeps its rows), and the step is the same function under
+DTensor dispatch.  Checkpoints are written by rank 0 and restored into
+the same placements on every rank.  The other families raise
+`NotImplementedError` there before any step (ROADMAP queue A item 11).
+A mesh of one keeps plain tensors and the one-card path.
 """
 
 from __future__ import annotations
@@ -43,6 +53,7 @@ from repro_torch.distributed.sharding import (
     device_put,
     opt_state_shardings,
     param_shardings,
+    place_batch,
     use_mesh,
 )
 from repro_torch.launch.mesh import make_host_mesh
@@ -83,10 +94,10 @@ def _train(args, dev) -> dict:
     cfg = get_arch(args.arch, reduced=args.reduced)
     api = get_model(cfg, dev)
     mesh = make_host_mesh(args.model_axis, dev)
-    if mesh.size() > 1:
+    if mesh.size() > 1 and cfg.family != "dense":
         raise NotImplementedError(
-            f"a {tuple(mesh.mesh.shape)} mesh: the port has no partitioned train step "
-            "(eager PyTorch has no twin of GSPMD's; ROADMAP queue C)")
+            f"a {tuple(mesh.mesh.shape)} mesh: the port partitions the train step of the "
+            f"dense family only, not {cfg.family!r} (ROADMAP queue A item 11)")
     opt_cfg = OptimizerConfig(lr=args.lr, warmup_steps=args.warmup, total_steps=args.steps)
 
     corpus = make_synthetic_corpus(total_tokens=2_000_000, vocab_size=cfg.vocab_size,
@@ -97,7 +108,7 @@ def _train(args, dev) -> dict:
         params = api.init(torch.Generator(device=dev).manual_seed(0))
         psh = param_shardings(params, cfg, mesh)
         params = device_put(params, psh)
-        opt_state = adamw_init(params)
+        opt_state = adamw_init(params, opt_state_shardings(params, cfg, mesh))
         step_fn = make_train_step(api.loss, opt_cfg, microbatches=args.microbatches)
 
         start_step = 0
@@ -116,8 +127,7 @@ def _train(args, dev) -> dict:
         history = []
         t_tokens = args.global_batch * args.seq
         for step in range(start_step, args.steps):
-            batch = {k: torch.as_tensor(v, device=dev)
-                     for k, v in pipeline.batch_at(step).items()}
+            batch = place_batch(pipeline.batch_at(step), mesh)
             t0 = time.time()
             params, opt_state, metrics = step_fn(params, opt_state, batch)
             loss = float(metrics["loss"])

@@ -14,7 +14,9 @@ backward (`kernels.flash_attention.FlashAttention`), which takes
 Sq == Sk only: a grad-requiring call at Sq != Sk raises on the card
 before anything launches (ROADMAP queue C 13).  On the CPU torch
 autograd differentiates the loop, as the reference differentiates its
-own.
+own.  DTensor inputs (the partitioned train step) reach either route
+on each rank's local batch rows and heads
+(`distributed.sharding.on_local_heads`).
 
 Decode is a single-query einsum over the cache with float32 scores,
 plain PyTorch: the reference has no kernel there either.
@@ -22,10 +24,12 @@ plain PyTorch: the reference has no kernel there either.
 
 from __future__ import annotations
 
+import functools
 from typing import Tuple, Union
 
 import torch
 
+from repro_torch.distributed import sharding
 from repro_torch.kernels import ops as kernels_ops
 
 NEG_INF = -1e30
@@ -63,6 +67,10 @@ def chunked_attention(
                 f"causal only with Sq == Sk (got Sq={q.shape[2]}, Sk={k.shape[2]}, "
                 f"q_offset={q_offset}, causal={causal})")
         return kernels_ops.attention_op(q, k, v, causal=causal)
+    if sharding.is_dtensor(q):
+        return sharding.on_local_heads(
+            functools.partial(chunked_attention, causal=causal, chunk=chunk,
+                              q_offset=q_offset), q, k, v)
     b, hq, sq, d = q.shape
     hkv, sk = k.shape[1], k.shape[2]
     group = hq // hkv

@@ -9,7 +9,10 @@ reference's remat policies become `torch.utils.checkpoint` around
 a whole block or its two halves (`remat`).  `pin_dp` is the reference's
 sharding hint at the top of every layer loop's body: the identity on a
 plain tensor (every tensor on a mesh of one rank) or without an active
-mesh (`distributed.sharding.maybe_constrain`).
+mesh (`distributed.sharding.maybe_constrain`).  On DTensor leaves (the
+partitioned train step) the same functions run under DTensor dispatch:
+`embed` and `cross_entropy` on a vocabulary sharded over ``model``,
+RoPE's angles replicated on the mesh.
 """
 
 from __future__ import annotations
@@ -21,7 +24,7 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.distributed.sharding import maybe_constrain
+from repro_torch.distributed.sharding import is_dtensor, maybe_constrain, placed_like, unsplit_dim
 
 
 def pin_dp(x: torch.Tensor) -> torch.Tensor:
@@ -76,8 +79,8 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.
     d = x.shape[-1]
     freqs = rope_freqs(d, theta, x.device)                       # (D/2,)
     angles = positions[..., :, None].float() * freqs             # (S, D/2)
-    cos = torch.cos(angles).to(x.dtype)
-    sin = torch.sin(angles).to(x.dtype)
+    cos = placed_like(torch.cos(angles).to(x.dtype), x)
+    sin = placed_like(torch.sin(angles).to(x.dtype), x)
     x1, x2 = x[..., 0::2], x[..., 1::2]
     o1 = x1 * cos - x2 * sin
     o2 = x2 * cos + x1 * sin
@@ -109,6 +112,12 @@ def swiglu(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 def embed(tokens: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
+    """The table's rows at ``tokens``; a DTensor table (its vocabulary
+    sharded over ``model``) is gathered whole first and read through
+    `F.embedding` (the masked partial sum DTensor's rule would give has
+    no way back for its gradient)."""
+    if is_dtensor(table):
+        return F.embedding(tokens.long(), unsplit_dim(table, 0))
     return table[tokens.long()]
 
 
@@ -125,12 +134,18 @@ def cross_entropy(
     masked tokens (the denominator clamped at 1); returns the loss and
     the ``loss`` and ``nll`` metrics.  The label's logit is a gather
     where the reference contracts with a one-hot: the one-hot sum adds
-    exact zeros, so the result is the same."""
+    exact zeros, so the result is the same.  DTensor logits (the
+    vocabulary sharded over ``model``) take the reference's one-hot
+    contraction, whose sum over shards is exact too."""
     lf = logits.float()
     mx = lf.amax(dim=-1, keepdim=True).detach()
     sumexp = torch.exp(lf - mx).sum(dim=-1)
     lse = torch.log(sumexp) + mx[..., 0]
-    ll = torch.gather(lf, -1, labels.long()[..., None])[..., 0]
+    if is_dtensor(lf):
+        vocab = placed_like(torch.arange(lf.shape[-1], device=lf.device), lf)
+        ll = (lf * (labels.long()[..., None] == vocab)).sum(dim=-1)
+    else:
+        ll = torch.gather(lf, -1, labels.long()[..., None])[..., 0]
     nll = lse - ll
     per_tok = nll + z_loss * lse ** 2
     m = torch.ones_like(nll) if mask is None else mask.float()

@@ -21,6 +21,7 @@ from typing import Any, Callable, Dict, List, Tuple
 
 import torch
 
+from repro_torch.distributed.sharding import unsplit_dim
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import layers as L
 from repro_torch.models import moe as moe_lib
@@ -87,14 +88,18 @@ def init_params(cfg, generator: torch.Generator) -> Params:
 # Forward passes
 # ---------------------------------------------------------------------------
 
+def _heads(cfg, t, heads):
+    """(B, S, H·D) -> (B, H, S, D); a DTensor whose columns a mesh dim
+    splits inside a head is made whole there first, so the view lands
+    as head shards or replicated heads."""
+    b, s, _ = t.shape
+    return unsplit_dim(t, -1, heads).reshape(b, s, heads, _head_dim(cfg)).transpose(1, 2)
+
+
 def _qkv(cfg, p, x):
-    hd = _head_dim(cfg)
-    b, s, _ = x.shape
     h = L.rmsnorm(x, p["ln1"])
-    q = (h @ p["wq"]).reshape(b, s, cfg.num_heads, hd).transpose(1, 2)
-    k = (h @ p["wk"]).reshape(b, s, cfg.num_kv_heads, hd).transpose(1, 2)
-    v = (h @ p["wv"]).reshape(b, s, cfg.num_kv_heads, hd).transpose(1, 2)
-    return q, k, v
+    return (_heads(cfg, h @ p["wq"], cfg.num_heads), _heads(cfg, h @ p["wk"], cfg.num_kv_heads),
+            _heads(cfg, h @ p["wv"], cfg.num_kv_heads))
 
 
 def _attn_train(cfg, p, x, positions):

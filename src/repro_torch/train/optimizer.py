@@ -21,6 +21,7 @@ from typing import Any, Dict, List, Tuple
 import torch
 
 from repro_torch.distributed.fault_tolerance import _flatten, _unflatten
+from repro_torch.distributed.sharding import is_dtensor, placed_like, replicate
 
 
 @dataclasses.dataclass(frozen=True)
@@ -63,24 +64,41 @@ def lr_schedule(cfg: OptimizerConfig, step: torch.Tensor) -> torch.Tensor:
     return torch.where(step < cfg.warmup_steps, warm, cos)
 
 
-def adamw_init(params) -> Dict[str, Any]:
+def adamw_init(params, shardings=None) -> Dict[str, Any]:
     """Zero moments, a float32 copy of every parameter, ``count`` 0, on
-    the parameters' devices."""
+    the parameters' devices.  With DTensor parameters and ``shardings``
+    (a parameter-shaped tree of the state's `NamedSharding`s,
+    `distributed.sharding.opt_state_shardings(params, cfg, mesh)`: ZeRO-1)
+    m, v and master are placed by it and ``count`` is replicated; plain
+    parameters (a mesh of one) keep plain state."""
     leaves = tree_leaves(params)
     dev = leaves[0].device if leaves else torch.device("cpu")
+    count = torch.zeros((), dtype=torch.int32, device=dev)
     return {
-        "m": tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32, device=p.device),
-                      params),
-        "v": tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32, device=p.device),
-                      params),
-        "master": tree_map(lambda p: p.detach().to(torch.float32, copy=True), params),
-        "count": torch.zeros((), dtype=torch.int32, device=dev),
+        "m": _placed(lambda p: torch.zeros_like(p, dtype=torch.float32), params, shardings),
+        "v": _placed(lambda p: torch.zeros_like(p, dtype=torch.float32), params, shardings),
+        "master": _placed(lambda p: p.detach().to(torch.float32, copy=True), params,
+                          shardings),
+        "count": placed_like(count, leaves[0]) if leaves else count,
     }
 
 
+def _placed(fn, params, shardings):
+    """``fn`` of every parameter, a DTensor result redistributed to its
+    sharding's placements."""
+    if shardings is None:
+        return tree_map(fn, params)
+    out = [fn(p) for p in tree_leaves(params)]
+    out = [x.redistribute(x.device_mesh, sh.placements()) if is_dtensor(x) else x
+           for x, sh in zip(out, tree_leaves(shardings))]
+    return _unflatten(params, iter(out))
+
+
 def global_norm(tree) -> torch.Tensor:
-    """sqrt of the sum over leaves of each leaf's float32 sum of squares."""
-    sums = [torch.sum(torch.square(g.to(torch.float32))) for g in tree_leaves(tree)]
+    """sqrt of the sum over leaves of each leaf's float32 sum of squares;
+    on DTensor leaves each sum is reduced over its shards, so the norm is
+    one replicated float32 scalar."""
+    sums = [replicate(torch.sum(torch.square(g.to(torch.float32)))) for g in tree_leaves(tree)]
     return torch.sqrt(torch.sum(torch.stack(sums)))
 
 
@@ -89,10 +107,15 @@ def adamw_update(
     cfg: OptimizerConfig, params, grads, state
 ) -> Tuple[Any, Dict[str, Any], Dict[str, torch.Tensor]]:
     """One AdamW step with global-norm clipping: (params, state,
-    {"grad_norm", "lr"}), params and state updated in place."""
+    {"grad_norm", "lr"}), params and state updated in place.  DTensor
+    gradients are first redistributed to their state's placements (a
+    partial sum reduce-scattered into ZeRO-1's shards), and each new
+    master back to its parameter's before the copy."""
     count = state["count"] + 1
     t = count.to(torch.float32)
     lr = lr_schedule(cfg, count)
+    grads = _unflatten(grads, iter([placed_like(g, m) for g, m in zip(
+        tree_leaves(grads), tree_leaves(state["m"]))]))
     gnorm = global_norm(grads)
     scale = torch.clamp(cfg.grad_clip / (gnorm + 1e-9), max=1.0)
     bc1 = 1 - cfg.beta1 ** t
@@ -106,6 +129,6 @@ def adamw_update(
         step = (m / bc1).div_(torch.sqrt(v / bc2).add_(cfg.eps))
         step.add_(cfg.weight_decay * master)
         master.sub_(lr * step)
-        p.copy_(master)
+        p.copy_(placed_like(master, p))
     state = {"m": state["m"], "v": state["v"], "master": state["master"], "count": count}
     return params, state, {"grad_norm": gnorm, "lr": lr}

@@ -10,6 +10,13 @@ number, as the reference's `lax.scan` does; the loss and metrics are
 the microbatches' means.  ``compress_fn`` is the hook between
 accumulation and the optimizer (for instance a closure over
 `distributed.collectives.make_compressed_allreduce`).
+
+The same function is the partitioned step on DTensor parameters and a
+batch placed by `distributed.sharding.place_batch`: every op runs under
+DTensor dispatch, microbatch i holds the global rows the reference's
+reshape gives it (`sharding.batch_rows`), each accumulator sits in its
+parameter's placements, and the optimizer moves each gradient to its
+state's placements.
 """
 
 from __future__ import annotations
@@ -19,6 +26,7 @@ from typing import Callable, Optional
 import torch
 
 from repro_torch.distributed.fault_tolerance import _unflatten
+from repro_torch.distributed.sharding import batch_rows, placed_like, replicate
 from repro_torch.train.optimizer import (
     OptimizerConfig,
     adamw_update,
@@ -30,11 +38,15 @@ from repro_torch.train.optimizer import (
 def loss_and_grads(loss_fn: Callable, params, batch):
     """(loss, metrics, grads) of ``loss_fn(params, batch)``, the
     gradients a tree shaped as ``params`` in their dtypes, everything
-    detached."""
+    detached.  On DTensor parameters the loss and metrics are
+    replicated on the mesh (a partial sum reduced) and each gradient
+    comes in whatever placement its backward gives (a partial sum over
+    the data axis for a replicated weight)."""
     live = [p.detach().requires_grad_(True) for p in tree_leaves(params)]
     loss, metrics = loss_fn(_unflatten(params, iter(live)), batch)
+    loss = replicate(loss)
     grads = torch.autograd.grad(loss, live)
-    metrics = {k: v.detach() for k, v in metrics.items()}
+    metrics = {k: replicate(v.detach()) for k, v in metrics.items()}
     return loss.detach(), metrics, _unflatten(params, iter(grads))
 
 
@@ -56,14 +68,13 @@ def make_train_step(
             if b % microbatches:
                 raise ValueError(f"batch {b} does not split into {microbatches} microbatches")
             n = b // microbatches
-            acc = tree_map(lambda p: torch.zeros(p.shape, dtype=accum_dtype, device=p.device),
-                           params)
+            acc = tree_map(lambda p: torch.zeros_like(p, dtype=accum_dtype), params)
             losses, metricses = [], []
             for i in range(microbatches):
-                mb = {k: x[i * n:(i + 1) * n] for k, x in batch.items()}
+                mb = {k: batch_rows(x, i * n, (i + 1) * n) for k, x in batch.items()}
                 loss, metrics, grads = loss_and_grads(loss_fn, params, mb)
                 for a, g in zip(tree_leaves(acc), tree_leaves(grads)):
-                    a.add_(g.to(accum_dtype))
+                    a.add_(placed_like(g.to(accum_dtype), a))
                 del grads
                 losses.append(loss)
                 metricses.append(metrics)
