@@ -163,6 +163,29 @@ is non-zero:
                loss 1e-5, gradients 1e-4 x max) and through
                `launch.serve`; (e) no plain attention or SDPA over (b)
                and (c);
+  distributed — the mesh, the sharding rules, the int8 all-reduce, the
+               dry run and the partitioned train step, the failover
+               guard after it: (a) `make_host_mesh(1)` (an NCCL world of
+               one) and yi-6b's 8-layer state placed through the rules,
+               every leaf the same card tensor; (b) the int8 all-reduce
+               on a 6.6 GB gradient tree held to its one-rank identities
+               bit for bit; (c) the dry-run cells started after the
+               build, read back; then the partitioned train step on the
+               mesh of one, every parameter and state leaf a DTensor,
+               each part's losses within `PARTITIONED_LOSS_RTOL` of its
+               plain step's (bit equality reported), finite grad norms,
+               exact B9 forward and backward launches and
+               `on_local_heads` / `on_local_groups` calls a step, no
+               plain attention: (d) `lm_train` (c)'s yi-6b model, seed
+               and batches against (c); (e) olmoe-1b-7b at full width
+               cut to 4 layers and (f) llava-next-mistral-7b cut to 8
+               (lm_train's memory cut), 2 x 4,096 tokens (llava's 576
+               of them image patches) in 2 microbatches, each after its
+               plain step on the same model, seed and batches; (g)
+               seamless-m4t-large-v2 at full size on `lm_multimodal`
+               (e)'s model, seed and batch, against its losses, every
+               cross-attention at Sq != Sk on the local heads; (h) the
+               process group destroyed;
   3. main path — `IndexService(strategy="cuda_fused", bloom_fpr=0.01)`
                over gen_maps(n) with a zero payload: every stored key at
                its float32 lower bound, then 300k inserts (values
@@ -2999,7 +3022,8 @@ def _layer0_routing(cfg, params, tokens):
     positions = torch.arange(tokens.shape[1], device=tokens.device)
     x, _ = transformer._attn_train(cfg, p0, layers.embed(tokens, params["embed"]), positions)
     h = layers.rmsnorm(x, p0["ln2"]).reshape(-1, cfg.d_model)
-    return (h, *moe._route(h, p0["router"], cfg.experts_per_token))
+    scores = moe._scores(h, p0["router"])
+    return (h, scores, *moe._gates(scores, cfg.experts_per_token, h.dtype))
 
 
 def moe_dispatch_card_vs_cpu(cfg, params, tokens):
@@ -3066,7 +3090,8 @@ def moe_layer_drops(cfg, params, tokens):
     for p in params["blocks"]:
         x, _ = transformer._attn_train(cfg, p, x, positions)
         h = layers.rmsnorm(x, p["ln2"]).reshape(t, -1)
-        scores, gate, eidx = moe._route(h, p["router"], k)
+        scores = moe._scores(h, p["router"])
+        gate, eidx = moe._gates(scores, k, h.dtype)
         for dispatch in drops:
             sg = moe._dispatch_one_group(h, scores, gate, eidx, num_experts=e,
                                          capacity=capacity, dispatch=dispatch)[3]
@@ -3547,7 +3572,8 @@ def _moe_ffn_vs_float32(cfg, p, x):
                          capacity_factor=cfg.capacity_factor, dispatch=cfg.moe_dispatch)
     ht = h.reshape(-1, cfg.d_model)
     t = ht.shape[0]
-    scores, gate, eidx = moe._route(ht, p["router"], k)
+    scores = moe._scores(ht, p["router"])
+    gate, eidx = moe._gates(scores, k, ht.dtype)
     capacity = max(1, int(t * k / e * cfg.capacity_factor))
     buf, dest, st, sg = moe._dispatch_one_group(ht, scores, gate, eidx, num_experts=e,
                                                 capacity=capacity, dispatch=cfg.moe_dispatch)
@@ -3755,6 +3781,7 @@ VLM_CHECK_TAIL = 8               # text tokens decoded after the shortened promp
 AUDIO_TGT = 256                  # target tokens of seamless's prefill
 AUDIO_CHECK_SEQ = 64             # target tokens fed to sequential decode
 AUDIO_TRAIN_STEPS = 3            # (e): full-width seamless training steps (the first warms up)
+AUDIO_TRAIN_OPT = dict(lr=3e-4, warmup_steps=1, total_steps=8)   # (e), distributed (g)
 AUDIO_GRAD_FRAMES = 96           # (d): the reduced seamless's frames under 64 tokens
 MULTIMODAL_PREFILLS = 2          # prefill calls a model (the first warms up)
 MULTIMODAL_REL_L2 = 1e-2         # bf16 against float32, layer by layer
@@ -4077,6 +4104,21 @@ def run_audio(args, dev, card, rng):
     return out, launches
 
 
+def _audio_train_batch(args, cfg, dev):
+    """`run_audio_train`'s batch (its tokens and frames from one seeded
+    generator), the frames' and the tokens' lengths."""
+    import torch
+    from repro_torch.models import registry
+    src = registry.ENCDEC_DECODE_SRC_LEN if not args.lm_reduced else 96
+    tgt = AUDIO_TGT if not args.lm_reduced else 32
+    rng = np.random.default_rng((args.seed, 11))
+    toks = rng.integers(0, cfg.vocab_size, (LM_BATCH, tgt + 1))
+    batch = {"tokens": torch.as_tensor(toks[:, :-1], dtype=torch.int32, device=dev),
+             "labels": torch.as_tensor(toks[:, 1:], dtype=torch.int32, device=dev),
+             **_modality(cfg, rng, LM_BATCH, src, dev, torch.bfloat16)}
+    return batch, src, tgt
+
+
 def run_audio_train(args, dev, card):
     """(e): one seamless-m4t-large-v2 training step at full width and
     depth (bf16, AdamW, remat as configured) on 2 x (3,072 frames + 256
@@ -4088,35 +4130,24 @@ def run_audio_train(args, dev, card):
     memory."""
     import torch
     from repro_torch.configs import get_arch
-    from repro_torch.models import get_model, registry
+    from repro_torch.models import get_model
     from repro_torch.train.optimizer import OptimizerConfig, adamw_init
     from repro_torch.train.train_step import make_train_step
     cfg = get_arch(AUDIO_ARCH, reduced=args.lm_reduced)
-    src = registry.ENCDEC_DECODE_SRC_LEN if not args.lm_reduced else 96
-    tgt = AUDIO_TGT if not args.lm_reduced else 32
-    b = LM_BATCH
-    rng = np.random.default_rng((args.seed, 11))
     t0 = time.perf_counter()
     api = get_model(cfg, dev)
     params = api.init(torch.Generator(device=dev).manual_seed(args.seed))
     opt = adamw_init(params)
-    step = make_train_step(api.loss, OptimizerConfig(lr=3e-4, warmup_steps=1, total_steps=8))
-    toks = rng.integers(0, cfg.vocab_size, (b, tgt + 1))
-    batch = {"tokens": torch.as_tensor(toks[:, :-1], dtype=torch.int32, device=dev),
-             "labels": torch.as_tensor(toks[:, 1:], dtype=torch.int32, device=dev),
-             **_modality(cfg, rng, b, src, dev, torch.bfloat16)}
+    step = make_train_step(api.loss, OptimizerConfig(**AUDIO_TRAIN_OPT))
+    batch, src, tgt = _audio_train_batch(args, cfg, dev)
+    b = LM_BATCH
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     init_s = time.perf_counter() - t0
-    times, losses, norms = [], [], []
     reset_counts()
-    for _ in range(AUDIO_TRAIN_STEPS):
-        t1 = time.perf_counter()
-        params, opt, metrics = step(params, opt, batch)
-        losses.append(float(metrics["loss"]))
-        norms.append(float(metrics["grad_norm"]))
-        times.append(time.perf_counter() - t1)
+    params, opt, rows = _train_steps(step, params, opt, [batch] * AUDIO_TRAIN_STEPS)
     launches = read_counts()
+    losses, norms, times = ([r[key] for r in rows] for key in ("loss", "grad_norm", "step_s"))
     out = {"arch": cfg.name, "params": _param_count(params), "batch": b, "src_frames": src,
            "tgt_tokens": tgt, "steps": AUDIO_TRAIN_STEPS, "init_s": init_s,
            "step_s": times, "step_median_s": float(np.median(times[1:])), "losses": losses,
@@ -4268,117 +4299,250 @@ def collect_dryruns(procs):
 
 
 PARTITIONED_STEPS = 3            # (d): steps of the partitioned path (the first warms up)
-PARTITIONED_LOSS_RTOL = 2e-3     # (d): losses against lm_train (c)'s, relative
+PARTITIONED_FAMILY_STEPS = 2     # (e)-(g): 2, not 3: the whole run passed 830 s (PERF.md §5)
+PARTITIONED_LOSS_RTOL = 2e-3     # (d)-(g): losses against the plain step's, relative
+PARTITIONED_MOE_LAYERS = 4       # (e): olmoe's 16 cut as lm_train cuts: 20 B a parameter (1.78B)
+PARTITIONED_VLM_LAYERS = 8       # (f): llava's 32, the same cut (1.90B)
+
+
+def _dtensor_state(api, cfg, mesh, dev, seed):
+    """``cfg``'s parameters from ``seed`` and their AdamW state on the
+    mesh of one, every leaf made a DTensor by `distribute_tensor` with
+    its `NamedSharding`'s placements (the package keeps plain tensors on
+    a mesh of one, so the part does it itself)."""
+    import torch
+    from torch.distributed.tensor import distribute_tensor
+    from repro_torch.distributed import sharding as sh
+    from repro_torch.train import adamw_init
+    with sh.use_mesh(mesh):
+        params = api.init(torch.Generator(device=dev).manual_seed(seed))
+        psh = sh.param_shardings(params, cfg, mesh)
+        params = sh.tree_map_with_path(
+            lambda path, x, s: distribute_tensor(x, mesh, s.placements()), params, psh)
+        state = adamw_init(params, sh.opt_state_shardings(params, cfg, mesh))
+    return params, state
+
+
+def _train_steps(step_fn, params, state, batches, before=None):
+    """``step_fn`` over ``batches``: (params, state, [per-step loss,
+    grad norm and wall seconds]); ``before(batch)`` runs ahead of each
+    step, outside its time."""
+    import torch
+    rows = []
+    for batch in batches:
+        if before is not None:
+            before(batch)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, state, metrics = step_fn(params, state, batch)
+        loss = float(metrics["loss"])
+        torch.cuda.synchronize()
+        rows.append({"loss": loss, "grad_norm": float(metrics["grad_norm"]),
+                     "step_s": time.perf_counter() - t0})
+    return params, state, rows
+
+
+def run_plain_steps(dev, cfg, seed, batches, opt, micro):
+    """(e), (f): the plain step (plain card tensors, no mesh) of ``cfg``'s
+    model from ``seed`` over ``batches``: per-step loss and seconds, the
+    warm median, peak memory; the model released after."""
+    import torch
+    from repro_torch.models import get_model
+    from repro_torch.train import OptimizerConfig, adamw_init, make_train_step
+    api = get_model(cfg, dev)
+    params = api.init(torch.Generator(device=dev).manual_seed(seed))
+    state = adamw_init(params)
+    torch.cuda.reset_peak_memory_stats()
+    params, state, rows = _train_steps(
+        make_train_step(api.loss, OptimizerConfig(**opt), microbatches=micro),
+        params, state, batches)
+    out = {"per_step": rows, "step_s_median": float(np.median([r["step_s"]
+                                                               for r in rows[1:] or rows])),
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+    del params, state, api
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def run_partitioned_steps(dev, mesh, cfg, seed, batches, opt, micro, plain):
+    """(d)-(g): ``cfg``'s model from ``seed`` as the partitioned train
+    step on the mesh of one (`_dtensor_state`), each batch placed by
+    `batch_shardings`'s placements, one step a batch through
+    `make_train_step` in ``micro`` microbatches.  Each step's B9
+    launches (forward and backward) and `sharding.on_local_heads` and
+    `on_local_groups` calls are counted against the model's own
+    (`_attention_calls`; the moe family's dispatch and combine a layer),
+    the losses held to ``plain``'s (the plain step on the same model,
+    seed and batches: per-step loss and seconds, warm median, peak
+    memory) within PARTITIONED_LOSS_RTOL, bit equality reported."""
+    import torch
+    from torch.distributed.tensor import distribute_tensor
+    from repro_torch.distributed import sharding as sh
+    from repro_torch.models import get_model
+    from repro_torch.train import OptimizerConfig, make_train_step
+    api = get_model(cfg, dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params, state = _dtensor_state(api, cfg, mesh, dev, seed)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    leaves = sh.tree_leaves_with_path((params, state))
+    dtensors = sum(sh.is_dtensor(x) for _, x in leaves)
+    n_params = _param_count(params)
+
+    calls = {"on_local_heads": 0, "on_local_groups": 0}
+    real = {name: getattr(sh, name) for name in calls}
+
+    def counted(name):
+        def call(*a, **kw):
+            calls[name] += 1
+            return real[name](*a, **kw)
+        return call
+
+    def placed(batch):
+        bsh = sh.batch_shardings(batch, mesh)
+        return {k: distribute_tensor(v, mesh, bsh[k].placements()) for k, v in batch.items()}
+
+    def zero(_):
+        reset_counts()
+        for name in calls:
+            calls[name] = 0
+
+    step_fn = make_train_step(api.loss, OptimizerConfig(**opt), microbatches=micro)
+    rows, counts = [], []
+    torch.cuda.reset_peak_memory_stats()
+    for name in calls:
+        setattr(sh, name, counted(name))
+    try:
+        with count_plain_attention() as plain_calls, sh.use_mesh(mesh):
+            for batch in map(placed, batches):
+                params, state, (row,) = _train_steps(step_fn, params, state, [batch], zero)
+                rows.append(row)
+                counts.append((read_counts(), dict(calls)))
+    finally:
+        for name, fn in real.items():
+            setattr(sh, name, fn)
+    peak = torch.cuda.max_memory_allocated()
+    remat = 2 if cfg.remat else 1
+    per_bwd = _attention_calls(cfg) * micro
+    per_fwd = per_bwd * remat
+    per_groups = 2 * cfg.num_layers * micro * remat if cfg.family == "moe" else 0
+    steps = []
+    for i, (row, (launches, n_calls)) in enumerate(zip(rows, counts)):
+        want = plain["per_step"][i]
+        steps.append({"step": i, **row, "loss_plain": want["loss"],
+                      "loss_rel_err": abs(row["loss"] - want["loss"]) / abs(want["loss"]),
+                      "loss_bits_equal": row["loss"] == want["loss"],
+                      "step_s_plain": want["step_s"],
+                      "attention_launches": launches["flash_attention_cuda"],
+                      "attention_bwd_launches": launches["flash_attention_bwd_cuda"],
+                      "local_heads_calls": n_calls["on_local_heads"],
+                      "local_group_calls": n_calls["on_local_groups"],
+                      "other_launches": sum(v for k, v in launches.items()
+                                            if not k.startswith("flash_attention"))})
+    warm = steps[1:] or steps
+    out = {"arch": cfg.name, "layers": cfg.num_layers, "params": n_params,
+           "global_batch": len(next(iter(batches[0].values()))), "microbatches": micro,
+           "batch_shapes": {k: list(v.shape) for k, v in batches[0].items()},
+           "steps": len(steps), "mesh": dict(zip(mesh.mesh_dim_names, mesh.mesh.shape)),
+           "leaves": len(leaves), "dtensor_leaves": dtensors, "init_s": init_s,
+           "step_s_median": float(np.median([r["step_s"] for r in warm])),
+           "step_s_median_plain": plain["step_s_median"],
+           "peak_mem_gb": peak / 1e9, "peak_mem_gb_plain": plain["peak_mem_gb"],
+           "want_per_step": {"attention": per_fwd, "attention_bwd": per_bwd,
+                             "on_local_heads": per_fwd, "on_local_groups": per_groups},
+           "plain_or_library_attention_calls": plain_calls, "per_step": steps,
+           "launches": {"flash_attention_cuda": sum(r["attention_launches"] for r in steps),
+                        "flash_attention_bwd_cuda": sum(r["attention_bwd_launches"]
+                                                        for r in steps)}}
+    out["step_ratio_to_plain"] = out["step_s_median"] / out["step_s_median_plain"]
+    out["ok"] = (dtensors == len(leaves) and not plain_calls
+                 and len(steps) == len(plain["per_step"])
+                 and all(np.isfinite(r["loss"]) and np.isfinite(r["grad_norm"])
+                         and r["loss_rel_err"] <= PARTITIONED_LOSS_RTOL
+                         and r["attention_launches"] == per_fwd
+                         and r["attention_bwd_launches"] == per_bwd
+                         and r["local_heads_calls"] == per_fwd
+                         and r["local_group_calls"] == per_groups
+                         and r["other_launches"] == 0 for r in steps))
+    del params, state, api
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _pipeline_batches(dev, cfg, seq, steps):
+    """``steps`` batches of TRAIN_BATCH x ``seq`` tokens and labels from
+    the launcher's synthetic corpus, on the card."""
+    import torch
+    from repro_torch.data.pipeline import DataPipeline, make_synthetic_corpus
+    corpus = make_synthetic_corpus(total_tokens=TRAIN_CORPUS_TOKENS,
+                                   vocab_size=cfg.vocab_size, device=dev)
+    pipeline = DataPipeline(corpus, global_batch=TRAIN_BATCH, seq_len=seq)
+    return [{k: torch.as_tensor(v, device=dev) for k, v in pipeline.batch_at(step).items()}
+            for step in range(steps)]
 
 
 def run_partitioned_step(args, dev, mesh, trained):
     """(d): lm_train (c)'s model (yi-6b at full width cut to TRAIN_LAYERS,
     the same seed) and batches as the partitioned train step on the mesh
-    of one: every parameter and optimizer leaf made a DTensor by
-    `distribute_tensor` with its `NamedSharding`'s placements (the
-    package keeps plain tensors on a mesh of one, so this part does it
-    itself), each batch by `batch_shardings`'s, then PARTITIONED_STEPS
-    steps of TRAIN_BATCH x TRAIN_SEQ in TRAIN_MICRO microbatches through
-    `make_train_step`.  Each step's B9 launches (forward and backward)
-    and `sharding.on_local_heads` calls are counted; the losses are held
-    to (c)'s first ones (``trained``: its per-step rows) within
-    PARTITIONED_LOSS_RTOL, bit equality reported."""
+    of one (`run_partitioned_steps`), PARTITIONED_STEPS steps of
+    TRAIN_BATCH x TRAIN_SEQ in TRAIN_MICRO microbatches, held to (c)'s
+    first ones (``trained``: its per-step rows)."""
     import dataclasses
-    import torch
-    from torch.distributed.tensor import distribute_tensor
     from repro_torch.configs import get_arch
-    from repro_torch.data.pipeline import DataPipeline, make_synthetic_corpus
-    from repro_torch.distributed import sharding as sh
-    from repro_torch.models import get_model
-    from repro_torch.train import OptimizerConfig, adamw_init, make_train_step
     full = get_arch(LM_ARCH, reduced=args.lm_reduced)
     cfg = dataclasses.replace(full, num_layers=min(TRAIN_LAYERS, full.num_layers))
     seq = TRAIN_SEQ if not args.lm_reduced else 64
-    api = get_model(cfg, dev)
-    torch.cuda.synchronize()
+    batches = _pipeline_batches(dev, cfg, seq, PARTITIONED_STEPS)
+    plain = {**trained, "per_step": trained["per_step"][:PARTITIONED_STEPS]}
+    return {**run_partitioned_steps(dev, mesh, cfg, args.seed, batches, TRAIN_OPT,
+                                    TRAIN_MICRO, plain), "seq": seq}
+
+
+def run_partitioned_family(args, dev, mesh, arch, layers):
+    """(e), (f): ``arch`` at full width cut to ``layers`` (lm_train's
+    memory-driven cut), the plain step first (`run_plain_steps`), then
+    the partitioned one on the same model, seed and batches:
+    PARTITIONED_FAMILY_STEPS steps of TRAIN_BATCH x TRAIN_SEQ tokens (for the
+    vlm family TRAIN_SEQ less its image tokens, each batch with
+    `_modality`'s patches) in TRAIN_MICRO microbatches."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_arch
+    full = get_arch(arch, reduced=args.lm_reduced)
+    cfg = dataclasses.replace(full, num_layers=min(layers, full.num_layers))
+    seq = (TRAIN_SEQ if not args.lm_reduced else 64) - (
+        cfg.frontend_tokens if cfg.family == "vlm" else 0)
+    rng = np.random.default_rng((args.seed, 12))
+    batches = [{**b, **_modality(cfg, rng, TRAIN_BATCH, seq, dev, torch.bfloat16)}
+               for b in _pipeline_batches(dev, cfg, seq, PARTITIONED_FAMILY_STEPS)]
     t0 = time.perf_counter()
-    with sh.use_mesh(mesh):
-        params = api.init(torch.Generator(device=dev).manual_seed(args.seed))
-        psh = sh.param_shardings(params, cfg, mesh)
-        params = sh.tree_map_with_path(
-            lambda path, x, s: distribute_tensor(x, mesh, s.placements()), params, psh)
-        state = adamw_init(params, sh.opt_state_shardings(params, cfg, mesh))
-    corpus = make_synthetic_corpus(total_tokens=TRAIN_CORPUS_TOKENS,
-                                   vocab_size=cfg.vocab_size, device=dev)
-    pipeline = DataPipeline(corpus, global_batch=TRAIN_BATCH, seq_len=seq)
-    torch.cuda.synchronize()
-    init_s = time.perf_counter() - t0
-    leaves = sh.tree_leaves_with_path((params, state))
-    dtensors = sum(sh.is_dtensor(x) for _, x in leaves)
+    plain = run_plain_steps(dev, cfg, args.seed, batches, TRAIN_OPT, TRAIN_MICRO)
+    plain_s = time.perf_counter() - t0
+    out = run_partitioned_steps(dev, mesh, cfg, args.seed, batches, TRAIN_OPT, TRAIN_MICRO,
+                                plain)
+    return {**out, "text_seq": seq, "plain_s": plain_s,
+            "cut": f"{cfg.num_layers} of {full.num_layers} layers: AdamW's 20 B a parameter"}
 
-    local_calls = [0]
-    real_local = sh.on_local_heads
 
-    def counted(*a, **kw):
-        local_calls[0] += 1
-        return real_local(*a, **kw)
-
-    step_fn = make_train_step(api.loss, OptimizerConfig(**TRAIN_OPT), microbatches=TRAIN_MICRO)
-    steps = []
-    torch.cuda.reset_peak_memory_stats()
-    sh.on_local_heads = counted
-    try:
-        with count_plain_attention() as plain_calls, sh.use_mesh(mesh):
-            for step in range(PARTITIONED_STEPS):
-                batch = {k: torch.as_tensor(v, device=dev)
-                         for k, v in pipeline.batch_at(step).items()}
-                bsh = sh.batch_shardings(batch, mesh)
-                batch = {k: distribute_tensor(v, mesh, bsh[k].placements())
-                         for k, v in batch.items()}
-                reset_counts()
-                local_calls[0] = 0
-                torch.cuda.synchronize()
-                t1 = time.perf_counter()
-                params, state, metrics = step_fn(params, state, batch)
-                loss = float(metrics["loss"])
-                torch.cuda.synchronize()
-                wall = time.perf_counter() - t1
-                launches = read_counts()
-                want = trained["per_step"][step]["loss"]
-                steps.append({"step": step, "loss": loss, "loss_c": want,
-                              "loss_rel_err": abs(loss - want) / abs(want),
-                              "loss_bits_equal": loss == want,
-                              "grad_norm": float(metrics["grad_norm"]), "step_s": wall,
-                              "step_s_c": trained["per_step"][step]["step_s"],
-                              "attention_launches": launches["flash_attention_cuda"],
-                              "attention_bwd_launches": launches["flash_attention_bwd_cuda"],
-                              "local_map_calls": local_calls[0],
-                              "other_launches": sum(v for k, v in launches.items()
-                                                    if not k.startswith("flash_attention"))})
-    finally:
-        sh.on_local_heads = real_local
-    peak = torch.cuda.max_memory_allocated()
-    per_fwd = cfg.num_layers * TRAIN_MICRO * 2
-    per_bwd = cfg.num_layers * TRAIN_MICRO
-    warm = steps[1:] or steps
-    out = {"arch": cfg.name, "layers": cfg.num_layers, "seq": seq,
-           "global_batch": TRAIN_BATCH, "microbatches": TRAIN_MICRO,
-           "steps": PARTITIONED_STEPS, "mesh": dict(zip(mesh.mesh_dim_names, mesh.mesh.shape)),
-           "leaves": len(leaves), "dtensor_leaves": dtensors, "init_s": init_s,
-           "step_s_median": float(np.median([r["step_s"] for r in warm])),
-           "step_s_median_c": trained["step_s_median"],
-           "peak_mem_gb": peak / 1e9, "peak_mem_gb_c": trained["peak_mem_gb"],
-           "plain_or_library_attention_calls": plain_calls, "per_step": steps,
-           "launches": {"flash_attention_cuda": sum(r["attention_launches"] for r in steps),
-                        "flash_attention_bwd_cuda": sum(r["attention_bwd_launches"]
-                                                        for r in steps)}}
-    out["step_ratio_to_c"] = out["step_s_median"] / out["step_s_median_c"]
-    out["ok"] = (dtensors == len(leaves) and not plain_calls
-                 and all(np.isfinite(r["loss"]) and np.isfinite(r["grad_norm"])
-                         and r["loss_rel_err"] <= PARTITIONED_LOSS_RTOL
-                         and r["attention_launches"] == per_fwd
-                         and r["attention_bwd_launches"] == per_bwd
-                         and r["local_map_calls"] == per_fwd and r["other_launches"] == 0
-                         for r in steps))
-    del params, state, api, corpus, pipeline
-    gc.collect()
-    torch.cuda.empty_cache()
-    return out
+def run_partitioned_audio(args, dev, mesh, audio_train):
+    """(g): `run_audio_train`'s model (seamless-m4t-large-v2 at full width
+    and depth), seed, batch and optimizer as the partitioned step,
+    PARTITIONED_FAMILY_STEPS steps, held to that run's first losses
+    (``audio_train``); every cross-attention at Sq != Sk on the local
+    heads."""
+    from repro_torch.configs import get_arch
+    cfg = get_arch(AUDIO_ARCH, reduced=args.lm_reduced)
+    batch, src, tgt = _audio_train_batch(args, cfg, dev)
+    plain = {"per_step": [{"loss": l, "step_s": t} for l, t in zip(
+        audio_train["losses"], audio_train["step_s"])][:PARTITIONED_FAMILY_STEPS],
+             "step_s_median": audio_train["step_median_s"],
+             "peak_mem_gb": audio_train["peak_mem_gb"]}
+    out = run_partitioned_steps(dev, mesh, cfg, args.seed, [batch] * PARTITIONED_FAMILY_STEPS,
+                                AUDIO_TRAIN_OPT, 1, plain)
+    return {**out, "src_frames": src, "tgt_tokens": tgt}
 
 
 def _bits_equal(a, b) -> bool:
@@ -4387,7 +4551,7 @@ def _bits_equal(a, b) -> bool:
     return torch.equal(a.view(torch.int32), b.view(torch.int32))
 
 
-def run_distributed(args, dev, card, dryruns, trained):
+def run_distributed(args, dev, card, dryruns, trained, audio_train):
     """The distributed phase, the failover guard after it: (a)
     `make_host_mesh(1)` on the card (an NCCL world of one) and yi-6b's
     full-width training state cut to TRAIN_LAYERS layers (the cut of
@@ -4402,8 +4566,12 @@ def run_distributed(args, dev, card, dryruns, trained):
     output and the residual at the memory rate; (c) the dry-run cells
     started at the top of `main`, each ``ok`` with its per-device
     argument bytes under the card's; (d) `run_partitioned_step` on the
-    mesh against ``trained`` (lm_train (c)'s result); (e) the process
-    group destroyed."""
+    mesh against ``trained`` (lm_train (c)'s result); (e) olmoe-1b-7b
+    and (f) llava-next-mistral-7b at full width cut in depth
+    (`run_partitioned_family`), each against its own plain step; (g)
+    seamless-m4t-large-v2 at full size against ``audio_train``
+    (lm_multimodal (e)'s result, `run_partitioned_audio`); (h) the
+    process group destroyed."""
     import dataclasses
     import torch
     import torch.distributed as dist
@@ -4497,19 +4665,31 @@ def run_distributed(args, dev, card, dryruns, trained):
     check(all(c["status"] == "ok" and c["rc"] == 0 and c["fits_card"] for c in cells),
           f"distributed (c): the dry-run cells: {cells}")
 
-    t0 = time.perf_counter()
-    parts["d"] = run_partitioned_step(args, dev, mesh, trained)
-    parts["d"]["seconds"] = time.perf_counter() - t0
-    emit({"phase": "distributed", "part": "d_partitioned_step", "card": card, **parts["d"]})
-    check(parts["d"]["ok"], f"distributed (d): the partitioned step on the mesh: {parts['d']}")
+    partitioned = (
+        ("d", "d_partitioned_step", lambda: run_partitioned_step(args, dev, mesh, trained)),
+        ("e", "e_partitioned_moe", lambda: run_partitioned_family(
+            args, dev, mesh, MOE_ARCH, PARTITIONED_MOE_LAYERS)),
+        ("f", "f_partitioned_vlm", lambda: run_partitioned_family(
+            args, dev, mesh, VLM_ARCH, PARTITIONED_VLM_LAYERS)),
+        ("g", "g_partitioned_audio", lambda: run_partitioned_audio(
+            args, dev, mesh, audio_train)))
+    for name, label, run in partitioned:
+        t0 = time.perf_counter()
+        parts[name] = run()
+        parts[name]["seconds"] = time.perf_counter() - t0
+        emit({"phase": "distributed", "part": label, "card": card, **parts[name]})
+        check(parts[name]["ok"],
+              f"distributed ({name}): the partitioned step on the mesh: {parts[name]}")
 
     dist.destroy_process_group()
-    parts["e"] = {"group_destroyed": not dist.is_initialized(), "seconds": 0.0}
-    check(parts["e"]["group_destroyed"], "distributed (e): the process group outlived the phase")
+    parts["h"] = {"group_destroyed": not dist.is_initialized(), "seconds": 0.0}
+    check(parts["h"]["group_destroyed"], "distributed (h): the process group outlived the phase")
     seconds = time.perf_counter() - t_phase
     emit({"phase": "distributed", "part": "all", "card": card, "seconds": seconds,
           "parts_s": {n: p["seconds"] for n, p in parts.items()}})
-    return {"parts": parts, "seconds": seconds, "launches": parts["d"]["launches"]}
+    launches = {k: sum(parts[n]["launches"][k] for n, _, _ in partitioned)
+                for k in ("flash_attention_cuda", "flash_attention_bwd_cuda")}
+    return {"parts": parts, "seconds": seconds, "launches": launches}
 
 
 def reset_counts():
@@ -5539,7 +5719,8 @@ def main(argv=None) -> int:
 
     # ---- the mesh, the sharding rules, the int8 all-reduce, the dry run ----
     guard = start_failover_guard()
-    distributed = run_distributed(args, dev, card, dryruns, trained["full"])
+    distributed = run_distributed(args, dev, card, dryruns, trained["full"],
+                                  multimodal["parts"]["e"])
     failover_guard("distributed", guard)
     gc.collect()
     torch.cuda.empty_cache()

@@ -36,9 +36,10 @@ The partitioned train step is the one-rank step run under DTensor
 dispatch on those leaves (the port's twin of GSPMD): `place_batch` and
 `batch_rows` place a batch and its microbatches, `placed_like`,
 `replicate` and `unsplit_dim` join plain tensors, partial sums and
-head views to the DTensor ops, and `on_local_heads` hands a kernel (or
+head views to the DTensor ops, `on_local_heads` hands a kernel (or
 the CPU's plain attention) each rank's local batch rows and heads
-(`head_sharding`) through `local_map`.
+(`head_sharding`) through `local_map`, and `on_local_groups` hands the
+MoE's integer routing each rank's own token groups the same way.
 """
 
 from __future__ import annotations
@@ -107,6 +108,12 @@ class _Axes:
 
 def _axes(mesh):
     return mesh if isinstance(getattr(mesh, "shape", None), dict) else _Axes(mesh)
+
+
+def axis_sizes(mesh) -> dict:
+    """Each mesh dim's name and size, of a `DeviceMesh` or of a
+    duck-typed mesh with a ``shape`` dict."""
+    return dict(_axes(mesh).shape)
 
 
 def _axis_size(mesh, name: str) -> int:
@@ -460,18 +467,20 @@ def replicate(x):
 
 def placed_like(x, like):
     """``x`` redistributed to ``like``'s placements when both are
-    DTensors; a plain tensor ``x`` beside a DTensor ``like`` becomes a
-    DTensor replicated on its mesh (a constant such as RoPE's angles);
-    otherwise ``x`` unchanged."""
+    DTensors, a partial sum there taken as replicated (nothing is
+    redistributed to a partial sum); a plain tensor ``x`` beside a
+    DTensor ``like`` becomes a DTensor replicated on its mesh (a
+    constant such as RoPE's angles); otherwise ``x`` unchanged."""
     if not is_dtensor(like):
         return x
     from torch.distributed.tensor import DTensor, Replicate
     mesh = like.device_mesh
     if not is_dtensor(x):
         return DTensor.from_local(x, mesh, (Replicate(),) * mesh.ndim, run_check=False)
-    if tuple(x.placements) == tuple(like.placements):
+    placements = tuple(Replicate() if p.is_partial() else p for p in like.placements)
+    if tuple(x.placements) == placements:
         return x
-    return x.redistribute(mesh, like.placements)
+    return x.redistribute(mesh, placements)
 
 
 def place_batch(batch, mesh):
@@ -524,6 +533,28 @@ def unsplit_dim(x, dim: int, heads: int = 1):
     return x.redistribute(mesh, placements)
 
 
+class _ContiguousGrad(torch.autograd.Function):
+    """The identity, its gradient made contiguous: DTensor's view rules
+    read a local block by the global tensor's layout, so a gradient that
+    leaves `local_map` as a strided block (a transposed product's, as the
+    cross-attention's keys get on the host) must be laid out whole."""
+
+    @staticmethod
+    def forward(ctx, x):
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.contiguous()
+
+
+def with_contiguous_grads(fn):
+    """``fn`` whose inputs' gradients come back contiguous: the host's
+    plain attention under `on_local_heads` (the kernels' backward
+    returns contiguous gradients already)."""
+    return lambda *xs: fn(*(_ContiguousGrad.apply(x) for x in xs))
+
+
 def on_local_heads(fn, q, k, v):
     """``fn(q, k, v)`` on each rank's local blocks of DTensors ``q`` (B,
     Hq, Sq, D) and ``k``, ``v`` (B, Hkv, Sk, D), through `local_map`:
@@ -556,6 +587,33 @@ def on_local_heads(fn, q, k, v):
     qp, kp = list(qs.placements()), list(ks.placements())
     return local_map(fn, out_placements=qp, in_placements=(qp, kp, kp),
                      device_mesh=mesh)(q, k, v)
+
+
+def on_local_groups(fn, *xs, outputs: int = 1):
+    """``fn(*xs)`` on each rank's local groups: ``xs`` are DTensors of
+    one group count G on one mesh, each placed as `maybe_constrain(x,
+    "dp", None, ...)` places it (G over the dp axes, replicated where G
+    does not divide them and over ``model``), and ``fn`` returns
+    ``outputs`` tensors whose dim 0 is the same local groups, wrapped as
+    DTensors placed alike.  Every model rank of a data shard computes
+    the same blocks, so ``fn`` must be deterministic; the gradients flow
+    back to the inputs in their own placements.  Plain tensors call
+    ``fn`` directly; any other input raises."""
+    if not any(is_dtensor(x) for x in xs):
+        return fn(*xs)
+    from torch.distributed.tensor.experimental import local_map
+    mesh = xs[0].device_mesh if is_dtensor(xs[0]) else None
+    want = None if mesh is None else NamedSharding(mesh, _constrain_spec(
+        xs[0].shape, _axes(mesh).shape, ("dp",) + (None,) * (xs[0].ndim - 1))).placements()
+    for x in xs:
+        if not (is_dtensor(x) and x.device_mesh == mesh and x.shape[0] == xs[0].shape[0]
+                and tuple(x.placements) == want):
+            raise ValueError("on_local_groups takes DTensors of one group count on one mesh, "
+                             "the groups over the dp axes")
+    # lists: local_map reads a tuple of placements as one entry an output
+    out = list(want) if outputs == 1 else tuple(list(want) for _ in range(outputs))
+    return local_map(fn, out_placements=out, in_placements=tuple(list(want) for _ in xs),
+                     device_mesh=mesh)(*xs)
 
 
 # --- learned-index shard placement -----------------------------------------

@@ -68,9 +68,9 @@ def chunked_attention(
                 f"q_offset={q_offset}, causal={causal})")
         return kernels_ops.attention_op(q, k, v, causal=causal)
     if sharding.is_dtensor(q):
-        return sharding.on_local_heads(
+        return sharding.on_local_heads(sharding.with_contiguous_grads(
             functools.partial(chunked_attention, causal=causal, chunk=chunk,
-                              q_offset=q_offset), q, k, v)
+                              q_offset=q_offset)), q, k, v)
     b, hq, sq, d = q.shape
     hkv, sk = k.shape[1], k.shape[2]
     group = hq // hkv

@@ -26,6 +26,7 @@ import torch
 
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import layers as L
+from repro_torch.models import transformer as T
 
 Params = Dict[str, Any]
 
@@ -102,9 +103,9 @@ def init_params(cfg, generator: torch.Generator) -> Params:
 # ---------------------------------------------------------------------------
 
 def _heads(cfg, x: torch.Tensor, w: torch.Tensor, heads: int) -> torch.Tensor:
-    """(B, S, D) @ w -> (B, heads, S, hd)."""
-    b, s, _ = x.shape
-    return (x @ w).reshape(b, s, heads, _hd(cfg)).transpose(1, 2)
+    """(B, S, D) @ w -> (B, heads, S, hd), split as the transformer splits
+    its heads (a DTensor column split inside a head made whole first)."""
+    return T._heads(cfg, x @ w, heads)
 
 
 def _self_attn(cfg, p, x, positions, causal: bool, prefix: str = ""):

@@ -16,8 +16,15 @@ follow arrival order; the port forms the same key and mirrors it
 Expert compute is a dense batched product over (G, E, C, D) buffers.
 The group axis G is the reference's one group per data-parallel shard
 of the active mesh (`distributed.sharding.use_mesh`); without one it is
-1, and on plain tensors the reference's four sharding constraints
-(`maybe_constrain`) are the identity.
+1, and on plain tensors the reference's sharding constraints
+(`maybe_constrain`) are the identity.  On DTensors (the partitioned
+train step) they redistribute: each rank routes, dispatches and
+combines its own data shard's group (`sharding.on_local_groups`, the
+same integer routing on every model rank), the buffers go to experts
+over ``model`` (a local slice), the expert products contract them with
+the E-sharded expert leaves without a collective, and the expert rows
+are gathered over ``model`` again for the combine.  The aux loss and
+the drop fraction are global means, replicated.
 
 Every step is deterministic on the card, so a repeat, and the recompute
 under `torch.utils.checkpoint`, routes the same way: stable sorts, a
@@ -31,13 +38,21 @@ Nothing here reads a value back to the host.
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Dict, Tuple
 
 import torch
 import torch.nn.functional as F
 
-from repro_torch.distributed.sharding import active_mesh, maybe_constrain
+from repro_torch.distributed import sharding
+from repro_torch.distributed.sharding import (
+    active_mesh,
+    axis_sizes,
+    maybe_constrain,
+    placed_like,
+    replicate,
+)
 
 
 def moe_router_init(generator: torch.Generator, d_model: int, num_experts: int,
@@ -138,14 +153,14 @@ def cdf_dispatch_slots(
 def _num_dispatch_groups(t: int) -> int:
     """Group-local dispatch: one group per data-parallel shard, the
     product of the active mesh's pod and data dims (1 when no mesh is
-    active, or when they do not divide the tokens)."""
+    active, or when they do not divide the tokens).  The mesh is a
+    `DeviceMesh` or a duck-typed one with a ``shape`` dict, as the
+    sharding rules read it."""
     m = active_mesh()
     if m is None:
         return 1
-    g = 1
-    for ax, size in zip(m.mesh_dim_names, m.mesh.shape):
-        if ax in ("pod", "data"):
-            g *= size
+    sizes = axis_sizes(m)
+    g = math.prod(sizes.get(ax, 1) for ax in ("pod", "data"))
     return g if t % g == 0 else 1
 
 
@@ -172,14 +187,18 @@ def _dispatch_one_group(xt, scores, gate, eidx, *, num_experts, capacity, dispat
     return buffers.reshape(e, capacity, d), dest, flat_tok, gate.reshape(-1) * keep
 
 
-def _route(xt: torch.Tensor, router_w: torch.Tensor, k: int):
-    """(float32 softmax scores (T, E), gate (T, K) renormalised and cast
-    to the tokens' dtype, expert ids (T, K))."""
-    scores = torch.softmax((xt @ router_w).to(torch.float32), dim=-1)
+def _scores(xt: torch.Tensor, router_w: torch.Tensor) -> torch.Tensor:
+    """(T, E) float32 softmax router scores of tokens ``xt`` (T, D)."""
+    return torch.softmax((xt @ router_w).to(torch.float32), dim=-1)
+
+
+def _gates(scores: torch.Tensor, k: int, dtype: torch.dtype):
+    """(gate (T, K) renormalised and cast to ``dtype``, expert ids (T, K))
+    of each row of ``scores``."""
     gate, eidx = _top_k(scores, k)
     gate = gate / torch.clamp(gate.sum(-1, keepdim=True), min=1e-9)
     # the token<->expert exchange rides the tokens' dtype, as in the reference
-    return scores, gate.to(xt.dtype), eidx
+    return gate.to(dtype), eidx
 
 
 def _experts(buffers, w_gate, w_up, w_down) -> torch.Tensor:
@@ -203,6 +222,29 @@ def _combine_one(y: torch.Tensor, dest, st, sg, tokens: int) -> torch.Tensor:
     return out
 
 
+def _dispatch_groups(xg, scores, *, k, num_experts, capacity, dispatch):
+    """Each group's routing and dispatch: tokens ``xg`` (G, Tg, D) and
+    their ``scores`` (G, Tg, E) -> (buffers (G, E, C, D), dest, st, sg
+    (G, Tg·K), each expert's top-1 count (G, E) in float32)."""
+    out = []
+    for xx, ss in zip(xg, scores):
+        gate, eidx = _gates(ss, k, xx.dtype)
+        top1 = eidx[:, 0]
+        counts = torch.zeros(num_experts, dtype=torch.float32, device=xx.device).scatter_add_(
+            0, top1, torch.ones_like(top1, dtype=torch.float32))
+        out.append((*_dispatch_one_group(xx, ss, gate, eidx, num_experts=num_experts,
+                                         capacity=capacity, dispatch=dispatch), counts))
+    return tuple(torch.stack(column) for column in zip(*out))
+
+
+def _combine_groups(y, dest, st, sg, *, tokens):
+    """Each group's combine: expert rows ``y`` (G, E, C, D) -> (G, tokens,
+    D)."""
+    _, e, c, d = y.shape
+    return torch.stack([_combine_one(yy.reshape(e * c, d), dd, tt, ss, tokens)
+                        for yy, dd, tt, ss in zip(y, dest, st, sg)])
+
+
 def moe_ffn(
     x: torch.Tensor,         # (B, S, D)
     router_w: torch.Tensor,  # (D, E)
@@ -221,39 +263,38 @@ def moe_ffn(
     k = experts_per_token
     t = b * s
     xt = x.reshape(t, d)
-    scores, gate, eidx = _route(xt, router_w, k)
+    scores = _scores(xt, router_w)
 
     groups = _num_dispatch_groups(t)
     tg = t // groups
     capacity = max(1, int(tg * k / e * capacity_factor))
 
     xg = maybe_constrain(xt.reshape(groups, tg, d), "dp", None, None)
-    dispatched = [
-        _dispatch_one_group(xx, ss, gg, ee, num_experts=e, capacity=capacity,
-                            dispatch=dispatch)
-        for xx, ss, gg, ee in zip(xg, scores.reshape(groups, tg, e),
-                                  gate.reshape(groups, tg, k), eidx.reshape(groups, tg, k))
-    ]
+    buffers, dest, st, sg, top1_counts = sharding.on_local_groups(
+        functools.partial(_dispatch_groups, k=k, num_experts=e, capacity=capacity,
+                          dispatch=dispatch),
+        xg, maybe_constrain(scores.reshape(groups, tg, e), "dp", None, None), outputs=5)
     # buffers (G, E, C, D): groups over dp, experts over model (EP)
-    buffers = maybe_constrain(torch.stack([g[0] for g in dispatched]), "dp", "tp", None, None)
+    buffers = maybe_constrain(buffers, "dp", "tp", None, None)
 
     y = maybe_constrain(_experts(buffers, w_gate, w_up, w_down), "dp", "tp", None, None)
 
-    # ---- combine (per group) ------------------------------------------
-    out = maybe_constrain(torch.stack([
-        _combine_one(yy.reshape(e * capacity, d), dest, st, sg, tg)
-        for yy, (_, dest, st, sg) in zip(y, dispatched)
-    ]), "dp", None, None).reshape(t, d)
+    # ---- combine (per group), on every expert's rows ------------------
+    y = maybe_constrain(y, "dp", None, None, None)
+    out = maybe_constrain(sharding.on_local_groups(
+        functools.partial(_combine_groups, tokens=tg), y, dest, st, sg),
+        "dp", None, None).reshape(t, d)
+    # back in the tokens' own placement (groups over data can split the
+    # batch rows where they cannot: 2 rows over 4 data ranks)
+    out = placed_like(out, xt)
 
-    # aux: load-balance loss (Switch-style, top-1 density) + drop fraction
-    top1 = eidx[:, 0]
-    density = torch.zeros(e, dtype=torch.float32, device=x.device).scatter_add_(
-        0, top1, torch.ones_like(top1, dtype=torch.float32)) / t
+    # aux: load-balance loss (Switch-style, top-1 density) + drop fraction,
+    # global means
+    density = top1_counts.sum(dim=0) / t
     router_prob = scores.mean(dim=0)
     aux_loss = e * torch.sum(density * router_prob)
-    sgate = torch.cat([sg for (_, _, _, sg) in dispatched])
-    dropped = 1.0 - (sgate > 0).to(torch.float32).mean()
+    dropped = 1.0 - (sg > 0).to(torch.float32).mean()
     return out.reshape(b, s, d).to(x.dtype), {
-        "moe_aux_loss": aux_loss,
-        "moe_drop_frac": dropped,
+        "moe_aux_loss": replicate(aux_loss),
+        "moe_drop_frac": replicate(dropped),
     }

@@ -24,6 +24,7 @@ from typing import Any, Dict, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed.sharding import placed_like
 from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
 
@@ -57,10 +58,10 @@ def _project(params: Params, patches: torch.Tensor) -> torch.Tensor:
 
 
 def _sequence(params: Params, tokens: torch.Tensor, patches: torch.Tensor) -> torch.Tensor:
-    """[image ; text] embeddings, (B, T_img + S_text, D)."""
-    img = _project(params, patches)
+    """[image ; text] embeddings, (B, T_img + S_text, D); on DTensors the
+    image half is placed as the text half before they are joined."""
     txt = L.embed(tokens, params["embed"])
-    return torch.cat([img, txt], dim=1)
+    return torch.cat([placed_like(_project(params, patches), txt), txt], dim=1)
 
 
 def forward_train(cfg, params: Params, tokens: torch.Tensor,

@@ -512,7 +512,8 @@ def test_moe_ffn_on_card_repeats_bit_for_bit(dispatch):
     assert torch.equal(y1, y2)
     assert all(torch.equal(a1[n], a2[n]) for n in a1)
     xt = x.reshape(-1, d)
-    scores, gate, eidx = moe._route(xt, ws[0], 4)
+    scores = moe._scores(xt, ws[0])
+    gate, eidx = moe._gates(scores, 4, xt.dtype)
     capacity = max(1, int(xt.shape[0] * 4 / e * 1.25))
     buf, dest, st, sg = moe._dispatch_one_group(xt, scores, gate, eidx, num_experts=e,
                                                 capacity=capacity, dispatch=dispatch)
