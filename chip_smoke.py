@@ -175,7 +175,8 @@ is non-zero:
                each part's losses within `PARTITIONED_LOSS_RTOL` of its
                plain step's (bit equality reported), finite grad norms,
                exact B9 forward and backward launches and
-               `on_local_heads` / `on_local_groups` calls a step, no
+               `on_local_heads` / `on_local_groups` / `on_local_blocks`
+               calls a step, no
                plain attention: (d) `lm_train` (c)'s yi-6b model, seed
                and batches against (c); (e) olmoe-1b-7b at full width
                cut to 4 layers and (f) llava-next-mistral-7b cut to 8
@@ -184,7 +185,17 @@ is non-zero:
                plain step on the same model, seed and batches; (g)
                seamless-m4t-large-v2 at full size on `lm_multimodal`
                (e)'s model, seed and batch, against its losses, every
-               cross-attention at Sq != Sk on the local heads; (h) the
+               cross-attention at Sq != Sk on the local heads; (h)
+               xlstm-1.3b at full width cut to one superblock (7 mLSTM +
+               1 sLSTM), 2 x 512 tokens in one microbatch, after its
+               plain step, every scan on local blocks
+               (`on_local_blocks` calls counted); (i)
+               jamba-1.5-large-398b's Mamba mixer at the published width
+               on 2 x 4,096 tokens, forward and backward, partitioned
+               against plain (outputs and gradients within 2e-2 x max,
+               bit equality reported), then the reduced jamba's whole
+               partitioned step against its plain step (Mamba scans,
+               B9 on local heads, the MoE on local groups); (j) the
                process group destroyed;
   3. main path — `IndexService(strategy="cuda_fused", bloom_fpr=0.01)`
                over gen_maps(n) with a zero payload: every stored key at
@@ -4299,10 +4310,17 @@ def collect_dryruns(procs):
 
 
 PARTITIONED_STEPS = 3            # (d): steps of the partitioned path (the first warms up)
-PARTITIONED_FAMILY_STEPS = 2     # (e)-(g): 2, not 3: the whole run passed 830 s (PERF.md §5)
-PARTITIONED_LOSS_RTOL = 2e-3     # (d)-(g): losses against the plain step's, relative
+PARTITIONED_FAMILY_STEPS = 2     # (e)-(i): 2, not 3: the whole run passed 830 s (PERF.md §5)
+PARTITIONED_LOSS_RTOL = 2e-3     # (d)-(i): losses against the plain step's, relative
 PARTITIONED_MOE_LAYERS = 4       # (e): olmoe's 16 cut as lm_train cuts: 20 B a parameter (1.78B)
 PARTITIONED_VLM_LAYERS = 8       # (f): llava's 32, the same cut (1.90B)
+# (h): xlstm-1.3b's 48 layers cut to one superblock (7 mLSTM + 1 sLSTM,
+# 0.38B) for time, not memory: its scans are launch-bound Python loops,
+# so one microbatch of 2 x 512 tokens (two scan chunks)
+PARTITIONED_SSM_LAYERS = 8
+PARTITIONED_SSM_SEQ = 512
+PARTITIONED_HYBRID_SEQ = 512     # (i): the reduced jamba's step, 2 x 512 in 2 microbatches
+PARTITIONED_MIXER_TOL = 2e-2     # (i): the Mamba mixer's bf16 outputs and gradients, x max
 
 
 def _dtensor_state(api, cfg, mesh, dev, seed):
@@ -4365,17 +4383,33 @@ def run_plain_steps(dev, cfg, seed, batches, opt, micro):
     return out
 
 
+def _local_calls(cfg):
+    """`sharding.on_local_groups` and `on_local_blocks` calls in one
+    training forward: the MoE's dispatch and combine a MoE layer (every
+    layer of the moe family, the hybrid's ``i % moe_every == 0``), one
+    call a mLSTM or sLSTM layer, two a Mamba mixer (its conv, its
+    scan)."""
+    from repro_torch.models import hybrid
+    if cfg.family == "hybrid":
+        per = cfg.attn_period
+        n = hybrid._n_super(cfg)
+        return (2 * n * sum(hybrid._is_moe(cfg, i) for i in range(per)), 2 * n * (per - 1))
+    if cfg.family == "moe":
+        return 2 * cfg.num_layers, 0
+    return 0, cfg.num_layers if cfg.family == "ssm" else 0
+
+
 def run_partitioned_steps(dev, mesh, cfg, seed, batches, opt, micro, plain):
-    """(d)-(g): ``cfg``'s model from ``seed`` as the partitioned train
+    """(d)-(i): ``cfg``'s model from ``seed`` as the partitioned train
     step on the mesh of one (`_dtensor_state`), each batch placed by
     `batch_shardings`'s placements, one step a batch through
     `make_train_step` in ``micro`` microbatches.  Each step's B9
-    launches (forward and backward) and `sharding.on_local_heads` and
-    `on_local_groups` calls are counted against the model's own
-    (`_attention_calls`; the moe family's dispatch and combine a layer),
-    the losses held to ``plain``'s (the plain step on the same model,
-    seed and batches: per-step loss and seconds, warm median, peak
-    memory) within PARTITIONED_LOSS_RTOL, bit equality reported."""
+    launches (forward and backward) and `sharding.on_local_heads`,
+    `on_local_groups` and `on_local_blocks` calls are counted against
+    the model's own (`_attention_calls`, `_local_calls`), the losses held
+    to ``plain``'s (the plain step on the same model, seed and batches:
+    per-step loss and seconds, warm median, peak memory) within
+    PARTITIONED_LOSS_RTOL, bit equality reported."""
     import torch
     from torch.distributed.tensor import distribute_tensor
     from repro_torch.distributed import sharding as sh
@@ -4391,7 +4425,7 @@ def run_partitioned_steps(dev, mesh, cfg, seed, batches, opt, micro, plain):
     dtensors = sum(sh.is_dtensor(x) for _, x in leaves)
     n_params = _param_count(params)
 
-    calls = {"on_local_heads": 0, "on_local_groups": 0}
+    calls = {"on_local_heads": 0, "on_local_groups": 0, "on_local_blocks": 0}
     real = {name: getattr(sh, name) for name in calls}
 
     def counted(name):
@@ -4427,7 +4461,7 @@ def run_partitioned_steps(dev, mesh, cfg, seed, batches, opt, micro, plain):
     remat = 2 if cfg.remat else 1
     per_bwd = _attention_calls(cfg) * micro
     per_fwd = per_bwd * remat
-    per_groups = 2 * cfg.num_layers * micro * remat if cfg.family == "moe" else 0
+    per_groups, per_blocks = (n * micro * remat for n in _local_calls(cfg))
     steps = []
     for i, (row, (launches, n_calls)) in enumerate(zip(rows, counts)):
         want = plain["per_step"][i]
@@ -4439,6 +4473,7 @@ def run_partitioned_steps(dev, mesh, cfg, seed, batches, opt, micro, plain):
                       "attention_bwd_launches": launches["flash_attention_bwd_cuda"],
                       "local_heads_calls": n_calls["on_local_heads"],
                       "local_group_calls": n_calls["on_local_groups"],
+                      "local_block_calls": n_calls["on_local_blocks"],
                       "other_launches": sum(v for k, v in launches.items()
                                             if not k.startswith("flash_attention"))})
     warm = steps[1:] or steps
@@ -4451,7 +4486,8 @@ def run_partitioned_steps(dev, mesh, cfg, seed, batches, opt, micro, plain):
            "step_s_median_plain": plain["step_s_median"],
            "peak_mem_gb": peak / 1e9, "peak_mem_gb_plain": plain["peak_mem_gb"],
            "want_per_step": {"attention": per_fwd, "attention_bwd": per_bwd,
-                             "on_local_heads": per_fwd, "on_local_groups": per_groups},
+                             "on_local_heads": per_fwd, "on_local_groups": per_groups,
+                             "on_local_blocks": per_blocks},
            "plain_or_library_attention_calls": plain_calls, "per_step": steps,
            "launches": {"flash_attention_cuda": sum(r["attention_launches"] for r in steps),
                         "flash_attention_bwd_cuda": sum(r["attention_bwd_launches"]
@@ -4465,6 +4501,7 @@ def run_partitioned_steps(dev, mesh, cfg, seed, batches, opt, micro, plain):
                          and r["attention_bwd_launches"] == per_bwd
                          and r["local_heads_calls"] == per_fwd
                          and r["local_group_calls"] == per_groups
+                         and r["local_block_calls"] == per_blocks
                          and r["other_launches"] == 0 for r in steps))
     del params, state, api
     gc.collect()
@@ -4501,30 +4538,128 @@ def run_partitioned_step(args, dev, mesh, trained):
                                     TRAIN_MICRO, plain), "seq": seq}
 
 
-def run_partitioned_family(args, dev, mesh, arch, layers):
-    """(e), (f): ``arch`` at full width cut to ``layers`` (lm_train's
-    memory-driven cut), the plain step first (`run_plain_steps`), then
-    the partitioned one on the same model, seed and batches:
-    PARTITIONED_FAMILY_STEPS steps of TRAIN_BATCH x TRAIN_SEQ tokens (for the
-    vlm family TRAIN_SEQ less its image tokens, each batch with
-    `_modality`'s patches) in TRAIN_MICRO microbatches."""
+def run_partitioned_family(args, dev, mesh, arch, layers=None, *, micro=TRAIN_MICRO,
+                           seq=TRAIN_SEQ, reduced=False, why="AdamW's 20 B a parameter"):
+    """(e), (f), (h), (i): ``arch`` at full width cut to ``layers`` (the
+    reduced config with ``reduced``), the plain step first
+    (`run_plain_steps`), then the partitioned one on the same model, seed
+    and batches: PARTITIONED_FAMILY_STEPS steps of TRAIN_BATCH x ``seq``
+    tokens (for the vlm family ``seq`` less its image tokens, each batch
+    with `_modality`'s patches) in ``micro`` microbatches; ``why`` says
+    why the depth is cut."""
     import dataclasses
     import torch
     from repro_torch.configs import get_arch
-    full = get_arch(arch, reduced=args.lm_reduced)
-    cfg = dataclasses.replace(full, num_layers=min(layers, full.num_layers))
-    seq = (TRAIN_SEQ if not args.lm_reduced else 64) - (
+    full = get_arch(arch, reduced=args.lm_reduced or reduced)
+    cfg = dataclasses.replace(full, num_layers=min(layers or full.num_layers,
+                                                   full.num_layers))
+    seq = (seq if not args.lm_reduced else 64) - (
         cfg.frontend_tokens if cfg.family == "vlm" else 0)
     rng = np.random.default_rng((args.seed, 12))
     batches = [{**b, **_modality(cfg, rng, TRAIN_BATCH, seq, dev, torch.bfloat16)}
                for b in _pipeline_batches(dev, cfg, seq, PARTITIONED_FAMILY_STEPS)]
     t0 = time.perf_counter()
-    plain = run_plain_steps(dev, cfg, args.seed, batches, TRAIN_OPT, TRAIN_MICRO)
+    plain = run_plain_steps(dev, cfg, args.seed, batches, TRAIN_OPT, micro)
     plain_s = time.perf_counter() - t0
-    out = run_partitioned_steps(dev, mesh, cfg, args.seed, batches, TRAIN_OPT, TRAIN_MICRO,
-                                plain)
+    out = run_partitioned_steps(dev, mesh, cfg, args.seed, batches, TRAIN_OPT, micro, plain)
     return {**out, "text_seq": seq, "plain_s": plain_s,
-            "cut": f"{cfg.num_layers} of {full.num_layers} layers: AdamW's 20 B a parameter"}
+            "cut": f"{cfg.num_layers} of {full.num_layers} layers: {why}"}
+
+
+def run_partitioned_mamba(args, dev, mesh):
+    """(i) 1: jamba's Mamba mixer alone at its published width (bf16,
+    LM_BATCH x RECURRENT_SEQ tokens of unit-normal hidden state and a
+    unit-normal upstream gradient), forward and backward as the plain
+    mixer and as the partitioned one on the mesh of one (every parameter
+    and the input a DTensor placed by the rules; `on_local_blocks`
+    counted, 2 a forward: the conv and the scan): the output and the
+    input's and every parameter's gradients within PARTITIONED_MIXER_TOL
+    x max of the plain ones, bit equality reported, and the seconds of a
+    forward and backward on each side (the first call compared, then
+    timed)."""
+    import torch
+    from torch.distributed.tensor import distribute_tensor
+    from repro_torch.configs import get_arch
+    from repro_torch.distributed import sharding as sh
+    from repro_torch.models import mamba
+    cfg = get_arch(HYBRID_ARCH, reduced=args.lm_reduced)
+    s = RECURRENT_SEQ if not args.lm_reduced else 64
+    gen = torch.Generator(device=dev).manual_seed(args.seed)
+    p = mamba.init_mamba_params(cfg, gen)
+    x = torch.randn((LM_BATCH, s, cfg.d_model), generator=gen, device=dev).to(torch.bfloat16)
+    dy = torch.randn(x.shape, generator=gen, device=dev).to(torch.bfloat16)
+    names = list(p)
+
+    def fwd_bwd(params, xx, gy):
+        live = [t.detach().requires_grad_(True) for t in [xx] + [params[n] for n in names]]
+        y = mamba.mamba_train(cfg, dict(zip(names, live[1:])), live[0])
+        return [y.detach()] + list(torch.autograd.grad(y, live, gy))
+
+    with sh.use_mesh(mesh):
+        psh = sh.param_shardings(p, cfg, mesh)
+        pd = {n: distribute_tensor(p[n], mesh, psh[n].placements()) for n in names}
+        xsh = sh.batch_shardings({"x": x}, mesh)["x"].placements()
+        xd, dyd = (distribute_tensor(t, mesh, xsh) for t in (x, dy))
+    calls = [0]
+    real = sh.on_local_blocks
+
+    def counted(*a, **kw):
+        calls[0] += 1
+        return real(*a, **kw)
+
+    out = {"d_model": cfg.d_model, "d_inner": mamba._d_inner(cfg), "d_state": cfg.mamba_d_state,
+           "batch": LM_BATCH, "seq": s, "params": sum(t.numel() for t in p.values())}
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    want = fwd_bwd(p, x, dy)
+    torch.cuda.synchronize()
+    out["plain_first_s"] = time.perf_counter() - t0
+    out["plain_s"] = time_ms(lambda: fwd_bwd(p, x, dy), reps=2, warmup=0) / 1e3
+    out["plain_peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    torch.cuda.reset_peak_memory_stats()
+    sh.on_local_blocks = counted
+    try:
+        with sh.use_mesh(mesh):
+            t0 = time.perf_counter()
+            got = [t.full_tensor() for t in fwd_bwd(pd, xd, dyd)]
+            torch.cuda.synchronize()
+            out["partitioned_first_s"] = time.perf_counter() - t0
+            out["local_block_calls"] = calls[0]
+            out["partitioned_s"] = time_ms(lambda: fwd_bwd(pd, xd, dyd), reps=2,
+                                           warmup=0) / 1e3
+    finally:
+        sh.on_local_blocks = real
+    out["partitioned_peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    out["ratio_to_plain"] = out["partitioned_s"] / out["plain_s"]
+    rows = {}
+    for name, a, b in zip(["output", "x"] + names, got, want):
+        err = float((a.float() - b.float()).abs().max())
+        rows[name] = {"max_abs_diff": err, "bits_equal": bool(torch.equal(a, b)),
+                      "within_tol": bool(torch.isfinite(a).all())
+                      and err <= PARTITIONED_MIXER_TOL * float(b.float().abs().max())}
+    out["compared"] = rows
+    out["all_bits_equal"] = all(r["bits_equal"] for r in rows.values())
+    out["ok"] = out["local_block_calls"] == 2 and all(r["within_tol"] for r in rows.values())
+    del p, pd, x, xd, dy, dyd, want, got
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def run_partitioned_hybrid(args, dev, mesh):
+    """(i): jamba-1.5-large-398b, whose superblock does not fit a card:
+    its Mamba mixer alone at the published width (`run_partitioned_mamba`),
+    then the reduced model's whole partitioned step against its plain step
+    (`run_partitioned_family`: the Mamba scans, the attention mixer through
+    B9 on local heads, the MoE FFN on local groups and the dense FFN
+    together), 2 x PARTITIONED_HYBRID_SEQ tokens in TRAIN_MICRO
+    microbatches."""
+    mixer = run_partitioned_mamba(args, dev, mesh)
+    step = run_partitioned_family(args, dev, mesh, HYBRID_ARCH, micro=TRAIN_MICRO,
+                                  seq=PARTITIONED_HYBRID_SEQ, reduced=True,
+                                  why="the reduced config (a superblock is 88.33 GB)")
+    return {"mamba_mixer": mixer, "step": step, "launches": step["launches"],
+            "ok": mixer["ok"] and step["ok"]}
 
 
 def run_partitioned_audio(args, dev, mesh, audio_train):
@@ -4570,8 +4705,14 @@ def run_distributed(args, dev, card, dryruns, trained, audio_train):
     and (f) llava-next-mistral-7b at full width cut in depth
     (`run_partitioned_family`), each against its own plain step; (g)
     seamless-m4t-large-v2 at full size against ``audio_train``
-    (lm_multimodal (e)'s result, `run_partitioned_audio`); (h) the
-    process group destroyed."""
+    (lm_multimodal (e)'s result, `run_partitioned_audio`); (h)
+    xlstm-1.3b at full width cut to one superblock of
+    PARTITIONED_SSM_LAYERS (the scans are launch-bound loops: a cut for
+    time), 2 x PARTITIONED_SSM_SEQ tokens in one microbatch, against its
+    own plain step (`run_partitioned_family`); (i) jamba-1.5-large-398b:
+    its Mamba mixer at the published width, partitioned against plain,
+    and the reduced model's whole step against its plain step
+    (`run_partitioned_hybrid`); (j) the process group destroyed."""
     import dataclasses
     import torch
     import torch.distributed as dist
@@ -4672,7 +4813,11 @@ def run_distributed(args, dev, card, dryruns, trained, audio_train):
         ("f", "f_partitioned_vlm", lambda: run_partitioned_family(
             args, dev, mesh, VLM_ARCH, PARTITIONED_VLM_LAYERS)),
         ("g", "g_partitioned_audio", lambda: run_partitioned_audio(
-            args, dev, mesh, audio_train)))
+            args, dev, mesh, audio_train)),
+        ("h", "h_partitioned_ssm", lambda: run_partitioned_family(
+            args, dev, mesh, SSM_ARCH, PARTITIONED_SSM_LAYERS, micro=1,
+            seq=PARTITIONED_SSM_SEQ, why="time: its scans are launch-bound loops")),
+        ("i", "i_partitioned_hybrid", lambda: run_partitioned_hybrid(args, dev, mesh)))
     for name, label, run in partitioned:
         t0 = time.perf_counter()
         parts[name] = run()
@@ -4682,8 +4827,8 @@ def run_distributed(args, dev, card, dryruns, trained, audio_train):
               f"distributed ({name}): the partitioned step on the mesh: {parts[name]}")
 
     dist.destroy_process_group()
-    parts["h"] = {"group_destroyed": not dist.is_initialized(), "seconds": 0.0}
-    check(parts["h"]["group_destroyed"], "distributed (h): the process group outlived the phase")
+    parts["j"] = {"group_destroyed": not dist.is_initialized(), "seconds": 0.0}
+    check(parts["j"]["group_destroyed"], "distributed (j): the process group outlived the phase")
     seconds = time.perf_counter() - t_phase
     emit({"phase": "distributed", "part": "all", "card": card, "seconds": seconds,
           "parts_s": {n: p["seconds"] for n, p in parts.items()}})

@@ -38,8 +38,11 @@ dispatch on those leaves (the port's twin of GSPMD): `place_batch` and
 `replicate` and `unsplit_dim` join plain tensors, partial sums and
 head views to the DTensor ops, `on_local_heads` hands a kernel (or
 the CPU's plain attention) each rank's local batch rows and heads
-(`head_sharding`) through `local_map`, and `on_local_groups` hands the
-MoE's integer routing each rank's own token groups the same way.
+(`head_sharding`) through `local_map`, `on_local_groups` hands the
+MoE's integer routing each rank's own token groups the same way, and
+`on_local_blocks` hands a recurrent scan (the mLSTM's, the sLSTM's,
+Mamba's) each rank's blocks by logical specs, the whole loop over time
+in one call.
 """
 
 from __future__ import annotations
@@ -614,6 +617,69 @@ def on_local_groups(fn, *xs, outputs: int = 1):
     out = list(want) if outputs == 1 else tuple(list(want) for _ in range(outputs))
     return local_map(fn, out_placements=out, in_placements=tuple(list(want) for _ in xs),
                      device_mesh=mesh)(*xs)
+
+
+def on_local_blocks(fn, xs, in_specs, out_specs, grad_specs=None):
+    """``fn(*xs)`` on each rank's local blocks, through `local_map`: input
+    i is redistributed to ``in_specs[i]``, a logical spec in
+    `maybe_constrain`'s vocabulary (``"dp"``, ``"tp"`` or None a dim,
+    pruned by divisibility), and ``fn`` returns a tuple of tensors,
+    output j wrapped as ``out_specs[j]`` says.  Each logical name
+    resolves once a call, from the inputs that carry it (two inputs that
+    resolve it differently raise), and an output dim so named takes the
+    same mesh axes.  ``grad_specs[i]`` (a tuple of logical names, or
+    None) declares input i's gradient a partial sum over the mesh axes
+    those names resolved to: an input replicated there whose local
+    gradient differs by rank, because each rank contracts it with its
+    own blocks of another input (a parameter beside batch rows sharded
+    over the dp axes; rows beside channels sharded over ``model``).  A
+    name that resolved to no axis adds nothing: every rank then computes
+    the same.  Plain tensors call ``fn`` directly; a plain tensor beside
+    a DTensor raises."""
+    if not any(is_dtensor(x) for x in xs):
+        return fn(*xs)
+    from torch.distributed.tensor import Partial, Replicate
+    from torch.distributed.tensor.experimental import local_map
+    mesh = next(x for x in xs if is_dtensor(x)).device_mesh
+    if not all(is_dtensor(x) and x.device_mesh == mesh for x in xs):
+        raise ValueError("on_local_blocks takes DTensors on one mesh")
+    sizes = _axes(mesh).shape
+    resolved, placed, in_pl = {}, [], []
+    for x, spec in zip(xs, in_specs):
+        part = _constrain_spec(x.shape, sizes, spec)
+        for name, axes in zip(spec, part):
+            if name is not None and resolved.setdefault(name, axes) != axes:
+                raise ValueError(f"on_local_blocks: {name!r} resolves to {axes!r} and "
+                                 f"{resolved[name]!r} in one call")
+        pl = NamedSharding(mesh, part).placements()
+        # an input already in place is passed as it is: a redistribution
+        # to the same placements would still reduce a partial gradient
+        placed.append(x if tuple(x.placements) == pl else x.redistribute(mesh, pl))
+        in_pl.append(list(pl))
+
+    def placements(spec):
+        return list(NamedSharding(mesh, P(*(resolved[s] if s is not None else None
+                                            for s in spec))).placements())
+
+    def partial_over(pl, names):
+        axes = _used_axes(resolved[n] for n in names)
+        out = list(pl)
+        for i, dim in enumerate(mesh.mesh_dim_names):
+            if dim in axes and sizes[dim] > 1:
+                if pl[i] != Replicate():
+                    raise ValueError(f"on_local_blocks: a gradient partial over {dim!r} "
+                                     f"of an input sharded there")
+                out[i] = Partial()
+        return out
+
+    grads = None
+    if grad_specs is not None:
+        grads = tuple(pl if names is None else partial_over(pl, names)
+                      for pl, names in zip(in_pl, grad_specs))
+    # lists: local_map reads a tuple of placements as one entry an output
+    return local_map(fn, out_placements=tuple(placements(s) for s in out_specs),
+                     in_placements=tuple(in_pl), in_grad_placements=grads,
+                     device_mesh=mesh)(*placed)
 
 
 # --- learned-index shard placement -----------------------------------------

@@ -20,20 +20,20 @@ assertion before anything launches).
 
 On a mesh of more than one rank (a process group started by the caller,
 one process a rank) the dense family (yi-6b, yi-9b, mistral-nemo-12b,
-mistral-large-123b) and the moe family (olmoe-1b-7b,
-moonshot-v1-16b-a3b, the experts parallel over ``model``) train
-partitioned as the reference's jitted step does over its mesh: the
-parameters are DTensors placed by `param_shardings`, the optimizer
-state by `opt_state_shardings` (ZeRO-1), each batch by
-`batch_shardings` (every rank builds the global batch and keeps its
-rows), and the step is the same function under DTensor dispatch.
+mistral-large-123b), the moe family (olmoe-1b-7b, moonshot-v1-16b-a3b,
+the experts parallel over ``model``), the ssm family (xlstm-1.3b) and
+the hybrid family (jamba-1.5-large-398b; the recurrent scans on each
+rank's local blocks) train partitioned as the reference's jitted step
+does over its mesh: the parameters are DTensors placed by
+`param_shardings`, the optimizer state by `opt_state_shardings`
+(ZeRO-1), each batch by `batch_shardings` (every rank builds the global
+batch and keeps its rows), and the step is the same function under
+DTensor dispatch.
 Checkpoints are written by rank 0 and restored into the same placements
 on every rank.  The vlm and audio families' steps partition too
 (`make_train_step` on their batches), but this entry point, like the
 reference's, feeds tokens and labels only, which their losses refuse
-on any mesh.  The ssm and hybrid families raise `NotImplementedError`
-on a mesh of more than one rank before any step (ROADMAP queue A item
-11).  A mesh of one keeps plain tensors and the one-card path.
+on any mesh.  A mesh of one keeps plain tensors and the one-card path.
 """
 
 from __future__ import annotations
@@ -99,10 +99,6 @@ def _train(args, dev) -> dict:
     cfg = get_arch(args.arch, reduced=args.reduced)
     api = get_model(cfg, dev)
     mesh = make_host_mesh(args.model_axis, dev)
-    if mesh.size() > 1 and cfg.family in ("ssm", "hybrid"):
-        raise NotImplementedError(
-            f"a {tuple(mesh.mesh.shape)} mesh: the port does not partition the train step "
-            f"of the {cfg.family!r} family yet (ROADMAP queue A item 11)")
     opt_cfg = OptimizerConfig(lr=args.lr, warmup_steps=args.warmup, total_steps=args.steps)
 
     corpus = make_synthetic_corpus(total_tokens=2_000_000, vocab_size=cfg.vocab_size,

@@ -19,12 +19,14 @@ is; every other leaf is in ``cfg.dtype``.
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Dict, Tuple
 
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed import sharding
 from repro_torch.models import layers as L
 
 # leaves held in float32 whatever cfg.dtype is (reference mamba.py:37-40)
@@ -115,43 +117,65 @@ def _conv_state(xi: torch.Tensor, conv: int) -> torch.Tensor:
     return xi[:, xi.shape[1] - (conv - 1):]
 
 
+def _causal_conv(xi, conv_w, conv_b):
+    """The causal depthwise conv over time of ``xi`` (B, S, di), in the
+    activation dtype, the taps added in the reference's order, then SiLU."""
+    s, conv = xi.shape[1], conv_w.shape[0]
+    xpad = F.pad(xi, (0, 0, conv - 1, 0))
+    return (F.silu(sum(xpad[:, i:i + s] * conv_w[i] for i in range(conv)) + conv_b),)
+
+
+def _selective_scan(chunk, remat, a_log, dt, xcf, bf, cf):
+    """The chunk loop of the selective scan over one block of rows and
+    channels: dt, xcf (B, S, di), bf, cf (B, S, ds), a_log (di, ds).
+    Returns (y (B, S, di), the final state (B, di, ds))."""
+    b, s, di = dt.shape
+    a = -torch.exp(a_log)
+    step = L.remat(_scan_chunk) if remat else _scan_chunk
+    # time first, so a chunk is a contiguous slice
+    dt_t, x_t, b_t, c_t = (t.transpose(0, 1) for t in (dt, xcf, bf, cf))
+    hh = torch.zeros((b, di, a.shape[-1]), dtype=torch.float32, device=dt.device)
+    ys = []
+    for i in range(0, s, chunk):
+        hh, y = step(a, hh, *(t[i:i + chunk] for t in (dt_t, x_t, b_t, c_t)))
+        ys.append(y)
+    return torch.cat(ys).transpose(0, 1), hh
+
+
 def mamba_train(cfg, p, x, *, chunk: int = 256, return_state: bool = False):
     """x (B, S, D) -> (B, S, D), the chunked selective scan; with
     ``return_state`` also the final {"h", "conv"} state (parallel prefill
-    for serving)."""
+    for serving).  On DTensors the conv and the whole scan each run in
+    one `on_local_blocks` call on each rank's rows (over the dp axes) and
+    channels (di over ``model``); ``B`` and ``C`` are replicated over
+    ``model``, so their gradients there are partial sums, as are the
+    parameters' over the dp axes.  ``w_bcdt``'s row-parallel product is
+    reduced between the two calls."""
     b, s, _ = x.shape
     h = L.rmsnorm(x, p["ln"])
     xi, z = torch.chunk(h @ p["in_proj"], 2, dim=-1)     # (B, S, di)
 
-    # causal depthwise conv over time, in the activation dtype, the taps
-    # added in the reference's order
-    conv = cfg.mamba_d_conv
-    xpad = F.pad(xi, (0, 0, conv - 1, 0))
-    xc = sum(xpad[:, i:i + s] * p["conv_w"][i] for i in range(conv)) + p["conv_b"]
-    xc = F.silu(xc)
-
+    rows, chans = ("dp", None, None), ("dp", None, "tp")
+    dp = ("dp",)
+    (xc,) = sharding.on_local_blocks(_causal_conv, (xi, p["conv_w"], p["conv_b"]),
+                                     (chans, (None, "tp"), ("tp",)), (chans,),
+                                     grad_specs=(None, dp, dp))
     dt, bf, cf = _discretise(cfg, p, xc)
-    a = -torch.exp(p["a_log"])                            # (di, ds)
     xcf = xc.float()
 
     chunk = min(chunk, s)
     if s % chunk:
         raise ValueError(f"sequence {s} is not a multiple of the scan chunk {chunk}")
-    step = L.remat(_scan_chunk) if cfg.remat else _scan_chunk
-    # time first, so a chunk is a contiguous slice
-    dt_t, x_t, b_t, c_t = (t.transpose(0, 1) for t in (dt, xcf, bf, cf))
-    hh = torch.zeros((b, xi.shape[-1], cfg.mamba_d_state), dtype=torch.float32,
-                     device=x.device)
-    ys = []
-    for i in range(0, s, chunk):
-        hh, y = step(a, hh, *(t[i:i + chunk] for t in (dt_t, x_t, b_t, c_t)))
-        ys.append(y)
-    y = torch.cat(ys).transpose(0, 1)                     # (B, S, di)
+    y, hh = sharding.on_local_blocks(functools.partial(_selective_scan, chunk, cfg.remat),
+                                     (p["a_log"], dt, xcf, bf, cf),
+                                     (("tp", None), chans, chans, rows, rows),
+                                     (chans, ("dp", "tp", None)),
+                                     grad_specs=(dp, None, None, ("tp",), ("tp",)))
     y = y + p["d_skip"] * xcf
     y = y.to(x.dtype) * F.silu(z)
     out = x + y @ p["out_proj"]
     if return_state:
-        return out, {"h": hh, "conv": _conv_state(xi, conv)}
+        return out, {"h": hh, "conv": _conv_state(xi, cfg.mamba_d_conv)}
     return out
 
 

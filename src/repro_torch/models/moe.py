@@ -238,11 +238,12 @@ def _dispatch_groups(xg, scores, *, k, num_experts, capacity, dispatch):
 
 
 def _combine_groups(y, dest, st, sg, *, tokens):
-    """Each group's combine: expert rows ``y`` (G, E, C, D) -> (G, tokens,
-    D)."""
+    """Each group's combine: expert rows ``y`` (G, E, C, D) -> (G·tokens,
+    D), the groups' tokens in order (the rows are joined here, where the
+    groups are local, so no view of a sharded dim meets the gradient)."""
     _, e, c, d = y.shape
-    return torch.stack([_combine_one(yy.reshape(e * c, d), dd, tt, ss, tokens)
-                        for yy, dd, tt, ss in zip(y, dest, st, sg)])
+    return torch.cat([_combine_one(yy.reshape(e * c, d), dd, tt, ss, tokens)
+                      for yy, dd, tt, ss in zip(y, dest, st, sg)])
 
 
 def moe_ffn(
@@ -282,8 +283,7 @@ def moe_ffn(
     # ---- combine (per group), on every expert's rows ------------------
     y = maybe_constrain(y, "dp", None, None, None)
     out = maybe_constrain(sharding.on_local_groups(
-        functools.partial(_combine_groups, tokens=tg), y, dest, st, sg),
-        "dp", None, None).reshape(t, d)
+        functools.partial(_combine_groups, tokens=tg), y, dest, st, sg), "dp", None)
     # back in the tokens' own placement (groups over data can split the
     # batch rows where they cannot: 2 rows over 4 data ranks)
     out = placed_like(out, xt)

@@ -22,11 +22,14 @@ reference's single steps, which decode runs.
 
 from __future__ import annotations
 
+import functools
 from typing import Dict, Tuple
 
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed import sharding
+from repro_torch.distributed.sharding import unsplit_dim
 from repro_torch.models import layers as L
 
 M0 = -1e30          # the stabiliser's initial value
@@ -87,16 +90,20 @@ def _mlstm_step(qt, kt, vt, it, ft, state):
 
 def _mlstm_qkv(cfg, p, hin):
     """q, k / sqrt(dk), v (…, H, d) and the gates' pre-activations
-    (input, log-sigmoid forget) (…, H), all float32."""
+    (input, forget: its log-sigmoid is taken where the state is, on
+    local blocks) (…, H), all float32."""
     _, h, dk, dv = _dims(cfg)
     lead = hin.shape[:-1]
-    q = (hin @ p["wq"]).reshape(*lead, h, dk).float()
-    k = (hin @ p["wk"]).reshape(*lead, h, dk).float() / torch.sqrt(
-        torch.tensor(float(dk), dtype=torch.float32))
-    v = (hin @ p["wv"]).reshape(*lead, h, dv).float()
+
+    def heads(t, d):
+        return unsplit_dim(t, -1, h).reshape(*lead, h, d).float()
+
+    q = heads(hin @ p["wq"], dk)
+    k = heads(hin @ p["wk"], dk) / torch.sqrt(torch.tensor(float(dk), dtype=torch.float32))
+    v = heads(hin @ p["wv"], dv)
     ig = (hin @ p["wi"]).float()
-    fg = F.logsigmoid((hin @ p["wf"]).float())
-    return q, k, v, ig, fg
+    f_pre = (hin @ p["wf"]).float()
+    return q, k, v, ig, f_pre
 
 
 def _mlstm_scan(c, n, m, q, k, v, ig, fg):
@@ -122,27 +129,43 @@ def _mlstm_scan(c, n, m, q, k, v, ig, fg):
     return c, n, m_prev[-1], torch.stack(nums) / denom[..., None]
 
 
+def _mlstm_chunks(chunk, remat, q, k, v, ig, f_pre):
+    """The chunk loop over one block of rows and heads, time first (the
+    shapes of `_mlstm_scan`, the forget gate's pre-activation in): the
+    state starts at zero and crosses chunk boundaries.  Returns (h (B, T,
+    H·dv), c, n, m)."""
+    t, b, h, dk = q.shape
+    fg = F.logsigmoid(f_pre)
+    step = L.remat(_mlstm_scan) if remat else _mlstm_scan
+    c = torch.zeros((b, h, dk, v.shape[-1]), dtype=torch.float32, device=q.device)
+    n = torch.zeros((b, h, dk), dtype=torch.float32, device=q.device)
+    m = torch.full((b, h), M0, dtype=torch.float32, device=q.device)
+    hs = []
+    for i in range(0, t, chunk):
+        c, n, m, ht = step(c, n, m, *(x[i:i + chunk] for x in (q, k, v, ig, fg)))
+        hs.append(ht)
+    return torch.cat(hs).transpose(0, 1).reshape(b, t, -1), c, n, m
+
+
 def mlstm_train(cfg, p, x, *, chunk: int = 256, return_state: bool = False):
     """x (B, S, D) -> (B, S, D), the chunkwise mLSTM: the (B, H, dk, dv)
     matrix state crosses chunk boundaries; with ``return_state`` also the
-    final {"c", "n", "m"}."""
-    b, s, _ = x.shape
-    _, h, dk, dv = _dims(cfg)
+    final {"c", "n", "m"}.  On DTensors the whole chunk loop runs on each
+    rank's rows (over the dp axes) and heads (over ``model`` where they
+    divide it) in one `on_local_blocks` call; the norm over H·dv outside
+    spans ranks."""
+    s = x.shape[1]
     hin = L.rmsnorm(x, p["ln"])
-    q, k, v, ig, fg = (t.transpose(0, 1) for t in _mlstm_qkv(cfg, p, hin))
+    q, k, v, ig, f_pre = (t.transpose(0, 1) for t in _mlstm_qkv(cfg, p, hin))
 
     chunk = min(chunk, s)
     if s % chunk:
         raise ValueError(f"sequence {s} is not a multiple of the scan chunk {chunk}")
-    step = L.remat(_mlstm_scan) if cfg.remat else _mlstm_scan
-    c = torch.zeros((b, h, dk, dv), dtype=torch.float32, device=x.device)
-    n = torch.zeros((b, h, dk), dtype=torch.float32, device=x.device)
-    m = torch.full((b, h), M0, dtype=torch.float32, device=x.device)
-    hs = []
-    for i in range(0, s, chunk):
-        c, n, m, ht = step(c, n, m, *(t[i:i + chunk] for t in (q, k, v, ig, fg)))
-        hs.append(ht)
-    hs = torch.cat(hs).transpose(0, 1).reshape(b, s, h * dv)
+    heads, gates = (None, "dp", "tp", None), (None, "dp", "tp")
+    hs, c, n, m = sharding.on_local_blocks(
+        functools.partial(_mlstm_chunks, chunk, cfg.remat), (q, k, v, ig, f_pre),
+        (heads, heads, heads, gates, gates),
+        (("dp", None, "tp"), ("dp", "tp", None, None), ("dp", "tp", None), ("dp", "tp")))
     hs = L.rmsnorm(hs.to(x.dtype), p["out_ln"])
     z = F.silu(hin @ p["wz"])
     out = x + (hs * z) @ p["wo"]
@@ -180,21 +203,41 @@ def _slstm_step(p, xt, state):
     return (c, n, m, h.to(xt[0].dtype)), h
 
 
-def slstm_train(cfg, p, x, *, return_state: bool = False):
-    b, s, d = x.shape
-    hin = L.rmsnorm(x, p["ln"])
-    xs = torch.cat([hin @ p[w] for w in ("wi", "wf", "wz", "wo_gate")], dim=-1)
-    r = torch.cat([p[w] for w in ("ri", "rf", "rz", "ro")], dim=-1)   # (D, 4D)
-    c = torch.zeros((b, d), dtype=torch.float32, device=x.device)
-    n = torch.zeros((b, d), dtype=torch.float32, device=x.device)
-    m = torch.full((b, d), M0, dtype=torch.float32, device=x.device)
-    hprev = torch.zeros((b, d), dtype=x.dtype, device=x.device)
+def _slstm_loop(xs, r):
+    """The sLSTM's loop over time on one block of rows with every
+    channel: xs (B, S, 4D) the four input pre-activations side by side,
+    r (D, 4D) the recurrent weights in the same order.  Returns (h (B, S,
+    D) float32, c, n, m, h_S in xs' dtype)."""
+    b, _, d4 = xs.shape
+    d = d4 // 4
+    c = torch.zeros((b, d), dtype=torch.float32, device=xs.device)
+    n = torch.zeros((b, d), dtype=torch.float32, device=xs.device)
+    m = torch.full((b, d), M0, dtype=torch.float32, device=xs.device)
+    hprev = torch.zeros((b, d), dtype=xs.dtype, device=xs.device)
     hs = []
     for x_t in torch.unbind(xs, dim=1):
         c, n, m, h = _slstm_gates((x_t + hprev @ r).float(), (c, n, m))
-        hprev = h.to(x.dtype)
+        hprev = h.to(xs.dtype)
         hs.append(h)
-    hs = torch.stack(hs, dim=1).to(x.dtype)
+    return torch.stack(hs, dim=1), c, n, m, hprev
+
+
+def slstm_train(cfg, p, x, *, return_state: bool = False):
+    """x (B, S, D) -> (B, S, D); with ``return_state`` also the final
+    {"c", "n", "m", "h"}.  The recurrence ``h @ r`` mixes every channel
+    at every step, so on DTensors the four recurrent weights are joined
+    (and gathered) once a call, and the loop runs on each rank's rows
+    with every channel in one `on_local_blocks` call, replicated over
+    ``model``; ``r``'s gradient there is a partial sum over the dp
+    axes."""
+    hin = L.rmsnorm(x, p["ln"])
+    xs = torch.cat([hin @ p[w] for w in ("wi", "wf", "wz", "wo_gate")], dim=-1)
+    r = torch.cat([p[w] for w in ("ri", "rf", "rz", "ro")], dim=-1)   # (D, 4D)
+    rows, state = ("dp", None, None), ("dp", None)
+    hs, c, n, m, hprev = sharding.on_local_blocks(
+        _slstm_loop, (xs, r), (rows, (None, None)), (rows, state, state, state, state),
+        grad_specs=(None, ("dp",)))
+    hs = hs.to(x.dtype)
     out = x + hs @ p["wo"]
     if return_state:
         return out, {"c": c, "n": n, "m": m, "h": hprev}
@@ -219,8 +262,9 @@ def mlstm_decode(cfg, p, x, state):
     b = x.shape[0]
     _, h, _, dv = _dims(cfg)
     hin = L.rmsnorm(x, p["ln"])                           # (B,1,D)
-    q, k, v, ig, fg = (t[:, 0] for t in _mlstm_qkv(cfg, p, hin))
-    ht, (c, n, m) = _mlstm_step(q, k, v, ig, fg, (state["c"], state["n"], state["m"]))
+    q, k, v, ig, f_pre = (t[:, 0] for t in _mlstm_qkv(cfg, p, hin))
+    ht, (c, n, m) = _mlstm_step(q, k, v, ig, F.logsigmoid(f_pre),
+                                (state["c"], state["n"], state["m"]))
     hs = L.rmsnorm(ht.reshape(b, 1, h * dv).to(x.dtype), p["out_ln"])
     z = F.silu(hin @ p["wz"])
     return x + (hs * z) @ p["wo"], {"c": c, "n": n, "m": m}

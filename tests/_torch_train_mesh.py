@@ -19,10 +19,15 @@ leaf's element whose gradient is exactly zero at a step in both
 packages, an expert no token reached, is held at 1e-5 x max too); every
 rank's local shape and placements of every parameter and state leaf as
 its spec says; the MoE's dispatch group count at each token count equal
-in all three.  The ranks also record the MoE's (G, E, C, D) buffers as
-the expert products meet them and each `on_local_heads` call's global
-and local q and k shapes, for the family's own checks
-(`expert_parallel`, `local_heads`).
+in all three.  With ``recurrent`` (the ssm and hybrid families, whose
+scans sum in another order than the reference's) every leaf's
+first-step gradient is held within 1e-5 x its max too, and the final
+state gets `RECURRENT_STEP_SHARE` of the summed steps beside 1e-5 x max.
+The ranks also record the MoE's (G, E, C, D) buffers as the expert
+products meet them, each `on_local_heads` call's global and local q and
+k shapes and each `on_local_blocks` call's function and global and local
+input shapes, for the family's own checks (`expert_parallel`,
+`local_heads`, the scans' blocks).
 
 Batches come from NumPy with a seed: tokens, labels and a mask for
 every family, plus ``patches`` (B, T_img, F) for vlm and ``frames`` (B,
@@ -72,6 +77,12 @@ EXPERT_LEAVES = ("we_gate", "we_up", "we_down")
 # the audio family's encoder, whose `pin_dp` constraint names an
 # Explicit axis (`ValueError`)
 EXPLICIT_ERRORS = {"audio": "ValueError"}
+# the share of each Adam step that float32 noise may move in the ssm and
+# hybrid families (`mesh_case(recurrent=True)`): their scans sum in
+# another order than the reference's, and their gradients differ from it
+# by 1-6e-6 x max (2e-8 in the dense family); tests/test_torch_train.py
+# puts the step a noise-dominated gradient moves at 0.2%
+RECURRENT_STEP_SHARE = 2e-3
 
 
 class FakeMesh:
@@ -157,8 +168,8 @@ from repro_torch.distributed import sharding as sh
 from repro_torch.launch.mesh import make_host_mesh
 from repro_torch.models import get_model, moe
 from repro_torch.train import OptimizerConfig, adamw_init, make_train_step
-(rank, world, store, arch, fsdp, model_axis, micro, steps, opt, params_path, batches_path,
- out) = sys.argv[1:]
+(rank, world, store, arch, fsdp, model_axis, micro, steps, opt, first_grads, params_path,
+ batches_path, out) = sys.argv[1:]
 rank, world, model_axis, micro, steps = map(int, (rank, world, model_axis, micro, steps))
 dist.init_process_group("gloo", init_method="file://" + store, rank=rank, world_size=world)
 cfg = dataclasses.replace(get_arch(arch, reduced=True), dtype="float32",
@@ -193,12 +204,35 @@ def recorded_heads(fn, q, k, v):
 
 
 sh.on_local_heads = recorded_heads
+blocks = set()
+on_local_blocks = sh.on_local_blocks
+
+
+def recorded_blocks(fn, xs, *args, **kw):
+    def local(*ls):
+        blocks.add((getattr(fn, "func", fn).__name__, tuple(tuple(x.shape) for x in xs),
+                    tuple(tuple(x.shape) for x in ls)))
+        return fn(*ls)
+    return on_local_blocks(local, xs, *args, **kw)
+
+
+sh.on_local_blocks = recorded_blocks
 losses, norms, bad = [], [], []
 with sh.use_mesh(mesh):
     psh = sh.param_shardings(params, cfg, mesh)
     params = sh.device_put(params, psh)
     state = adamw_init(params, sh.opt_state_shardings(params, cfg, mesh))
-    step = make_train_step(api.loss, OptimizerConfig(**json.loads(opt)), microbatches=micro)
+    first = {}
+
+    def record_first(grads):
+        # the first step's gradient (the microbatches' mean), gathered whole
+        if first_grads == "1" and not first:
+            first.update((f"grad0/{p}", g.full_tensor().numpy())
+                         for p, g in sh.tree_leaves_with_path(grads))
+        return grads
+
+    step = make_train_step(api.loss, OptimizerConfig(**json.loads(opt)), microbatches=micro,
+                           compress_fn=record_first)
     for i in range(steps):
         batch = sh.place_batch({k: data[f"{k}{i}"] for k in keys}, mesh)
         params, state, m = step(params, state, batch)
@@ -214,12 +248,14 @@ with sh.use_mesh(mesh):
     whole = {f"{name}/{path}": x.full_tensor().numpy()
              for name, tree in (("master", state["master"]), ("params", params))
              for path, x in sh.tree_leaves_with_path(tree)}
+    whole.update(first)
     local = {path: list(x.to_local().shape) for path, x in sh.tree_leaves_with_path(params)}
 if rank == 0:
     np.savez(out + ".npz", **whole)
 with open(f"{out}.{rank}.json", "w") as f:
     json.dump({"losses": losses, "norms": norms, "bad": bad, "groups": groups,
                "buffers": buffers, "local": local, "heads": sorted(heads),
+               "blocks": sorted(blocks),
                "sharded": sum(s.local_shape(x.shape) != tuple(x.shape) for (_, x), (_, s)
                               in zip(sh.tree_leaves_with_path(params),
                                      sh.tree_leaves_with_path(psh)))}, f)
@@ -238,7 +274,7 @@ from repro.launch.mesh import make_host_mesh
 from repro.models import get_model, moe
 from repro.train import optimizer as jopt
 from repro.train.train_step import make_train_step
-arch, fsdp, model_axis, micro, steps, opt, batches_path, out = sys.argv[1:]
+arch, fsdp, model_axis, micro, steps, opt, first_grads, batches_path, out = sys.argv[1:]
 cfg = dataclasses.replace(get_arch(arch, reduced=True), dtype="float32",
                           fsdp_params=fsdp == "1")
 api = get_model(cfg)
@@ -290,12 +326,15 @@ with mesh:
     experts = [p for p in flat(params) if p.rsplit("/", 1)[-1] in EXPERT_LEAVES]
     for i in range(int(steps)):
         batch = {k: jnp.asarray(data[f"{k}{i}"]) for k in keys}
-        if experts:
+        if experts or (first_grads == "1" and i == 0):
             n = batch["tokens"].shape[0] // int(micro)
             gs = [flat(grad(params, {k: v[j * n:(j + 1) * n] for k, v in batch.items()}))
                   for j in range(int(micro))]
             for p in experts:
                 zeros[f"zero{i}/{p}"] = np.asarray(sum(g[p] for g in gs) / int(micro)) == 0
+            if first_grads == "1" and i == 0:
+                zeros.update((f"grad0/{p}", np.asarray(sum(g[p] for g in gs) / int(micro)))
+                             for p in gs[0])
         params, state, m = step(params, state, batch)
         losses.append(float(m["loss"]))
         norms.append(float(m["grad_norm"]))
@@ -313,25 +352,36 @@ PRELUDE = (f"BATCH_KEYS = {BATCH_KEYS!r}\nEXPERT_LEAVES = {EXPERT_LEAVES!r}\n"
 
 def reference_leaf(ref, name, path):
     """The reference's leaf of port ``path`` (``blocks/i/wq`` is slice i
-    of the stacked ``blocks/wq``; ``enc`` and ``dec`` alike)."""
+    of the stacked ``blocks/wq``; ``enc`` and ``dec`` alike; the xLSTM's
+    ``blocks/j/mlstm/i/wq`` is slice (j, i) of ``blocks/mlstm/wq``, the
+    hybrid's ``blocks/j/mix0/a_log`` slice j of ``blocks/mix0/a_log``)."""
     parts = path.split("/")
     if parts[0] in ("blocks", "enc", "dec"):
-        return ref[f"{name}/{parts[0]}/{parts[2]}"][int(parts[1])]
+        index = tuple(int(p) for p in parts if p.isdigit())
+        return ref["/".join([name] + [p for p in parts if not p.isdigit()])][index]
     return ref[f"{name}/{path}"]
 
 
-def close(got, want, quiet, lr_sum, what):
-    """Within 1e-5 x the leaf's max outside the quiet elements, within
-    the steps' summed learning rates on them."""
+def close(got, want, quiet, lr_sum, what, step_share=0.0):
+    """Within 1e-5 x the leaf's max (plus ``step_share`` of the steps'
+    summed learning rates) outside the quiet elements, within the steps'
+    summed learning rates on them."""
     err = np.abs(got - want)
-    assert float(err[~quiet].max(initial=0.0)) <= 1e-5 * float(np.abs(want).max()), what
+    bound = 1e-5 * float(np.abs(want).max()) + step_share * lr_sum
+    assert float(err[~quiet].max(initial=0.0)) <= bound, what
     assert not quiet.any() or float(err[quiet].max()) <= lr_sum, what
 
 
-def mesh_case(tmp_path, arch, fsdp, model_axis, micro):
+def mesh_case(tmp_path, arch, fsdp, model_axis, micro, recurrent=False):
     """The WORLD ranks, the reference's jitted step and the port's
     one-rank step on the same parameters and batches; returns the
-    ranks' records."""
+    ranks' records.  With ``recurrent`` (the ssm and hybrid families)
+    every leaf's first-step gradient (the microbatches' mean, from the
+    same parameters everywhere) is held within 1e-5 x its max of the
+    one-rank step's and the reference's, and the final master and
+    parameters get RECURRENT_STEP_SHARE of the summed steps beside 1e-5
+    x max (their float32 gradients differ from the reference's by ~1e-6
+    x max, not ~2e-8, so Adam moves every small element's step)."""
     jcfg, cfg = configs(arch, fsdp)
     jparams = jax_get_model(jcfg).init(jax.random.PRNGKey(0))
     params = convert.lm_params_from_reference(jax.tree.map(np.asarray, jparams), cfg, "cpu")
@@ -340,7 +390,7 @@ def mesh_case(tmp_path, arch, fsdp, model_axis, micro):
     data = batches(cfg)
     np.savez(tmp_path / "batches.npz", **{f"{k}{i}": v for i, b in enumerate(data)
                                           for k, v in b.items()})
-    common = (arch, int(fsdp), model_axis, micro, STEPS, json.dumps(OPT))
+    common = (arch, int(fsdp), model_axis, micro, STEPS, json.dumps(OPT), int(recurrent))
     ref = subprocess.Popen([sys.executable, "-c", PRELUDE + JAX, *map(str, common),
                             str(tmp_path / "batches.npz"), str(tmp_path / "ref")],
                            env=env(), stdout=subprocess.PIPE, stderr=subprocess.PIPE)
@@ -356,7 +406,7 @@ def mesh_case(tmp_path, arch, fsdp, model_axis, micro):
     step = make_train_step(api.loss, OptimizerConfig(**OPT), microbatches=micro)
     state = adamw_init(params)
     one = {"losses": [], "norms": [], "groups": {}}
-    quiet_steps, lr_sum = [], 0.0
+    quiet_steps, lr_sum, first = [], 0.0, {}
     inner = moe_lib._num_dispatch_groups
     record_groups(moe_lib, one["groups"])
     try:
@@ -370,6 +420,7 @@ def mesh_case(tmp_path, arch, fsdp, model_axis, micro):
                 q, z = {}, {}
                 for p in grads[0]:
                     g = sum(mg[p] for mg in grads) / micro
+                    first.setdefault(p, g.numpy())
                     q[p] = (g.abs() < 1e-5 * g.abs().max()).numpy()
                     if p.rsplit("/", 1)[-1] in EXPERT_LEAVES:
                         z[p] = (g == 0).numpy()
@@ -413,14 +464,21 @@ def mesh_case(tmp_path, arch, fsdp, model_axis, micro):
             quiet[p] = m if p not in quiet else quiet[p] | m
     n_quiet = sum(int(m.sum()) for m in quiet.values())
     assert n_quiet < 1e-2 * sum(m.size for m in quiet.values()), n_quiet
+    if recurrent:
+        for path, g in first.items():
+            for want, side in ((g, "one rank"), (reference_leaf(jax_out, "grad0", path),
+                                                 "reference")):
+                err = float(np.abs(mesh[f"grad0/{path}"] - want).max())
+                assert err <= 1e-5 * float(np.abs(want).max()), ("grad0", path, side, err)
+    share = RECURRENT_STEP_SHARE if recurrent else 0.0
     ones = {"master": dict(tree_leaves_with_path(state["master"])),
             "params": dict(tree_leaves_with_path(params))}
     for name in ("master", "params"):
         for path, leaf in ones[name].items():
             g = mesh[f"{name}/{path}"]
             close(g, reference_leaf(jax_out, name, path), quiet[path], lr_sum,
-                  (name, path, "reference"))
-            close(g, leaf.numpy(), quiet[path], lr_sum, (name, path, "one rank"))
+                  (name, path, "reference"), share)
+            close(g, leaf.numpy(), quiet[path], lr_sum, (name, path, "one rank"), share)
     return got
 
 

@@ -20,7 +20,9 @@ unchanged, with or without an active mesh; `launch.train` builds its
 mesh (``--model-axis 2`` fails the reference's assertion on one
 device); `restore_checkpoint(shardings=...)` gives the saved bits on the
 mesh's device; under a fake group of 4 the local shapes follow the
-specs; `ShardedIndexService._shard_mesh` is None on one device in both
+specs, and `on_local_blocks` hands a function each rank's blocks by
+logical spec, with partial gradients where declared;
+`ShardedIndexService._shard_mesh` is None on one device in both
 packages.  Every process group a test starts is destroyed before it
 ends; `set_dp_over_model` is reset in both packages after every test.
 """
@@ -352,6 +354,62 @@ def test_local_shapes_under_a_fake_group_of_four_follow_the_specs():
             assert tuple(y.to_local().shape) == tsh.NamedSharding(
                 mesh, tsh._constrain_spec((rows, 6), {"data": 2, "model": 2},
                                           ("dp", "tp"))).local_shape((rows, 6))
+
+
+def test_on_local_blocks_places_blocks_by_logical_spec():
+    """`sharding.on_local_blocks` on a (2, 2) mesh of a fake group of 4:
+    plain tensors go to the function as they are; DTensors reach it as
+    the blocks their logical specs give (rows over ``data``, channels over
+    ``model``, a name dropped where its dim does not divide the axis),
+    each output comes back placed by its spec with the names' resolved
+    axes, and a gradient declared partial over ``dp`` reaches a
+    parameter replicated there as a partial sum over ``data`` (over
+    nothing where the rows did not divide it).  A name resolved two
+    ways, a plain tensor beside a DTensor, or a partial gradient of an
+    input sharded on that axis raise before the function runs."""
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.distributed.tensor import Partial, Replicate, Shard, distribute_tensor
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+    dist.init_process_group("fake", store=FakeStore(), rank=0, world_size=4)
+    mesh = init_device_mesh("cpu", (2, 2), mesh_dim_names=("data", "model"))
+    seen = []
+
+    def fn(x, w):
+        seen.append([tuple(x.shape), tuple(w.shape)])
+        return x * w, x.sum(dim=1)
+
+    x, w = torch.ones(4, 3, 6), torch.ones(6)
+    specs = (("dp", None, "tp"), ("tp",))
+    outs = (("dp", None, "tp"), ("dp", "tp"))
+    assert all(torch.equal(a, b) for a, b in zip(tsh.on_local_blocks(fn, (x, w), specs, outs),
+                                                 fn(x, w)))
+    for rows, row_axis in ((4, Shard(0)), (3, Replicate())):
+        xd = distribute_tensor(torch.ones(rows, 3, 6), mesh, (Replicate(), Replicate()),
+                               src_data_rank=None)
+        # placed as its spec places it, so the gradient arrives as declared
+        wd = distribute_tensor(w, mesh, (Replicate(), Shard(0)),
+                               src_data_rank=None).requires_grad_(True)
+        y, z = tsh.on_local_blocks(fn, (xd, wd), specs, outs,
+                                   grad_specs=(None, ("dp",)))
+        assert seen[-1] == [(rows // 2 if rows == 4 else rows, 3, 3), (3,)], seen[-1]
+        assert tuple(y.placements) == (row_axis, Shard(2)) and y.shape == (rows, 3, 6)
+        assert tuple(z.placements) == (row_axis, Shard(1)) and z.shape == (rows, 6)
+        (g,) = torch.autograd.grad(y.sum(), wd)
+        partial = Partial() if rows == 4 else Replicate()
+        assert tuple(g.placements) == (partial, Shard(0)), (rows, g.placements)
+    calls = len(seen)
+    xd = distribute_tensor(x, mesh, (Replicate(), Replicate()), src_data_rank=None)
+    wd = distribute_tensor(torch.ones(3), mesh, (Replicate(), Replicate()),
+                           src_data_rank=None)
+    with pytest.raises(ValueError, match="resolves"):
+        tsh.on_local_blocks(fn, (xd, wd), specs, outs)        # 6 and 3 channels
+    with pytest.raises(ValueError, match="one mesh"):
+        tsh.on_local_blocks(fn, (xd, w), specs, outs)
+    with pytest.raises(ValueError, match="sharded there"):
+        tsh.on_local_blocks(fn, (xd, distribute_tensor(w, mesh, (Replicate(), Replicate()),
+                                                       src_data_rank=None)),
+                            specs, outs, grad_specs=(("tp",), None))
+    assert len(seen) == calls
 
 
 def test_index_shard_mesh_is_none_on_one_device_in_both_packages():

@@ -23,10 +23,11 @@ for the reduced mistral-large-123b at (2, 2) with its full config's
 with the rest of the microbatch matrix.  (c) `launch.train --model-axis
 2` on 4 gloo ranks against one rank, float32: losses, a checkpoint
 saved on the mesh restored with ``shardings=`` to the saved bits, and a
-resumed run.  (d) an ssm or a hybrid arch on a mesh of 2 raises before
-any step.  The moe, vlm and audio families' partitioned steps are held
-in `tests/test_torch_train_mesh_{moe,vlm,audio}.py`, the cases run by
-`tests/_torch_train_mesh.py`.
+resumed run.  (d) `launch.train --model-axis 2` of the reduced xlstm-1.3b
+and jamba-1.5-large-398b on 4 gloo ranks against one rank.  The moe,
+vlm, audio, ssm and hybrid families' partitioned steps are held in
+`tests/test_torch_train_mesh_{moe,vlm,audio,ssm,hybrid}.py`, the cases
+run by `tests/_torch_train_mesh.py`.
 """
 
 import dataclasses
@@ -40,9 +41,11 @@ torch = pytest.importorskip("torch")
 
 import torch.distributed as dist  # noqa: E402
 
-from _torch_train_mesh import WORLD, mesh_case, ranks, wait  # noqa: E402
+from _torch_train_mesh import WORLD, FakeMesh, mesh_case, ranks, wait  # noqa: E402
 from repro_torch.configs import get_arch  # noqa: E402
+from repro_torch.distributed.sharding import use_mesh  # noqa: E402
 from repro_torch.launch import train as train_mod  # noqa: E402
+from repro_torch.models import moe as moe_lib  # noqa: E402
 
 
 @pytest.fixture(autouse=True)
@@ -72,7 +75,7 @@ def test_partitioned_step_matches_reference_and_one_rank(tmp_path, arch, fsdp, m
 
 
 # ---------------------------------------------------------------------------
-# (c) the launcher on 4 ranks, (d) the refusal
+# (c) the launcher on 4 ranks, (d) the recurrent families through it
 # ---------------------------------------------------------------------------
 
 LAUNCH_ARGV = ["--arch", "yi-6b", "--reduced", "--device", "cpu", "--global-batch", "4",
@@ -148,16 +151,45 @@ def test_launcher_trains_on_four_ranks_as_on_one(tmp_path, monkeypatch):
     assert sorted(os.listdir(tmp_path / "mesh_ck")) == sorted(os.listdir(tmp_path / "one_ck"))
 
 
+_LAUNCH_RECURRENT = r"""
+import dataclasses, json, sys
+import torch.distributed as dist
+from repro_torch.configs import get_arch
+from repro_torch.launch import train
+rank, world, store, argv, out = sys.argv[1:]
+dist.init_process_group("gloo", init_method="file://" + store, rank=int(rank),
+                        world_size=int(world))
+train.get_arch = lambda name, reduced=False: dataclasses.replace(
+    get_arch(name, reduced=reduced), dtype="float32")
+got = train.main(json.loads(argv) + ["--model-axis", "2"])
+with open(f"{out}.{rank}.json", "w") as f:
+    json.dump(got, f)
+dist.destroy_process_group()
+"""
+
+
 @pytest.mark.parametrize("arch", ["xlstm-1.3b", "jamba-1.5-large-398b"])
-def test_launcher_refuses_other_families_on_a_mesh_of_two(monkeypatch, arch):
-    """(d): an ssm or hybrid arch on a mesh of 2 (a fake group of 2
-    ranks) raises `NotImplementedError` naming ROADMAP queue A item 11
-    before any step: no train step is even built."""
-    from torch.testing._internal.distributed.fake_pg import FakeStore
-    dist.init_process_group("fake", store=FakeStore(), rank=0, world_size=2)
-    built = []
-    monkeypatch.setattr(train_mod, "make_train_step", lambda *a, **kw: built.append(a))
-    with pytest.raises(NotImplementedError, match="queue A item 11"):
-        train_mod.main(["--arch", arch, "--reduced", "--device", "cpu",
-                        "--model-axis", "2", "--steps", "1"])
-    assert not built
+def test_launcher_trains_recurrent_families_on_four_ranks_as_on_one(tmp_path, monkeypatch,
+                                                                    arch):
+    """(d): `launch.train --reduced --model-axis 2` of an ssm and a hybrid
+    arch on 4 gloo ranks (a (2, 2) mesh, the scans on each rank's local
+    blocks), float32, 2 steps: the first and last losses within 1e-5
+    relative of one rank's, whose MoE dispatch (jamba's) takes the
+    ranks' group count through a duck-typed mesh of their shape."""
+    argv = ["--arch", arch] + LAUNCH_ARGV[2:] + ["--steps", "2"]
+    procs = ranks(_LAUNCH_RECURRENT, tmp_path, json.dumps(argv), tmp_path / "launch")
+    monkeypatch.setattr(train_mod, "get_arch", lambda name, reduced=False: dataclasses.replace(
+        get_arch(name, reduced=reduced), dtype="float32"))
+    inner = moe_lib._num_dispatch_groups
+
+    def mesh_groups(t):
+        with use_mesh(FakeMesh(data=2, model=2)):
+            return inner(t)
+
+    monkeypatch.setattr(moe_lib, "_num_dispatch_groups", mesh_groups)
+    one = train_mod.main(argv)
+    wait(procs)
+    for r in range(WORLD):
+        got = json.loads((tmp_path / f"launch.{r}.json").read_text())
+        for key in ("first_loss", "last_loss"):
+            np.testing.assert_allclose(got[key], one[key], rtol=1e-5, err_msg=(r, key))
